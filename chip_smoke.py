@@ -3,25 +3,32 @@
 
     python3 chip_smoke.py
 
-Phases, one line each on stdout:
-  1. build: compile every CUDA source in gnark_icicle_tpu_torch/csrc/;
+For each curve the port covers, BN254 (Fp at 8 32-bit words) and BLS12-381
+(Fp at 12), phases print one JSON line each on stdout:
+  1. build: compile every (CUDA source, curve) pair in
+     gnark_icicle_tpu_torch/csrc/, all nvcc processes at once, and report
+     ptxas's registers and spills;
   2. kernels: each kernel entry against its plain PyTorch version on the
      card, bit-equal (Fr product, subtraction and NTT stage at 2^16 lanes;
-     G1 and G2 masked signed mixed add, add and double at 2^14 lanes), then
-     again at the shapes the 2^17 prove gives it, with CUDA-event times of
-     both there;
+     G1 and G2 masked signed mixed add, add and double at 2^14 lanes, with
+     operands at p - 1 and near R), then again at the shapes the 2^17 prove
+     gives it, with CUDA-event times of both there and the least time the
+     card could take (bound_ms); the mixed adds are also timed at setup's
+     fixed-base ladder widths (one table row, mask = a bit);
   3. msm: a G1 MSM at 2^12 points and a G2 MSM at 2^10 points against the
-     host oracle of gnark_icicle_tpu.curves, in affine form;
+     host oracle of the port's curves/, in affine form;
   4. groth16: the 2^17-step Chain circuit (bench.py's rollup-scale
-     benchmark): compile, setup, a warm-up prove, two timed proves with
-     solve / computeH / MSM phase times; the port's verifier accepts the
-     proof and rejects a tampered public input;
-  5. launches: every kernel's launch count over phase 4 (each must be > 0),
-     then one JSON line of all kernels;
+     benchmark): compile, setup (host/points split), a first prove, two
+     timed proves with solve / computeH / MSM phase times, one prove under
+     torch.profiler (device busy share, device time by kernel); the port's
+     verifier accepts the proof and rejects a tampered public input. The
+     kernels' launch counts are set to 0 just before setup and read just
+     after the last prove, and every kernel of the curve must have run;
+  5. the JSON line of all kernels (the counts of their own curve's path);
   6. the card's name and power limit from nvidia-smi.
 The last line is {"ok": true, "device": {...}}. Any failure raises: the
 script exits non-zero and prints no such line. It needs one CUDA card and
-imports nothing of JAX.
+imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
@@ -34,7 +41,8 @@ import subprocess
 import sys
 import time
 
-CHAIN_LOG = 17      # Chain(2^17 - 2 steps): 131,510 constraints
+CURVE_NAMES = ("bn254", "bls12_381")
+CHAIN_LOG = {"bn254": 17, "bls12_381": 17}  # Chain(2^17 - 2): 131,510 constraints
 REPS_KERNEL = 20    # timed launches per kernel
 N_FR = 1 << 16      # lanes of the Fr kernel checks
 N_EC = 1 << 14      # lanes of the group-law kernel checks
@@ -47,11 +55,35 @@ SLICE = {
     "wave": 17 << 15,           # first wave stage: W·B = 17·2^15 lanes
     "reduce": 17 << 11,         # chunked bucket reduction: W·V = 17·2048
     "double": 17,               # the reduction's doublings: W lanes
+    "ladder": {"g1": 1 << 18, "g2": 131512},  # setup's fixed-base ladders
 }
+# The card's rates for the bound (the least time the card could take): HBM
+# bandwidth from NVIDIA's H100 SXM data sheet; 32-bit integer multiply-adds
+# at 64 per SM per clock (compute capability 9.0), at the card's maximum SM
+# clock as nvidia-smi reads it. A 32x32 -> 64-bit product is two of them (low
+# and high halves).
+HBM_BYTES_PER_S = 3.35e12
+IMAD_PER_SM_CLOCK = 64
+# base-field products per group-law lane, not counting the products by b3
+# (Renes-Costello-Batina 2016: mixed add 11, add 12, double 8); an Fp2
+# product is 3 base products (Karatsuba)
+PRODUCTS = {"add_mixed_masked": 11, "add": 12, "double": 8}
 
 
 def _say(phase: str, **kv) -> None:
     print(json.dumps({"phase": phase, **kv}), flush=True)
+
+
+def _smi(query: str) -> str:
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def _curves() -> dict:
+    from gnark_icicle_tpu_torch.curves import bls12_381, bn254
+
+    return {"bn254": bn254.BN254, "bls12_381": bls12_381.BLS12_381}
 
 
 def _cuda_ms(fn, reps: int) -> float:
@@ -75,6 +107,25 @@ def _max_abs_err(a, b) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
 
 
+def card_rates() -> dict:
+    import torch
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(_smi("clocks.max.sm").split()[0])
+    rates = {"sms": sms, "max_sm_mhz": mhz, "hbm_bytes_per_s": HBM_BYTES_PER_S,
+             "imad_per_s": sms * IMAD_PER_SM_CLOCK * mhz * 1e6}
+    _say("card", **rates)
+    return rates
+
+
+def _bound(rates: dict, nbytes: float, products: float, words: int) -> tuple:
+    """(bound_ms, bound_by) for `products` Montgomery products of `words`
+    words (CIOS: 2·words² wide products each) and `nbytes` moved."""
+    t_bytes = nbytes / rates["hbm_bytes_per_s"]
+    t_ops = 2 * (2 * words * words * products) / rates["imad_per_s"]
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 def phase_build() -> None:
     from gnark_icicle_tpu_torch.ops import cuda as kc
 
@@ -82,47 +133,58 @@ def phase_build() -> None:
     regs = {}
     out_dir = os.path.join(kc.BUILD_ROOT, kc._source_hash())
     for src in kc.SOURCES:
-        path = os.path.join(out_dir, src[:-3] + ".log")
-        lines = open(path).read().splitlines() if os.path.exists(path) else []
-        regs[src] = [ln.split("ptxas info    : ")[-1] for ln in lines
-                     if "registers" in ln or "spill" in ln]
+        for curve in kc.CURVES:
+            stem = kc.lib_stem(src[:-3], curve)
+            path = os.path.join(out_dir, stem + ".log")
+            lines = open(path).read().splitlines() if os.path.exists(path) else []
+            regs[stem] = [ln.split("ptxas info    : ")[-1] for ln in lines
+                          if "registers" in ln or "spill" in ln]
     _say("build", seconds=seconds, ptxas=regs)
 
 
 def _rand_fe(rng, q, n):
-    return [rng.randrange(q) for _ in range(n)]
+    """n random elements of Z/q, led by p - 1, p - 2 and values near R."""
+    from gnark_icicle_tpu_torch.ops.field import field_for
+
+    R = field_for(q).R
+    edge = [q - 1, q - 2, (R - 1) % q, R % q, (R >> 1) % q]
+    return edge + [rng.randrange(q) for _ in range(n - len(edge))]
 
 
-def _rand_dev(planes: int, n: int, device):
-    """(planes, 8, n) random canonical Montgomery words on the card (the top
-    word below p's top word keeps every value under both moduli)."""
+def _rand_dev(F, planes: int, n: int, device):
+    """(planes, W, n) random canonical Montgomery words of field F on the
+    card (a top word below p's top word keeps every value under p)."""
     import torch
 
-    w = torch.randint(-(1 << 31), 1 << 31, (planes, 8, n), dtype=torch.int64,
+    w = torch.randint(-(1 << 31), 1 << 31, (planes, F.n32, n), dtype=torch.int64,
                       device=device)
-    w[:, 7] = torch.randint(0, 0x30644E72, (planes, n), device=device)
+    w[:, -1] = torch.randint(0, F.modulus >> (32 * (F.n32 - 1)), (planes, n),
+                             device=device)
     return w.to(torch.int32)
 
 
-def phase_kernels(device) -> list:
-    """Every kernel entry against its plain version on the card, bit-equal:
-    first at the check sizes (N_FR, N_EC), then at the main path's shapes
-    (SLICE), where both versions are also timed."""
+def phase_kernels(device, name: str, rates: dict) -> list:
+    """Every kernel entry of one curve against its plain version on the card,
+    bit-equal: first at the check sizes (N_FR, N_EC), then at the main
+    path's shapes (SLICE), where both versions are also timed."""
     import torch
 
-    from gnark_icicle_tpu.curves import bn254
     from gnark_icicle_tpu_torch.ops import cuda as kc
     from gnark_icicle_tpu_torch.ops.ec_t import TCurve, TCurve2
     from gnark_icicle_tpu_torch.ops.field import field_for
     from gnark_icicle_tpu_torch.ops.field_t import TField
     from gnark_icicle_tpu_torch.ops.ntt import ntt_stage, ntt_stage_plain
 
+    curve = _curves()[name]
+    prefix = kc.CURVES[name]
     rng = random.Random(7)
-    fr, fp = field_for(bn254.R), field_for(bn254.P)
+    R, P = curve.fr.modulus, curve.fp.modulus
+    fr, fp = field_for(R), field_for(P)
     tf = TField(fr)
     results = []
 
-    def record(name, check_err, shape, args, run, run_plain):
+    def record(kname, check_err, shape, args, run, run_plain, nbytes, products,
+               words, **extra):
         """args: inputs at the main path's shape; run/run_plain(*args) return
         the result (an in-place kernel returns its updated input). Both run
         once on copies of args and must agree; then each is timed on args."""
@@ -131,24 +193,31 @@ def phase_kernels(device) -> list:
 
         err = max(check_err, _max_abs_err(run(*fresh()), run_plain(*fresh())))
         if err != 0:
-            raise AssertionError(f"{name}: kernel differs from its plain version")
-        k = kc.KERNELS[name]
-        results.append({"name": name, "route": "cuda", "source": k.source,
-                        "replaces": k.replaces, "max_abs_err": err,
-                        "shape": shape, "ms": _cuda_ms(lambda: run(*args), REPS_KERNEL),
-                        "plain_ms": _cuda_ms(lambda: run_plain(*args), 2)})
+            raise AssertionError(f"{prefix}{kname}: kernel differs from its plain version")
+        k = kc.KERNELS[prefix + kname]
+        bound_ms, bound_by = _bound(rates, nbytes, products, words)
+        results.append({"name": k.name, "route": "cuda", "source": k.source,
+                        "replaces": k.replaces, "curve": name, "max_abs_err": err,
+                        "shape": shape,
+                        "ms": _cuda_ms(lambda: run(*args), REPS_KERNEL),
+                        "plain_ms": _cuda_ms(lambda: run_plain(*args), 2),
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": None, **extra})
 
     # Fr: field elements at N_FR lanes, then the computeH width
     n = N_FR
-    a = fr.encode(_rand_fe(rng, bn254.R, n), device)
-    b = fr.encode(_rand_fe(rng, bn254.R, n), device)
-    c1 = fr.const(rng.randrange(bn254.R), device)
-    big = list(_rand_dev(2, SLICE["fr"], device))
+    a = fr.encode(_rand_fe(rng, R, n), device)
+    b = fr.encode(_rand_fe(rng, R, n)[::-1], device)
+    c1 = fr.const(rng.randrange(R), device)
+    nf = SLICE["fr"]
+    big = list(_rand_dev(fr, 2, nf, device))
+    lane = 4 * fr.n32   # bytes of one element
     record("fr_mont_mul", max(_max_abs_err(tf.mont_mul(a, b), fr.mont_mul(a, b)),
                               _max_abs_err(tf.mont_mul(a, c1), fr.mont_mul(a, c1))),
-           f"(8, {SLICE['fr']})", big, tf.mont_mul, fr.mont_mul)
+           f"({fr.n32}, {nf})", big, tf.mont_mul, fr.mont_mul,
+           3 * lane * nf, nf, fr.n32)
     record("fr_sub", _max_abs_err(tf.sub(a, b), fr.sub(a, b)),
-           f"(8, {SLICE['fr']})", big, tf.sub, fr.sub)
+           f"({fr.n32}, {nf})", big, tf.sub, fr.sub, 3 * lane * nf, 0, fr.n32)
 
     def stage(fn, m, stride, dif):
         def run(x, tw):
@@ -156,7 +225,7 @@ def phase_kernels(device) -> list:
             return x
         return run
 
-    tw = fr.encode(_rand_fe(rng, bn254.R, n // 2), device)
+    tw = fr.encode(_rand_fe(rng, R, n // 2), device)
     err = 0
     for m, stride, dif in ((8, n // 16, False), (n // 64, 32, True)):
         err = max(err, _max_abs_err(stage(ntt_stage, m, stride, dif)(a.clone(), tw),
@@ -164,54 +233,93 @@ def phase_kernels(device) -> list:
     big_n, big_m = SLICE["ntt"]
     stride = big_n // (2 * big_m)
     record("ntt_stage", err, f"n={big_n}, m={big_m}",
-           [_rand_dev(1, big_n, device)[0], _rand_dev(1, big_n // 2, device)[0]],
+           [_rand_dev(fr, 1, big_n, device)[0], _rand_dev(fr, 1, big_n // 2, device)[0]],
            stage(ntt_stage, big_m, stride, True),
-           stage(ntt_stage_plain, big_m, stride, True))
+           stage(ntt_stage_plain, big_m, stride, True),
+           2 * lane * big_n + lane * big_m, big_n // 2, fr.n32)
 
     # G1 and G2: random coordinates (the formulas are arithmetic, so any field
     # elements test them), identity lanes, random signs and masks
     n = N_EC
-    g1 = TCurve(fp, 3 * bn254.G1.b % bn254.P)
-    g2 = TCurve2(fp, -1, bn254.G2.b * 3)
+    g1 = TCurve(fp, 3 * curve.g1.b % P)
+    g2 = TCurve2(fp, curve.tower.beta, curve.g2.b * 3)
     for tc, tag in ((g1, "g1"), (g2, "g2")):
-        def rand_points(count):
-            P = _rand_dev(tc.planes, count, device)
-            k = min(16, count)
-            P[..., :k] = tc.identity(k, device)
-            return P
+        coord = 4 * fp.n32 * tc.NP          # bytes of one coordinate
+        per_product = 3 if tc.NP == 2 else 1
 
-        def rand_wave(lanes, rows):
-            table = _rand_dev(2 * tc.NP, rows, device).reshape(-1, rows).T.contiguous()
+        def rand_points(count):
+            P_ = _rand_dev(fp, tc.planes, count, device)
+            k = min(16, count)
+            P_[..., :k] = tc.identity(k, device)
+            return P_
+
+        def rand_wave(lanes, rows, signed=True):
+            table = _rand_dev(fp, 2 * tc.NP, rows, device).reshape(-1, rows).T.contiguous()
             idx = torch.randint(0, rows, (lanes,), dtype=torch.int32, device=device)
-            sign = torch.randint(0, 2, (lanes,), dtype=torch.int32, device=device)
+            sign = (torch.randint(0, 2, (lanes,), dtype=torch.int32, device=device)
+                    if signed else None)
             mask = torch.randint(0, 2, (lanes,), dtype=torch.int32, device=device)
             return [table, idx, sign, mask]
 
         def wave(fn, lanes):
-            def run(acc, *w):
-                fn(acc, lanes, *w)
+            def run(acc, table, idx, sign, mask):
+                fn(acc, lanes, table, idx, sign, mask)
                 return acc
             return run
+
+        def wave_bytes(lanes, w):
+            """mask of every lane; idx, sign, table row and acc in and out
+            of the unmasked lanes; each gathered row read once"""
+            table, idx, sign, mask = w
+            on = mask != 0
+            rows = int(torch.unique(idx[on]).numel())
+            k = int(on.sum().item())
+            return (4 * lanes + k * (4 + (4 if sign is not None else 0) + 6 * coord)
+                    + rows * 2 * coord), k
 
         def plain(op):
             def run(*args):
                 return tc._stack(getattr(tc.curve, op)(*map(tc._coords, args)))
             return run
 
-        P, Q = rand_points(n), rand_points(n)
-        check = [P] + rand_wave(n, 1 << 12)
+        P_, Q_ = rand_points(n), rand_points(n)
+        # an edge table: rows at p - 1 and near R
+        check = [P_] + rand_wave(n, 1 << 12)
+        edge = fp.encode(_rand_fe(rng, P, 2 * tc.NP * 8), device)
+        check[1][:8] = edge.reshape(fp.n32, 8, 2 * tc.NP).permute(1, 2, 0).reshape(8, -1)
         lanes = SLICE["wave"]
+        w_path = rand_wave(lanes, SLICE["points"])
+        nb, k = wave_bytes(lanes, w_path)
+        # K6's role: setup's fixed-base ladder step (one row, no sign, mask = bit)
+        ladder_lanes = SLICE["ladder"][tag]
+        w_ladder = rand_wave(ladder_lanes, 1, signed=False)
+        acc_ladder = rand_points(ladder_lanes)
+        lad = [wave(tc.add_mixed_masked, ladder_lanes), wave(tc.add_mixed_masked_plain, ladder_lanes)]
+        lad_err = _max_abs_err(lad[0](acc_ladder.clone(), *w_ladder),
+                               lad[1](acc_ladder.clone(), *w_ladder))
+        if lad_err != 0:
+            raise AssertionError(f"{prefix}{tag}_add_mixed_masked: ladder step differs")
+        lnb, lk = wave_bytes(ladder_lanes, w_ladder)
+        l_bound, l_by = _bound(rates, lnb, lk * PRODUCTS["add_mixed_masked"] * per_product,
+                               fp.n32)
         record(f"{tag}_add_mixed_masked",
                _max_abs_err(wave(tc.add_mixed_masked, n)(*[t.clone() for t in check]),
                             wave(tc.add_mixed_masked_plain, n)(*[t.clone() for t in check])),
                f"{lanes} lanes, {SLICE['points']} table rows",
-               [rand_points(lanes)] + rand_wave(lanes, SLICE["points"]),
-               wave(tc.add_mixed_masked, lanes), wave(tc.add_mixed_masked_plain, lanes))
+               [rand_points(lanes)] + w_path,
+               wave(tc.add_mixed_masked, lanes), wave(tc.add_mixed_masked_plain, lanes),
+               nb, k * PRODUCTS["add_mixed_masked"] * per_product, fp.n32,
+               ladder={"lanes": ladder_lanes,
+                       "ms": _cuda_ms(lambda: lad[0](acc_ladder, *w_ladder), REPS_KERNEL),
+                       "plain_ms": _cuda_ms(lambda: lad[1](acc_ladder, *w_ladder), 2),
+                       "bound_ms": l_bound, "bound_by": l_by})
         for op, width in (("add", SLICE["reduce"]), ("double", SLICE["double"])):
-            args = [P, Q] if op == "add" else [P]
+            args = [P_, Q_] if op == "add" else [P_]
             record(f"{tag}_{op}", _max_abs_err(getattr(tc, op)(*args), plain(op)(*args)),
                    f"{width} lanes", [rand_points(width) for _ in args],
-                   getattr(tc, op), plain(op))
+                   getattr(tc, op), plain(op),
+                   (len(args) + 1) * 3 * coord * width,
+                   width * PRODUCTS[op] * per_product, fp.n32)
     torch.cuda.synchronize()
     for r in results:
         _say("kernel", **r)
@@ -235,40 +343,74 @@ def _chain_points(group, k0: int, dk: int, n: int, q: int):
 def phase_msm(ctx) -> None:
     """G1 MSM at 2^12 and G2 MSM at 2^10 points against the host oracle:
     Σ s_i·(k_i·G) = (Σ s_i·k_i)·G, one scalar product on curves/."""
-    from gnark_icicle_tpu.curves import bn254
     from gnark_icicle_tpu_torch.ops.msm import msm_host
 
+    curve = ctx.curve
     rng = random.Random(11)
-    q = bn254.R
-    for tag, group, tc in (("g1", bn254.G1, ctx.g1), ("g2", bn254.G2, ctx.g2)):
+    q = curve.fr.modulus
+    for tag, group, tc in (("g1", curve.g1, ctx.g1), ("g2", curve.g2, ctx.g2)):
         n = N_MSM[tag]
         pts, logs = _chain_points(group, rng.randrange(1, q), rng.randrange(1, q), n, q)
         scal = [rng.randrange(q) for _ in range(n)]
         scal[:3] = [0, 1, q - 1]
         t0 = time.perf_counter()
-        got = msm_host(tc, bn254.FR, pts, scal, ctx.device)
+        got = msm_host(tc, curve.fr, pts, scal, ctx.device)
         seconds = time.perf_counter() - t0
         want = group.scalar_mul(group.generator,
                                 sum(s * k for s, k in zip(scal, logs)) % q)
         if tag == "g2" and want is not None:
             want = ((want[0].c0, want[0].c1), (want[1].c0, want[1].c1))
         if got != want:
-            raise AssertionError(f"{tag} MSM at {n} points differs from the host oracle")
-        _say("msm", group=tag, points=n, equal=True, seconds=seconds)
+            raise AssertionError(f"{curve.name} {tag} MSM at {n} points differs "
+                                 "from the host oracle")
+        _say("msm", curve=curve.name, group=tag, points=n, equal=True, seconds=seconds)
 
 
-def phase_groth16(device) -> dict:
-    """The 2^17-step Chain: compile, setup, warm-up, two timed proves,
-    verify and a tampered public input. Returns the launch counts."""
-    from gnark_icicle_tpu.curves import bn254
-    from gnark_icicle_tpu.frontend import Circuit, Public, Secret, compile_circuit
-    from gnark_icicle_tpu_torch.backend import groth16
-    from gnark_icicle_tpu_torch.ops import cuda as kc
+def _profiled(run) -> dict:
+    """run() under torch.profiler: wall seconds, device busy seconds (the
+    union of the device events' intervals) and device ms of the top kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        key = e.name.split("(")[0][:80]
+        ms, count = by_name.get(key, (0.0, 0))
+        by_name[key] = (ms + e.time_range.elapsed_us() / 1e3, count + 1)
+    busy_us, end = 0.0, float("-inf")
+    for s, e in sorted(spans):
+        if e > end:
+            busy_us += e - max(s, end)
+            end = e
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    return {"wall_s": wall, "device_busy_s": busy_us / 1e6,
+            "busy_share": busy_us / 1e6 / wall if spans else None,
+            "device_events": len(spans),
+            "top": [{"kernel": k, "device_ms": ms, "launches": c} for k, (ms, c) in top]}
+
+
+def phase_groth16(device, name: str) -> dict:
+    """The 2^17-step Chain on one curve: compile, setup, first prove, two
+    timed proves, one profiled prove, verify and a tampered public input.
+    Returns the launch counts of this path."""
     import torch
 
-    q = bn254.R
-    steps = (1 << CHAIN_LOG) - 2
+    from gnark_icicle_tpu_torch.backend import groth16
+    from gnark_icicle_tpu_torch.frontend import Circuit, Public, Secret, compile_circuit
+    from gnark_icicle_tpu_torch.ops import cuda as kc
+
+    curve = _curves()[name]
+    q = curve.fr.modulus
+    steps = (1 << CHAIN_LOG[name]) - 2
 
     class Chain(Circuit):
         x = Secret()
@@ -288,13 +430,18 @@ def phase_groth16(device) -> dict:
         v = (v * v + v + i) % q
     pub, sec = [v], [3]
 
-    phases = []
+    phases, setup_split = [], {}
 
     class Grab(logging.Handler):
         def emit(self, record):
             msg = record.msg
-            if isinstance(msg, str) and msg.startswith("groth16 prove: ") \
-                    and "took=" in msg and "curve=" not in msg:
+            if not isinstance(msg, str):
+                return
+            if msg.startswith("groth16 setup: "):
+                setup_split.update(host_s=float(record.args[0]),
+                                   points_s=float(record.args[1]))
+            elif msg.startswith("groth16 prove: ") and "took=" in msg \
+                    and "curve=" not in msg:
                 phases.append((msg.split(":")[1].split("took")[0].strip(),
                                float(record.args[0])))
 
@@ -303,33 +450,40 @@ def phase_groth16(device) -> dict:
     log.addHandler(grab)
     log.setLevel(logging.INFO)
 
-    for k in kc.KERNELS.values():   # count the main path's launches only
+    for k in kc.KERNELS.values():   # count this path's launches only
         k.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    pk, vk = groth16.setup(cs, bn254.BN254, rng=random.Random(1), device=device)
+    pk, vk = groth16.setup(cs, curve, rng=random.Random(1), device=device)
     t_setup = time.perf_counter() - t0
     rng = random.Random(2)
     t0 = time.perf_counter()
-    groth16.prove(cs, pk, pub, sec, bn254.BN254, rng=rng, device=device)
-    t_warm = time.perf_counter() - t0
+    groth16.prove(cs, pk, pub, sec, curve, rng=rng, device=device)
+    t_first = time.perf_counter() - t0
     timed = []
     for _ in range(2):
         phases.clear()
         t0 = time.perf_counter()
-        proof = groth16.prove(cs, pk, pub, sec, bn254.BN254, rng=rng, device=device)
+        proof = groth16.prove(cs, pk, pub, sec, curve, rng=rng, device=device)
         timed.append({"seconds": time.perf_counter() - t0, **dict(phases)})
-    launches = {name: k.launches for name, k in kc.KERNELS.items()}
+    profiled = _profiled(lambda: groth16.prove(cs, pk, pub, sec, curve, rng=rng,
+                                               device=device))
+    launches = {k.name: k.launches for k in kc.KERNELS.values() if k.curve == name}
     peak = torch.cuda.max_memory_allocated()
     log.removeHandler(grab)
 
-    groth16.verify(proof, vk, pub, bn254.BN254)
-    if groth16.is_valid(proof, vk, [(v + 1) % q], bn254.BN254):
+    groth16.verify(proof, vk, pub, curve)
+    if groth16.is_valid(proof, vk, [(v + 1) % q], curve):
         raise AssertionError("the verifier accepted a tampered public input")
-    _say("groth16", constraints=cs.nb_constraints, wires=cs.nb_wires,
+    _say("groth16", curve=curve.name, constraints=cs.nb_constraints, wires=cs.nb_wires,
          domain_log_n=pk.domain_log_n, compile_s=t_compile, setup_s=t_setup,
-         warmup_prove_s=t_warm, proves=timed, peak_device_bytes=peak,
+         setup_split=setup_split, first_prove_s=t_first, proves=timed,
+         profiled_prove=profiled, peak_device_bytes=peak,
          verified=True, tampered_rejected=True)
+    missing = [k for k, c in launches.items() if c <= 0]
+    if missing:
+        raise AssertionError(f"kernels the {name} path never launched: {missing}")
+    _say("launches", curve=curve.name, **launches)
     return launches
 
 
@@ -339,26 +493,25 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device; this runs on the GPU only")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from gnark_icicle_tpu.curves import bn254
     from gnark_icicle_tpu_torch.device import DeviceCtx
-    from gnark_icicle_tpu_torch.ops import cuda as kc
 
+    t_start = time.perf_counter()
     device = torch.device("cuda", 0)
     phase_build()
-    kernels = phase_kernels(device)
-    phase_msm(DeviceCtx(bn254.BN254, device))
-    launches = phase_groth16(device)
-    _say("launches", **launches)
-    missing = [name for name in kc.KERNELS if launches.get(name, 0) <= 0]
-    if missing:
-        raise AssertionError(f"kernels the main path never launched: {missing}")
+    rates = card_rates()
+    kernels = []
+    for name in CURVE_NAMES:
+        kernels += phase_kernels(device, name, rates)
+    for name in CURVE_NAMES:
+        phase_msm(DeviceCtx(_curves()[name], device))
+    launches = {}
+    for name in CURVE_NAMES:
+        launches.update(phase_groth16(device, name))
     for k in kernels:
         k["launches"] = launches[k["name"]]
+    _say("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(_smi("name,power.limit"), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -5,10 +5,8 @@ cannot be imported without JAX, because its package ``__init__`` imports the
 JAX prover. Points are host affine (None = infinity). The proving key's
 device staging is cached per device after first use.
 
-``from_reference``/``to_reference`` carry a key or proof between the two
-packages (same host points and ints), so that a test can prove from one key
-on both sides. ``to_reference`` imports the JAX package; nothing on the
-port's own path calls it.
+``from_reference`` builds a key or proof from any object with the same
+public fields (the JAX package's, in the tests), reading them by name.
 """
 
 from __future__ import annotations
@@ -21,17 +19,11 @@ def _public_fields(cls):
 
 
 class _Carry:
-    """from_reference / to_reference over the public dataclass fields."""
+    """from_reference over the public dataclass fields."""
 
     @classmethod
     def from_reference(cls, obj):
         return cls(**{k: getattr(obj, k) for k in _public_fields(cls)})
-
-    def to_reference(self):
-        from gnark_icicle_tpu.backend.groth16 import keys as ref_keys
-
-        ref_cls = getattr(ref_keys, type(self).__name__)
-        return ref_cls(**{k: getattr(self, k) for k in _public_fields(type(self))})
 
 
 @dataclass

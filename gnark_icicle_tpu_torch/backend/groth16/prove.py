@@ -9,8 +9,8 @@ device phase :371-555, ``_compute_h`` :31-90) with ``_assemble_proof``
   coset INTT → from Montgomery; h stays on the device, bit-reversed)  →
   MSMs A, B1, K, Z over G1 and B2 over G2  →  r, s blinding (host).
 
-Each phase's wall time is logged (``gnark_icicle_tpu.logger``) after the
-device has finished it. Not ported yet: BSB22 commitments, checkpoints, a
+Each phase's wall time is logged (the port's ``logger``) after the device
+has finished it. Not ported yet: BSB22 commitments, checkpoints, a
 device mesh and the host engine; asking for one raises NotImplementedError.
 """
 
@@ -21,11 +21,9 @@ import time
 
 import numpy as np
 
-from gnark_icicle_tpu.constraint.solver import solve
-from gnark_icicle_tpu.logger import logger
-
-from ...constraint.solver import solved_u32
-from ...device import DeviceCtx, default_device
+from ...constraint.solver import solve, solved_u32
+from ...device import DeviceCtx
+from ...logger import logger
 from ...ops.field_t import TField
 from ...ops.msm import pick_window
 from .keys import Proof, ProvingKey
@@ -67,7 +65,7 @@ def prove(cs, pk: ProvingKey, public_values, secret_values, curve,
 
     The arguments are the reference's (``commitment_hash`` is read only by
     the commitment path, not ported yet); ``device`` is the torch device of
-    the run (default: the first CUDA card, else the CPU). rng supplies the
+    the run (default: the first CUDA card; raises without one). rng supplies the
     blinding r, s exactly as in the reference, so one rng gives one proof.
     """
     if checkpoint_dir is not None:
@@ -83,7 +81,7 @@ def prove(cs, pk: ProvingKey, public_values, secret_values, curve,
     log = logger()
     t_start = time.perf_counter()
     q = curve.fr.modulus
-    ctx = DeviceCtx(curve, device if device is not None else default_device())
+    ctx = DeviceCtx(curve, device)
     rand = rng.randrange if rng is not None else (
         lambda m: secrets.randbelow(m - 1) + 1
     )

@@ -7,7 +7,8 @@ algebra is copied unchanged, as is the order in which the rng is drawn, so
 that the same rng gives the same keys as the reference. The batch scalar multiplications run on the
 fixed-base ladder (``ops/fixed_base.py``); all the G1 products of the proving
 key (A, B, K and Z) share one ladder run. Circuits with BSB22 commitments
-are not supported yet.
+are not supported yet. ``curve`` is one of the port's curves (BN254,
+BLS12-381); the scalar bits, the ladders and the key's points follow it.
 """
 
 from __future__ import annotations
@@ -15,9 +16,9 @@ from __future__ import annotations
 import secrets
 import time
 
-from gnark_icicle_tpu.logger import logger
-
-from ...device import DeviceCtx, default_device
+from ...curves.tower import Fp2
+from ...device import DeviceCtx
+from ...logger import logger
 from ...ops.ec import _batch_inv
 from ...ops.fixed_base import batch_scalar_mul_host
 from ...ops.ntt import bitrev_indices
@@ -78,8 +79,8 @@ def setup(cs, curve, rng=None, engine: str = "auto", device=None):
     """(ProvingKey, VerifyingKey) for a compiled R1CS (≙ groth16.Setup).
 
     Batches of 256 or more scalars run on the fixed-base ladder of
-    ``device`` (default: the first CUDA card, else the CPU), smaller ones as
-    host scalar multiplications, as in the reference. ``engine`` keeps the
+    ``device`` (default: the first CUDA card; raises without one), smaller
+    ones as host scalar multiplications, as in the reference. ``engine`` keeps the
     reference's signature; its "host" engine is gnark_icicle_tpu's."""
     if engine == "host":
         raise NotImplementedError(
@@ -93,6 +94,8 @@ def setup(cs, curve, rng=None, engine: str = "auto", device=None):
     rand = rng.randrange if rng is not None else (
         lambda n: secrets.randbelow(n - 1) + 1
     )
+    ctx = DeviceCtx(curve, device)  # resolves the device before any work
+    dev = ctx.device
     t0 = time.perf_counter()
 
     log_n = _next_pow2_log(max(cs.nb_constraints, 2))
@@ -127,8 +130,6 @@ def setup(cs, curve, rng=None, engine: str = "auto", device=None):
     g1, g2 = curve.g1, curve.g2
     G1, G2 = g1.generator, g2.generator
     bits = q.bit_length()
-    dev = device if device is not None else default_device()
-    ctx = DeviceCtx(curve, dev)
 
     def batch(tc, grp, base, scalars):
         if len(scalars) < 256:
@@ -172,8 +173,6 @@ def setup(cs, curve, rng=None, engine: str = "auto", device=None):
 
 def _fp2_point(curve, p):
     """A ladder result ((x0, x1), (y0, y1)) as host Fp2 coordinates."""
-    from gnark_icicle_tpu.curves.tower import Fp2
-
     if p is None or hasattr(p[0], "c0"):
         return p
     tp = curve.tower

@@ -1,36 +1,42 @@
-// BN254 Montgomery field arithmetic and the RCB16 a=0 group law for Hopper.
+// Montgomery field arithmetic over N 32-bit words and the RCB16 a=0 group
+// law for Hopper, for BN254 (N = 8 for both fields) and BLS12-381 (Fp: N = 12,
+// Fr: N = 8).
 //
-// Shared by fr.cu, g1.cu and g2.cu. An element is 8 little-endian 32-bit
-// limbs in Montgomery form with R = 2^256, the same value the JAX package
-// holds as 16 16-bit limbs (gnark_icicle_tpu/ops/field.py), so a repack of
-// the bits converts between the two. Every operation returns canonical limbs
-// (< p), which makes the results bit-identical to the reference's.
+// Shared by fr.cu, g1.cu and g2.cu, each built once per curve (see the end of
+// this file). An element is N little-endian 32-bit limbs in Montgomery form
+// with R = 2^(32N), N = ceil((bits + 1) / 32): the same value the JAX package
+// holds as 2N 16-bit limbs (gnark_icicle_tpu/ops/field.py:121), so a repack
+// of the bits converts between the two. Every operation returns canonical
+// limbs (< p), which makes the results bit-identical to the reference's.
 //
-// Device layout: a batch of elements is a limb-major (8, ld) uint32 plane,
+// Device layout: a batch of elements is a limb-major (N, ld) uint32 plane,
 // limb k of lane i at base[k * ld + i], so that neighbouring threads read
 // neighbouring words. A batch of points is a stack of such planes: G1
-// projective (X, Y, Z) is (3, 8, ld), G2 over Fp2 is (6, 8, ld) with the
+// projective (X, Y, Z) is (3, N, ld), G2 over Fp2 is (6, N, ld) with the
 // planes x0, x1, y0, y1, z0, z1. Affine point tables for the MSM gather are
-// row-major instead: one row of 16 (G1: x, y) or 32 (G2: x0, x1, y0, y1)
-// words per point, so one gathered point is a contiguous 64 or 128 bytes.
+// row-major instead: one row of 2N (G1: x, y) or 4N (G2: x0, x1, y0, y1)
+// words per point, so one gathered point is a contiguous 8N or 16N bytes.
 //
 // What bounds these kernels on the card: the 32x32->64-bit integer multiply
-// rate (CIOS Montgomery: 2 * 64 multiply-adds per product) and registers (an
-// element is 8 registers; the G2 mixed add keeps about ten Fp2 temporaries,
-// 160 registers before the multiply's own). The design answer here is the
-// simplest one: one thread per lane, fully unrolled limb loops so the limbs
-// stay in registers, and no shared memory.
+// rate (CIOS Montgomery: 2 * N^2 multiply-adds per product) and registers (an
+// element is N registers; the G2 mixed add keeps about ten Fp2 temporaries,
+// 20N registers before the multiply's own, which spills at N = 12). The
+// design answer here is the simplest one: one thread per lane, fully unrolled
+// limb loops so the limbs stay in registers, and no shared memory.
 #pragma once
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 // ---------------------------------------------------------------------------
-// moduli (BN254 base field Fp and scalar field Fr)
+// moduli: N words, the words of p, INV = -p^-1 mod 2^32 and, for a base
+// field, BETA, the non-residue of Fp2 = Fp[u]/(u^2 - BETA)
 // ---------------------------------------------------------------------------
 
 struct FpP {
-  // p = 21888242871839275222246405745257275088696311157297823662689037894645226208583
+  // BN254 p = 21888242871839275222246405745257275088696311157297823662689037894645226208583
+  static constexpr int N = 8;
+  static constexpr int BETA = -1;
   static __device__ __forceinline__ uint32_t mod(int i) {
     switch (i) {
       case 0: return 0xd87cfd47u;
@@ -47,7 +53,8 @@ struct FpP {
 };
 
 struct FrP {
-  // r = 21888242871839275222246405745257275088548364400416034343698204186575808495617
+  // BN254 r = 21888242871839275222246405745257275088548364400416034343698204186575808495617
+  static constexpr int N = 8;
   static __device__ __forceinline__ uint32_t mod(int i) {
     switch (i) {
       case 0: return 0xf0000001u;
@@ -63,22 +70,64 @@ struct FrP {
   static constexpr uint32_t INV = 0xefffffffu;
 };
 
+struct Bls381Fp {
+  // BLS12-381 p (381 bits) = 4002409555221667393417789825735904156556882819939007885332058136124031650490837864442687629129015664037894272559787
+  static constexpr int N = 12;
+  static constexpr int BETA = -1;
+  static __device__ __forceinline__ uint32_t mod(int i) {
+    switch (i) {
+      case 0: return 0xffffaaabu;
+      case 1: return 0xb9feffffu;
+      case 2: return 0xb153ffffu;
+      case 3: return 0x1eabfffeu;
+      case 4: return 0xf6b0f624u;
+      case 5: return 0x6730d2a0u;
+      case 6: return 0xf38512bfu;
+      case 7: return 0x64774b84u;
+      case 8: return 0x434bacd7u;
+      case 9: return 0x4b1ba7b6u;
+      case 10: return 0x397fe69au;
+      default: return 0x1a0111eau;
+    }
+  }
+  static constexpr uint32_t INV = 0xfffcfffdu;
+};
+
+struct Bls381Fr {
+  // BLS12-381 r (255 bits) = 52435875175126190479447740508185965837690552500527637822603658699938581184513
+  static constexpr int N = 8;
+  static __device__ __forceinline__ uint32_t mod(int i) {
+    switch (i) {
+      case 0: return 0x00000001u;
+      case 1: return 0xffffffffu;
+      case 2: return 0xfffe5bfeu;
+      case 3: return 0x53bda402u;
+      case 4: return 0x09a1d805u;
+      case 5: return 0x3339d808u;
+      case 6: return 0x299d7d48u;
+      default: return 0x73eda753u;
+    }
+  }
+  static constexpr uint32_t INV = 0xffffffffu;
+};
+
 // ---------------------------------------------------------------------------
 // base field element
 // ---------------------------------------------------------------------------
 
 template <class P>
 struct Elt {
-  uint32_t v[8];
+  static constexpr int N = P::N;
+  uint32_t v[P::N];
 };
 
 // t (< 2p, with `hi` the word above the top limb) -> t mod p
 template <class P>
-__device__ __forceinline__ Elt<P> reduce_once(const uint32_t t[8], uint32_t hi) {
+__device__ __forceinline__ Elt<P> reduce_once(const uint32_t t[P::N], uint32_t hi) {
   Elt<P> d;
   uint32_t borrow = 0;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < P::N; ++j) {
     uint64_t diff = (uint64_t)t[j] - P::mod(j) - borrow;
     d.v[j] = (uint32_t)diff;
     borrow = (uint32_t)(diff >> 32) & 1u;
@@ -86,50 +135,54 @@ __device__ __forceinline__ Elt<P> reduce_once(const uint32_t t[8], uint32_t hi) 
   const bool take = (hi != 0) || (borrow == 0);
   Elt<P> r;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) r.v[j] = take ? d.v[j] : t[j];
+  for (int j = 0; j < P::N; ++j) r.v[j] = take ? d.v[j] : t[j];
   return r;
 }
 
-// CIOS Montgomery product a * b * 2^-256 mod p.
+// CIOS Montgomery product a * b * 2^-(32N) mod p. With a, b < p every outer
+// step leaves t < 2p, held in the N words of t plus the word t[N] (t[N + 1]
+// takes the carry of the product row). 2p < R for every field here (N is
+// ceil((bits + 1) / 32)), so t[N] is 0 at the end; reduce_once still reads it.
 template <class P>
 __device__ __forceinline__ Elt<P> fmul(const Elt<P>& a, const Elt<P>& b) {
-  uint32_t t[10];
+  constexpr int N = P::N;
+  uint32_t t[N + 2];
 #pragma unroll
-  for (int j = 0; j < 10; ++j) t[j] = 0;
+  for (int j = 0; j < N + 2; ++j) t[j] = 0;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
+  for (int i = 0; i < N; ++i) {
     uint64_t c = 0;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < N; ++j) {
       uint64_t uv = (uint64_t)a.v[j] * b.v[i] + t[j] + c;
       t[j] = (uint32_t)uv;
       c = uv >> 32;
     }
-    uint64_t uv = (uint64_t)t[8] + c;
-    t[8] = (uint32_t)uv;
-    t[9] = (uint32_t)(uv >> 32);
+    uint64_t uv = (uint64_t)t[N] + c;
+    t[N] = (uint32_t)uv;
+    t[N + 1] = (uint32_t)(uv >> 32);
     const uint32_t m = t[0] * P::INV;
     uv = (uint64_t)m * P::mod(0) + t[0];
     c = uv >> 32;
 #pragma unroll
-    for (int j = 1; j < 8; ++j) {
+    for (int j = 1; j < N; ++j) {
       uv = (uint64_t)m * P::mod(j) + t[j] + c;
       t[j - 1] = (uint32_t)uv;
       c = uv >> 32;
     }
-    uv = (uint64_t)t[8] + c;
-    t[7] = (uint32_t)uv;
-    t[8] = t[9] + (uint32_t)(uv >> 32);
+    uv = (uint64_t)t[N] + c;
+    t[N - 1] = (uint32_t)uv;
+    t[N] = t[N + 1] + (uint32_t)(uv >> 32);
   }
-  return reduce_once<P>(t, t[8]);  // p < 2^254, so the result is < 2p
+  return reduce_once<P>(t, t[N]);
 }
 
 template <class P>
 __device__ __forceinline__ Elt<P> fadd(const Elt<P>& a, const Elt<P>& b) {
-  uint32_t s[8];
+  uint32_t s[P::N];
   uint32_t c = 0;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < P::N; ++j) {
     uint64_t uv = (uint64_t)a.v[j] + b.v[j] + c;
     s[j] = (uint32_t)uv;
     c = (uint32_t)(uv >> 32);
@@ -142,7 +195,7 @@ __device__ __forceinline__ Elt<P> fsub(const Elt<P>& a, const Elt<P>& b) {
   Elt<P> d;
   uint32_t borrow = 0;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < P::N; ++j) {
     uint64_t diff = (uint64_t)a.v[j] - b.v[j] - borrow;
     d.v[j] = (uint32_t)diff;
     borrow = (uint32_t)(diff >> 32) & 1u;
@@ -150,7 +203,7 @@ __device__ __forceinline__ Elt<P> fsub(const Elt<P>& a, const Elt<P>& b) {
   if (borrow) {  // a < b: add p back (the carry out cancels the wrap)
     uint32_t c = 0;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < P::N; ++j) {
       uint64_t uv = (uint64_t)d.v[j] + P::mod(j) + c;
       d.v[j] = (uint32_t)uv;
       c = (uint32_t)(uv >> 32);
@@ -163,7 +216,7 @@ template <class P>
 __device__ __forceinline__ Elt<P> fneg(const Elt<P>& a) {
   Elt<P> z;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) z.v[j] = 0;
+  for (int j = 0; j < P::N; ++j) z.v[j] = 0;
   return fsub(z, a);
 }
 
@@ -171,27 +224,31 @@ template <class P>
 __device__ __forceinline__ Elt<P> fload(const uint32_t* base, long long ld, long long lane) {
   Elt<P> e;
 #pragma unroll
-  for (int k = 0; k < 8; ++k) e.v[k] = base[k * ld + lane];
+  for (int k = 0; k < P::N; ++k) e.v[k] = base[k * ld + lane];
   return e;
 }
 
 template <class P>
 __device__ __forceinline__ void fstore(uint32_t* base, long long ld, long long lane, const Elt<P>& e) {
 #pragma unroll
-  for (int k = 0; k < 8; ++k) base[k * ld + lane] = e.v[k];
+  for (int k = 0; k < P::N; ++k) base[k * ld + lane] = e.v[k];
 }
 
 // ---------------------------------------------------------------------------
-// quadratic extension Fp2 = Fp[u]/(u^2 + 1)  (BN254: beta = -1)
+// quadratic extension Fp2 = Fp[u]/(u^2 - BETA), BETA = -1 (BN254, BLS12-381)
 // ---------------------------------------------------------------------------
 
 template <class P>
 struct Elt2 {
+  static constexpr int N = P::N;
   Elt<P> c0, c1;
 };
 
 template <class P>
 __device__ __forceinline__ Elt2<P> fmul(const Elt2<P>& a, const Elt2<P>& b) {
+  // c0 = m0 + BETA * m1 is written as m0 - m1 below: another BETA (as
+  // BLS12-377's -5) needs its own reduction of the m1 term
+  static_assert(P::BETA == -1, "the Fp2 product is written for u^2 = -1");
   // Karatsuba, 3 base products: c0 = m0 - m1, c1 = (a0+a1)(b0+b1) - m0 - m1
   const Elt<P> m0 = fmul(a.c0, b.c0);
   const Elt<P> m1 = fmul(a.c1, b.c1);
@@ -242,14 +299,14 @@ template <class P>
 struct Coord<Elt2<P>> {
   static constexpr int NP = 2;
   static __device__ __forceinline__ Elt2<P> load(const uint32_t* plane, long long ld, long long lane) {
-    return Elt2<P>{fload<P>(plane, ld, lane), fload<P>(plane + 8 * ld, ld, lane)};
+    return Elt2<P>{fload<P>(plane, ld, lane), fload<P>(plane + P::N * ld, ld, lane)};
   }
   static __device__ __forceinline__ void store(uint32_t* plane, long long ld, long long lane, const Elt2<P>& e) {
     fstore<P>(plane, ld, lane, e.c0);
-    fstore<P>(plane + 8 * ld, ld, lane, e.c1);
+    fstore<P>(plane + P::N * ld, ld, lane, e.c1);
   }
   static __device__ __forceinline__ Elt2<P> row(const uint32_t* r) {
-    return Elt2<P>{fload<P>(r, 1, 0), fload<P>(r + 8, 1, 0)};
+    return Elt2<P>{fload<P>(r, 1, 0), fload<P>(r + P::N, 1, 0)};
   }
 };
 
@@ -329,7 +386,7 @@ __device__ __forceinline__ void ec_double(const E& X, const E& Y, const E& Z, co
 // ---------------------------------------------------------------------------
 
 // acc[:, :, l] += (+-)table[idx[l]] where mask[l], for l < S, in place.
-// `acc` is the (3*NP, 8, ld) projective stack; the sign negates the table
+// `acc` is the (3*NP, N, ld) projective stack; the sign negates the table
 // point's y (the signed-digit MSM); null sign or mask pointers mean 0 and 1.
 template <class E>
 __global__ void k_add_mixed_masked(uint32_t* acc, long long ld, long long S,
@@ -340,10 +397,10 @@ __global__ void k_add_mixed_masked(uint32_t* acc, long long ld, long long S,
   const long long l = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (l >= S) return;
   if (mask != nullptr && mask[l] == 0) return;
-  const long long plane = 8 * ld;
-  const uint32_t* row = table + (long long)idx[l] * (2 * 8 * C::NP);
+  const long long plane = E::N * ld;
+  const uint32_t* row = table + (long long)idx[l] * (2 * E::N * C::NP);
   const E X2 = C::row(row);
-  E Y2 = C::row(row + 8 * C::NP);
+  E Y2 = C::row(row + E::N * C::NP);
   if (sign != nullptr && sign[l] != 0) Y2 = fneg(Y2);
   const E X1 = C::load(acc, ld, l);
   const E Y1 = C::load(acc + C::NP * plane, ld, l);
@@ -362,7 +419,7 @@ __global__ void k_add(const uint32_t* p, long long ldp, const uint32_t* q, long 
   using C = Coord<E>;
   const long long l = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (l >= n) return;
-  const long long pp = 8 * ldp * C::NP, pq = 8 * ldq * C::NP, po = 8 * ldo * C::NP;
+  const long long pp = E::N * ldp * C::NP, pq = E::N * ldq * C::NP, po = E::N * ldo * C::NP;
   const E X1 = C::load(p, ldp, l), Y1 = C::load(p + pp, ldp, l), Z1 = C::load(p + 2 * pp, ldp, l);
   const E X2 = C::load(q, ldq, l), Y2 = C::load(q + pq, ldq, l), Z2 = C::load(q + 2 * pq, ldq, l);
   const E b3 = C::row(b3_row);
@@ -379,7 +436,7 @@ __global__ void k_double(const uint32_t* p, long long ldp, uint32_t* o, long lon
   using C = Coord<E>;
   const long long l = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (l >= n) return;
-  const long long pp = 8 * ldp * C::NP, po = 8 * ldo * C::NP;
+  const long long pp = E::N * ldp * C::NP, po = E::N * ldo * C::NP;
   const E X = C::load(p, ldp, l), Y = C::load(p + pp, ldp, l), Z = C::load(p + 2 * pp, ldp, l);
   const E b3 = C::row(b3_row);
   E X3, Y3, Z3;
@@ -392,3 +449,21 @@ __global__ void k_double(const uint32_t* p, long long ldp, uint32_t* o, long lon
 static inline unsigned int n_blocks(long long n, int threads) {
   return (unsigned int)((n + threads - 1) / threads);
 }
+
+// ---------------------------------------------------------------------------
+// the curve of this translation unit: every .cu is built once per curve, with
+// -DCURVE_BN254 or -DCURVE_BLS12_381 (ops/cuda.py), and names its C entries
+// through ENTRY (BN254 unprefixed, BLS12-381 with "bls12_381_")
+// ---------------------------------------------------------------------------
+
+#if defined(CURVE_BN254)
+using CurveFp = FpP;
+using CurveFr = FrP;
+#define ENTRY(name) name
+#elif defined(CURVE_BLS12_381)
+using CurveFp = Bls381Fp;
+using CurveFr = Bls381Fr;
+#define ENTRY(name) bls12_381_##name
+#else
+#error "build with -DCURVE_BN254 or -DCURVE_BLS12_381"
+#endif

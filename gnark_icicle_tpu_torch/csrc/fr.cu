@@ -1,14 +1,15 @@
-// Fr (BN254 scalar field) kernels: the elementwise Montgomery product, the
-// subtraction computeH needs, and one radix-2 NTT stage.
+// Fr (scalar field) kernels: the elementwise Montgomery product, the
+// subtraction computeH needs, and one radix-2 NTT stage. Built once per curve
+// (field.cuh, CurveFr): BN254 r and BLS12-381 r, 8 words each.
 //
 // Replaces TPU kernel K1: gnark_icicle_tpu/ops/field_t.py:353 TField.mont_mul
 // (Pallas body _mul_kernel, :314), which carries every NTT butterfly stage
 // (gnark_icicle_tpu/ops/ntt.py:190 _tmul, :204 _butterflies_t) and through
 // them computeH (gnark_icicle_tpu/backend/groth16/prove.py:31).
 //
-// Bound on the card: fr_mont_mul and fr_sub read 64-96 bytes and write 32 per
-// lane, so at 2^17 lanes they are bound by device memory, not by the roughly
-// 130 integer multiply-adds of one product. An NTT stage is the same plus a
+// Bound on the card: fr_mont_mul and fr_sub read 64 bytes and write 32 per
+// lane, so at 2^18 lanes they are bound by device memory, not by the 128
+// integer multiply-adds of one product. An NTT stage is the same plus a
 // twiddle read. The design keeps one lane per thread on the limb-major
 // (8, n) layout, so every limb load is a coalesced 128-byte line per warp,
 // and fuses the twiddle product into the butterfly (no separate pass over
@@ -16,22 +17,23 @@
 // memory is later work.
 #include "field.cuh"
 
-using Fr = Elt<FrP>;
+using FrM = CurveFr;
+using Fr = Elt<FrM>;
 
 // out = a * b; b is either (8, n) or one broadcast column (b_ld == 1).
 __global__ void k_fr_mont_mul(const uint32_t* a, const uint32_t* b, long long b_ld, int b_bcast,
                               uint32_t* out, long long n) {
   const long long l = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (l >= n) return;
-  const Fr x = fload<FrP>(a, n, l);
-  const Fr y = fload<FrP>(b, b_ld, b_bcast ? 0 : l);
-  fstore<FrP>(out, n, l, fmul(x, y));
+  const Fr x = fload<FrM>(a, n, l);
+  const Fr y = fload<FrM>(b, b_ld, b_bcast ? 0 : l);
+  fstore<FrM>(out, n, l, fmul(x, y));
 }
 
 __global__ void k_fr_sub(const uint32_t* a, const uint32_t* b, uint32_t* out, long long n) {
   const long long l = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (l >= n) return;
-  fstore<FrP>(out, n, l, fsub(fload<FrP>(a, n, l), fload<FrP>(b, n, l)));
+  fstore<FrM>(out, n, l, fsub(fload<FrM>(a, n, l), fload<FrM>(b, n, l)));
 }
 
 // One radix-2 stage over (8, n) data in place. Stage half-width m: lane k
@@ -45,20 +47,20 @@ __global__ void k_ntt_stage(uint32_t* x, long long n, long long m, long long str
   if (k >= n / 2) return;
   const long long g = k / m, j = k - g * m;
   const long long i0 = 2 * m * g + j, i1 = i0 + m;
-  const Fr w = fload<FrP>(tw, tw_ld, j * stride);
-  const Fr a = fload<FrP>(x, n, i0);
-  const Fr b = fload<FrP>(x, n, i1);
+  const Fr w = fload<FrM>(tw, tw_ld, j * stride);
+  const Fr a = fload<FrM>(x, n, i0);
+  const Fr b = fload<FrM>(x, n, i1);
   if (dif) {
-    fstore<FrP>(x, n, i0, fadd(a, b));
-    fstore<FrP>(x, n, i1, fmul(fsub(a, b), w));
+    fstore<FrM>(x, n, i0, fadd(a, b));
+    fstore<FrM>(x, n, i1, fmul(fsub(a, b), w));
   } else {
     const Fr bw = fmul(b, w);
-    fstore<FrP>(x, n, i0, fadd(a, bw));
-    fstore<FrP>(x, n, i1, fsub(a, bw));
+    fstore<FrM>(x, n, i0, fadd(a, bw));
+    fstore<FrM>(x, n, i1, fsub(a, bw));
   }
 }
 
-extern "C" int fr_mont_mul(const void* a, const void* b, long long b_ld, int b_bcast, void* out,
+extern "C" int ENTRY(fr_mont_mul)(const void* a, const void* b, long long b_ld, int b_bcast, void* out,
                            long long n, void* stream) {
   if (n > 0)
     k_fr_mont_mul<<<n_blocks(n, 256), 256, 0, (cudaStream_t)stream>>>(
@@ -66,14 +68,14 @@ extern "C" int fr_mont_mul(const void* a, const void* b, long long b_ld, int b_b
   return (int)cudaGetLastError();
 }
 
-extern "C" int fr_sub(const void* a, const void* b, void* out, long long n, void* stream) {
+extern "C" int ENTRY(fr_sub)(const void* a, const void* b, void* out, long long n, void* stream) {
   if (n > 0)
     k_fr_sub<<<n_blocks(n, 256), 256, 0, (cudaStream_t)stream>>>(
         (const uint32_t*)a, (const uint32_t*)b, (uint32_t*)out, n);
   return (int)cudaGetLastError();
 }
 
-extern "C" int ntt_stage(void* x, long long n, long long m, long long stride, const void* tw,
+extern "C" int ENTRY(ntt_stage)(void* x, long long n, long long m, long long stride, const void* tw,
                          long long tw_ld, int dif, void* stream) {
   if (n > 1)
     k_ntt_stage<<<n_blocks(n / 2, 256), 256, 0, (cudaStream_t)stream>>>(

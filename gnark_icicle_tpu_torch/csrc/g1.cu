@@ -1,5 +1,6 @@
-// G1 (BN254, over Fp) group-law kernels: the MSM wave step, the complete
-// add and the double.
+// G1 (over Fp) group-law kernels: the MSM wave step, the complete add and
+// the double. Built once per curve (field.cuh, CurveFp): BN254 at 8 words,
+// BLS12-381 at 12.
 //
 // Replaces TPU kernels K2 (gnark_icicle_tpu/ops/ec_t.py:266 TCurve._mul, the
 // Fp product called 11 times per wave step), K4 (ops/ec_t.py:529
@@ -8,18 +9,19 @@
 // fixed-base ladder's mixed adds through ops/ec.py DevCurve).
 //
 // Bound on the card: integer multiply rate. A mixed add is 11 Fp products
-// (about 1,400 multiply-adds) against 64 bytes gathered and 192 bytes of
-// accumulator read and written, so it sits far above the memory roofline;
-// registers come next (three accumulator coordinates, the gathered point
-// and about six temporaries of 8 words each). The design fuses the whole
-// RCB16 schedule, the table gather (by index, inside the kernel), the sign
-// and the mask into one kernel, one lane per thread, so nothing between the
-// 11 products touches device memory; masked-off lanes return before loading.
+// (11 * 2N^2 multiply-adds: 1,408 at N = 8, 3,168 at N = 12) against 8N bytes
+// gathered and 24N bytes of accumulator read and written, so it sits far
+// above the memory roofline; registers come next (three accumulator
+// coordinates, the gathered point and about six temporaries of N words
+// each). The design fuses the whole RCB16 schedule, the table gather (by
+// index, inside the kernel), the sign and the mask into one kernel, one lane
+// per thread, so nothing between the 11 products touches device memory;
+// masked-off lanes return before loading.
 #include "field.cuh"
 
-using G1E = Elt<FpP>;
+using G1E = Elt<CurveFp>;
 
-extern "C" int g1_add_mixed_masked(void* acc, long long ld, long long S, const void* table,
+extern "C" int ENTRY(g1_add_mixed_masked)(void* acc, long long ld, long long S, const void* table,
                                    const void* idx, const void* sign, const void* mask,
                                    const void* b3, void* stream) {
   if (S > 0)
@@ -29,7 +31,7 @@ extern "C" int g1_add_mixed_masked(void* acc, long long ld, long long S, const v
   return (int)cudaGetLastError();
 }
 
-extern "C" int g1_add(const void* p, long long ldp, const void* q, long long ldq, void* o,
+extern "C" int ENTRY(g1_add)(const void* p, long long ldp, const void* q, long long ldq, void* o,
                       long long ldo, long long n, const void* b3, void* stream) {
   if (n > 0)
     k_add<G1E><<<n_blocks(n, 256), 256, 0, (cudaStream_t)stream>>>(
@@ -38,7 +40,7 @@ extern "C" int g1_add(const void* p, long long ldp, const void* q, long long ldq
   return (int)cudaGetLastError();
 }
 
-extern "C" int g1_double(const void* p, long long ldp, void* o, long long ldo, long long n,
+extern "C" int ENTRY(g1_double)(const void* p, long long ldp, void* o, long long ldo, long long n,
                          const void* b3, void* stream) {
   if (n > 0)
     k_double<G1E><<<n_blocks(n, 256), 256, 0, (cudaStream_t)stream>>>(

@@ -1,22 +1,24 @@
-// G2 (BN254, over Fp2 = Fp[u]/(u^2 + 1)) group-law kernels: the MSM wave
-// step, the complete add and the double.
+// G2 (over Fp2 = Fp[u]/(u^2 + 1)) group-law kernels: the MSM wave step, the
+// complete add and the double. Built once per curve (field.cuh, CurveFp):
+// BN254 at 8 words, BLS12-381 at 12.
 //
 // Replaces TPU kernels K3 (gnark_icicle_tpu/ops/ec_t.py:649 TCurve2._mul,
 // the Fp2 Karatsuba product of the G2 wave) and K5 (ops/ec_t.py:896
 // TCurve2.add_mixed_masked_fused, the whole masked, signed Fp2 mixed add).
 //
 // Bound on the card: integer multiply rate first (a mixed add is 11 Fp2
-// products, 33 Fp products), registers second: an Fp2 element is 16 words,
+// products, 33 Fp products), registers second: an Fp2 element is 2N words,
 // and the schedule keeps about ten of them live, so the compiler is near its
-// 255-register limit and may spill. The design is the G1 one (one fused
-// kernel per wave, gather by index inside, one lane per thread) with half the
-// threads per block, which leaves the compiler the full register file per
-// thread; splitting the add across two threads per lane is later work.
+// 255-register limit at N = 8 and spills at N = 12. The design is the G1 one
+// (one fused kernel per wave, gather by index inside, one lane per thread)
+// with half the threads per block, which leaves the compiler the full
+// register file per thread; splitting the add across two threads per lane is
+// later work.
 #include "field.cuh"
 
-using G2E = Elt2<FpP>;
+using G2E = Elt2<CurveFp>;
 
-extern "C" int g2_add_mixed_masked(void* acc, long long ld, long long S, const void* table,
+extern "C" int ENTRY(g2_add_mixed_masked)(void* acc, long long ld, long long S, const void* table,
                                    const void* idx, const void* sign, const void* mask,
                                    const void* b3, void* stream) {
   if (S > 0)
@@ -26,7 +28,7 @@ extern "C" int g2_add_mixed_masked(void* acc, long long ld, long long S, const v
   return (int)cudaGetLastError();
 }
 
-extern "C" int g2_add(const void* p, long long ldp, const void* q, long long ldq, void* o,
+extern "C" int ENTRY(g2_add)(const void* p, long long ldp, const void* q, long long ldq, void* o,
                       long long ldo, long long n, const void* b3, void* stream) {
   if (n > 0)
     k_add<G2E><<<n_blocks(n, 128), 128, 0, (cudaStream_t)stream>>>(
@@ -35,7 +37,7 @@ extern "C" int g2_add(const void* p, long long ldp, const void* q, long long ldq
   return (int)cudaGetLastError();
 }
 
-extern "C" int g2_double(const void* p, long long ldp, void* o, long long ldo, long long n,
+extern "C" int ENTRY(g2_double)(const void* p, long long ldp, void* o, long long ldo, long long n,
                          const void* b3, void* stream) {
   if (n > 0)
     k_double<G2E><<<n_blocks(n, 128), 128, 0, (cudaStream_t)stream>>>(

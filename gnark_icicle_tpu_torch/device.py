@@ -1,8 +1,10 @@
 """Device context: one curve's fields, domains, group laws and MSMs on one
 torch device.
 
-Port of gnark_icicle_tpu/device.py ``DeviceCtx`` (:47). The context takes an
-explicit ``torch.device``; proving-key points are staged once per key
+Port of gnark_icicle_tpu/device.py ``DeviceCtx`` (:47) for the curves whose
+kernels are built: BN254 and BLS12-381. The context takes a ``torch.device``
+(default: the first CUDA card; there is no fallback to the CPU, which a
+caller asks for with ``"cpu"``); proving-key points are staged once per key
 (``backend/groth16/keys.py``) as Montgomery-form row tables. The uint16
 tunnel staging of the reference (``_mont_chunked`` :22-44) is gone: it
 existed for a remote TPU's transfer bandwidth.
@@ -13,27 +15,27 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from gnark_icicle_tpu.curves.tower import Fp2
-
+from .curves.tower import Fp2
+from .ops.cuda import default_device, resolve_device  # noqa: F401
 from .ops.ec_t import TCurve, TCurve2
 from .ops.field import field_for, to_lanes
 from .ops.msm import MSMKernel
 from .ops.ntt import Domain, domain_for
 
 
-def default_device() -> torch.device:
-    """The first CUDA card when there is one, else the CPU."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+CURVES = ("bn254", "bls12-381")  # the curves whose kernels are built
 
 
 class DeviceCtx:
-    """Device-side kernels and conversions for one host curve on one device."""
+    """Device-side kernels and conversions for one host curve on one device
+    (None: the first CUDA card)."""
 
-    def __init__(self, curve, device):
-        if curve.name != "bn254":
-            raise NotImplementedError("the port's kernels cover BN254 only")
+    def __init__(self, curve, device=None):
+        if curve.name not in CURVES:
+            raise NotImplementedError(
+                f"the port's kernels cover {', '.join(CURVES)}, not {curve.name}")
         self.curve = curve
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.fp = field_for(curve.fp.modulus)
         self.fr = field_for(curve.fr.modulus)
         self.g1 = TCurve(self.fp, 3 * curve.g1.b % curve.fp.modulus)

@@ -1,11 +1,13 @@
 """Build, load and launch the hand-written Hopper kernels in ``csrc/``.
 
-Each ``csrc/*.cu`` source is compiled at first use by ``nvcc`` into a shared
-library with a plain C interface (``-gencode arch=compute_90a,code=sm_90a``),
-under ``build/gnark_icicle_tpu_torch/<hash of the sources>/`` at the root of
-the checkout, and loaded with ``ctypes``. The sources are built in parallel
-processes. Every C entry point returns ``cudaGetLastError()`` after its
-launch; :func:`check` raises on anything but 0.
+Each ``csrc/*.cu`` source is compiled at first use by ``nvcc`` into one shared
+library per curve with a plain C interface
+(``-gencode arch=compute_90a,code=sm_90a``, ``-DCURVE_<NAME>``: field.cuh
+picks the moduli and the entry prefix), under
+``build/gnark_icicle_tpu_torch/<hash of the sources>/`` at the root of the
+checkout, and loaded with ``ctypes``. The (source, curve) pairs are built in
+parallel processes. Every C entry point returns ``cudaGetLastError()`` after
+its launch; :func:`check` raises on anything but 0.
 
 Nothing here runs at import: the CPU tests import every module, and this
 machine-independent part must not look for ``nvcc`` until a kernel is
@@ -30,11 +32,13 @@ BUILD_ROOT = os.path.join(os.path.dirname(_PKG_DIR), "build",
                           "gnark_icicle_tpu_torch")
 SOURCES = ("fr.cu", "g1.cu", "g2.cu")
 HEADER = "field.cuh"
+# curve -> prefix of its C entry names (field.cuh ENTRY)
+CURVES = {"bn254": "", "bls12_381": "bls12_381_"}
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _I32 = ctypes.c_int
-# argument types of every C entry point, by library
+# argument types of every C entry point, by source (unprefixed names)
 SIGNATURES = {
     "fr": {
         "fr_mont_mul": [_P, _P, _I64, _I32, _P, _I64, _P],
@@ -74,40 +78,49 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def lib_stem(src: str, curve: str) -> str:
+    """Name of the library built from ``csrc/<src>.cu`` for ``curve``."""
+    return f"{src}_{curve}"
+
+
 def build() -> str:
-    """Compile every source that has no library yet; returns the directory.
+    """Compile every (source, curve) that has no library yet; returns the
+    directory.
 
     The libraries land in a directory named by a hash of the sources, each
     written to a temporary name and renamed, so a half-built file is never
-    loaded. ``-Xptxas -v`` output (registers, spills) goes to ``<name>.log``.
+    loaded. ``-Xptxas -v`` output (registers, spills) goes to ``<stem>.log``.
     """
     out_dir = os.path.join(BUILD_ROOT, _source_hash())
     os.makedirs(out_dir, exist_ok=True)
     nvcc = _nvcc()
     procs = []
     for src in SOURCES:
-        stem = src[:-3]
-        lib = os.path.join(out_dir, f"lib{stem}.so")
-        if os.path.exists(lib):
-            continue
-        tmp = f"{lib}.{os.getpid()}.tmp"
-        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-               "-I", CSRC, "-o", tmp, os.path.join(CSRC, src)]
-        log = open(os.path.join(out_dir, f"{stem}.log"), "w")
-        procs.append((subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT),
-                      log, tmp, lib, src))
+        for curve in CURVES:
+            stem = lib_stem(src[:-3], curve)
+            lib = os.path.join(out_dir, f"lib{stem}.so")
+            if os.path.exists(lib):
+                continue
+            tmp = f"{lib}.{os.getpid()}.tmp"
+            cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+                   "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+                   "-Xptxas", "-v", f"-DCURVE_{curve.upper()}", "-I", CSRC,
+                   "-o", tmp, os.path.join(CSRC, src)]
+            log = open(os.path.join(out_dir, f"{stem}.log"), "w")
+            procs.append((subprocess.Popen(cmd, stdout=log,
+                                           stderr=subprocess.STDOUT),
+                          log, tmp, lib, stem))
     failed = []
-    for proc, log, tmp, lib, src in procs:
+    for proc, log, tmp, lib, stem in procs:
         rc = proc.wait()
         log.close()
         if rc != 0:
-            failed.append(src)
+            failed.append(stem)
             continue
         os.replace(tmp, lib)
     if failed:
         logs = "\n".join(
-            open(os.path.join(out_dir, f"{s[:-3]}.log")).read() for s in failed)
+            open(os.path.join(out_dir, f"{s}.log")).read() for s in failed)
         raise RuntimeError(f"nvcc failed on {failed}:\n{logs}")
     return out_dir
 
@@ -116,14 +129,16 @@ def load_all() -> float:
     """Build (if needed) and load every library; returns the seconds spent."""
     t0 = time.perf_counter()
     with _lock:
-        if len(_libs) < len(SIGNATURES):
+        if len(_libs) < len(SIGNATURES) * len(CURVES):
             out_dir = build()
-            for stem, fns in SIGNATURES.items():
-                lib = ctypes.CDLL(os.path.join(out_dir, f"lib{stem}.so"))
-                for fn, argtypes in fns.items():
-                    getattr(lib, fn).argtypes = argtypes
-                    getattr(lib, fn).restype = ctypes.c_int
-                _libs[stem] = lib
+            for src, fns in SIGNATURES.items():
+                for curve, prefix in CURVES.items():
+                    stem = lib_stem(src, curve)
+                    lib = ctypes.CDLL(os.path.join(out_dir, f"lib{stem}.so"))
+                    for name, argtypes in fns.items():
+                        getattr(lib, prefix + name).argtypes = argtypes
+                        getattr(lib, prefix + name).restype = ctypes.c_int
+                    _libs[stem] = lib
     return time.perf_counter() - t0
 
 
@@ -139,29 +154,47 @@ def check(rc: int, name: str) -> None:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: error {rc}")
 
 
-# every kernel entry point by name, for the smoke run's counts and checks
+# every kernel entry point by C symbol, for the smoke run's counts and checks
 KERNELS: dict = {}
 
 
 class Kernel:
-    """One C entry point and the count of its launches.
+    """One C entry point of one curve and the count of its launches.
 
-    The count is a plain int that :meth:`launch` raises by one after each
-    launch it made; a wrapper calls :meth:`launch` only on CUDA tensors, so
-    the count says how often the main path really ran the kernel.
+    ``name`` is the entry's unprefixed name in ``csrc/<src>.cu``; the kernel
+    is known by its C symbol, the curve's prefix plus that name. The count is
+    a plain int that :meth:`launch` raises by one after each launch it made;
+    a wrapper calls :meth:`launch` only on CUDA tensors, so the count says how
+    often the main path really ran the kernel.
     """
 
-    def __init__(self, lib: str, name: str, replaces: str):
-        self.lib = lib
-        self.name = name
-        self.source = f"gnark_icicle_tpu_torch/csrc/{lib}.cu"
+    def __init__(self, src: str, curve: str, name: str, replaces: str):
+        self.lib = lib_stem(src, curve)
+        self.curve = curve
+        self.name = CURVES[curve] + name
+        self.source = f"gnark_icicle_tpu_torch/csrc/{src}.cu"
         self.replaces = replaces
         self.launches = 0
-        KERNELS[name] = self
+        KERNELS[self.name] = self
 
     def launch(self, *args) -> None:
         check(fn(self.lib, self.name)(*args), self.name)
         self.launches += 1
+
+
+def default_device() -> torch.device:
+    """The first CUDA card; raises where torch sees none (the CPU runs only
+    the plain versions, and only when a caller asks for it by name)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on an NVIDIA GPU; pass "
+            "device='cpu' to run the plain PyTorch versions instead")
+    return torch.device("cuda", 0)
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device; None means :func:`default_device`."""
+    return default_device() if device is None else torch.device(device)
 
 
 def stream(t: torch.Tensor) -> int:

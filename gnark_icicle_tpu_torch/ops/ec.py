@@ -7,7 +7,7 @@ Port of gnark_icicle_tpu/ops/ec.py (``DevField`` :30, ``DevField2`` :97,
 kernels (``ops/ec_t.py``) are held against; it is the path their wrappers
 take for CPU tensors.
 
-Coordinates are 16-bit limbs in int64, ``(16, N)`` (``ops/field.py``
+Coordinates are 16-bit limbs in int64, ``(2W, N)`` (``ops/field.py``
 ``to16``): a G1 coordinate is one such tensor, a G2 coordinate over Fp2 a
 pair ``(c0, c1)``. The schedules are the reference's products and sums, each
 round of independent products issued as one batched call; every field result
@@ -18,11 +18,11 @@ from __future__ import annotations
 
 import torch
 
-from .field import Field, K16, to32
+from .field import Field, to32
 
 
 class DevField:
-    """Base-field adapter: elements are (16, N) int64 limb tensors."""
+    """Base-field adapter: elements are (2W, N) int64 limb tensors."""
 
     def __init__(self, F: Field):
         self.F = F
@@ -66,12 +66,12 @@ class DevField:
 
     def const(self, value: int, like):
         m = value % self.F.modulus * self.F.R % self.F.modulus
-        col = torch.tensor([(m >> (16 * i)) & 0xFFFF for i in range(K16)],
+        col = torch.tensor([(m >> (16 * i)) & 0xFFFF for i in range(self.F.n16)],
                            dtype=torch.int64, device=like.device)
         return col[:, None].expand_as(like).clone()
 
     def decode(self, a) -> list:
-        """(16, N) Montgomery limbs -> Python ints."""
+        """(2W, N) Montgomery limbs -> Python ints."""
         return self.F.decode(to32(a))
 
 

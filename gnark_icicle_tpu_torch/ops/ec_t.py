@@ -1,14 +1,16 @@
 """G1 and G2 group law on the card: the MSM wave step, add and double.
 
 Port of gnark_icicle_tpu/ops/ec_t.py ``TCurve`` (:208) and ``TCurve2``
-(:586). A batch of projective points is ONE int32 tensor of coordinate
-planes: G1 ``(3, 8, n)`` for (X, Y, Z), G2 ``(6, 8, n)`` for
-(x0, x1, y0, y1, z0, z1), each plane an ``(8, n)`` Montgomery element batch
-(``ops/field.py``). Identity is (0 : 1 : 0). A lane prefix ``P[..., :S]`` of a
-wider batch is a valid operand: the kernels take the row stride ``ld``.
+(:586), for the base field's W words (``ops/field.py`` ``words_for``: 8 for
+BN254, 12 for BLS12-381; the reference's ``self.K = F.K``, :232 and :621). A
+batch of projective points is ONE int32 tensor of coordinate planes: G1
+``(3, W, n)`` for (X, Y, Z), G2 ``(6, W, n)`` for (x0, x1, y0, y1, z0, z1),
+each plane a ``(W, n)`` Montgomery element batch. Identity is (0 : 1 : 0). A
+lane prefix ``P[..., :S]`` of a wider batch is a valid operand: the kernels
+take the row stride ``ld``.
 
 Affine point tables, the MSM's gather source, are row-major: one row of
-16 words (G1: x, y) or 32 words (G2: x0, x1, y0, y1) per point.
+2W words (G1: x, y) or 4W words (G2: x0, x1, y0, y1) per point.
 
 Kernels (``csrc/g1.cu``, ``csrc/g2.cu``):
 
@@ -25,33 +27,54 @@ from __future__ import annotations
 
 import torch
 
+from ..curves import bls12_381, bn254
 from .cuda import Kernel, is_cuda, require, stream
 from .ec import DevCurve, DevField, DevField2
 from .field import Field, ints_to_limbs32, to16, to32
 
-G1_ADD_MIXED_MASKED = Kernel("g1", "g1_add_mixed_masked",
-                             "gnark_icicle_tpu/ops/ec_t.py:529")
-G1_ADD = Kernel("g1", "g1_add", "gnark_icicle_tpu/ops/ec_t.py:266")
-G1_DOUBLE = Kernel("g1", "g1_double", "gnark_icicle_tpu/ops/ec_t.py:266")
-G2_ADD_MIXED_MASKED = Kernel("g2", "g2_add_mixed_masked",
-                             "gnark_icicle_tpu/ops/ec_t.py:896")
-G2_ADD = Kernel("g2", "g2_add", "gnark_icicle_tpu/ops/ec_t.py:649")
-G2_DOUBLE = Kernel("g2", "g2_double", "gnark_icicle_tpu/ops/ec_t.py:649")
 
-FP_MODULUS = 21888242871839275222246405745257275088696311157297823662689037894645226208583
+def _group_kernels(curve: str, g: str, k_mixed: str, k_mul: str):
+    """(add_mixed_masked, add, double) entries of one group of one curve."""
+    return (Kernel(g, curve, f"{g}_add_mixed_masked", k_mixed),
+            Kernel(g, curve, f"{g}_add", k_mul),
+            Kernel(g, curve, f"{g}_double", k_mul))
+
+
+# base-field modulus -> {"g1": kernels, "g2": kernels} of its curve
+EC_KERNELS = {
+    q: {"g1": _group_kernels(curve, "g1", "gnark_icicle_tpu/ops/ec_t.py:529",
+                             "gnark_icicle_tpu/ops/ec_t.py:266"),
+        "g2": _group_kernels(curve, "g2", "gnark_icicle_tpu/ops/ec_t.py:896",
+                             "gnark_icicle_tpu/ops/ec_t.py:649")}
+    for q, curve in ((bn254.P, "bn254"), (bls12_381.P, "bls12_381"))
+}
 
 
 class _TCurveBase:
-    NP = 1  # planes per coordinate
+    NP = 1     # planes per coordinate
+    GROUP = ""  # "g1" or "g2": the kernel family
 
-    def __init__(self, F: Field, b3_words: list, curve: DevCurve, kernels):
+    def __init__(self, F: Field, b3_host: list, curve: DevCurve):
         self.F = F
+        self.W = F.n32                          # words per Fp element
         self.curve = curve                      # the plain version
-        self._b3_words = b3_words               # Montgomery b3, NP*8 words
+        # Montgomery b3, NP*W words
+        self._b3_words = [w for c in b3_host for w in self._words(c)]
         self._b3: dict = {}
-        self._k_mixed, self._k_add, self._k_double = kernels
+        self._kernels = EC_KERNELS.get(F.modulus, {}).get(self.GROUP)
         self.planes = 3 * self.NP
-        self.row = 2 * 8 * self.NP
+        self.row = 2 * self.W * self.NP
+
+    def _words(self, c: int) -> list:
+        m = c % self.F.modulus * self.F.R % self.F.modulus
+        return [(m >> (32 * i)) & 0xFFFFFFFF for i in range(self.W)]
+
+    def _rows(self, coords: list, n: int, device) -> torch.Tensor:
+        """Host Fp ints, row by row -> (n, row) Montgomery table."""
+        q, R = self.F.modulus, self.F.R
+        rows = ints_to_limbs32([c % q * R % q for c in coords],
+                               self.W).reshape(n, self.row)
+        return torch.from_numpy(rows.view("<i4")).to(device)
 
     # -- constants and constructors -------------------------------------------
     def b3_row(self, device) -> torch.Tensor:
@@ -63,7 +86,7 @@ class _TCurveBase:
         return self._b3[key]
 
     def identity(self, n: int, device) -> torch.Tensor:
-        P = torch.zeros((self.planes, 8, n), dtype=torch.int32, device=device)
+        P = torch.zeros((self.planes, self.W, n), dtype=torch.int32, device=device)
         P[self.NP] = self.F.const(1, device)  # y (its c0 plane for G2)
         return P
 
@@ -73,7 +96,7 @@ class _TCurveBase:
 
     # -- plain-version plumbing ----------------------------------------------
     def _coords(self, P):
-        """(planes, 8, n) int32 -> DevCurve coordinates of (16, n) int64."""
+        """(planes, W, n) int32 -> DevCurve coordinates of (2W, n) int64."""
         planes = [to16(P[i]) for i in range(P.shape[0])]
         if self.NP == 1:
             return tuple(planes)
@@ -89,19 +112,24 @@ class _TCurveBase:
     def _check_points(self, *Ps):
         for P in Ps:
             require(P.dtype == torch.int32 and P.dim() == 3
-                    and P.shape[0] == self.planes and P.shape[1] == 8,
-                    f"expected ({self.planes}, 8, n) int32 point planes")
+                    and P.shape[0] == self.planes and P.shape[1] == self.W,
+                    f"expected ({self.planes}, {self.W}, n) int32 point planes")
 
     @staticmethod
     def _lanes(P):
-        """P itself if its planes are (8, ld) rows of unit stride, else a
+        """P itself if its planes are (W, ld) rows of unit stride, else a
         contiguous copy (e.g. one lane picked out of a wider batch)."""
-        ok = P.stride(2) == 1 and P.stride(0) == 8 * P.stride(1)
+        ok = P.stride(2) == 1 and P.stride(0) == P.shape[1] * P.stride(1)
         return P if ok else P.contiguous()
 
-    def _kernel_ok(self):
-        if self.F.modulus != FP_MODULUS:
-            raise NotImplementedError("the group-law kernels are BN254 only")
+    def _kernel(self, i: int) -> Kernel:
+        """Entry i of (add_mixed_masked, add, double); raises for a curve
+        whose kernels are not built."""
+        if self._kernels is None:
+            raise NotImplementedError(
+                f"no {self.GROUP} kernels are built for the base field "
+                f"{self.F.modulus:#x}")
+        return self._kernels[i]
 
     # -- the MSM wave step ---------------------------------------------------
     def add_mixed_masked_plain(self, acc, S, table, idx, sign=None, mask=None):
@@ -113,7 +141,7 @@ class _TCurveBase:
         if k == 0:
             return
         x, y = self._coords(
-            table[idx[lanes].long()].T.reshape(2 * self.NP, 8, k))
+            table[idx[lanes].long()].T.reshape(2 * self.NP, self.W, k))
         if sign is not None:
             y = self.curve.f.select(sign[lanes] != 0, self.curve.f.neg(y), y)
         sub = acc[:, :, lanes]
@@ -123,15 +151,15 @@ class _TCurveBase:
     def add_mixed_masked(self, acc, S: int, table, idx, sign=None, mask=None):
         """acc[..., :S] += (−1)^sign · table[idx] where mask, in place.
 
-        acc: (planes, 8, L) projective accumulators, L ≥ S; table: (M, row)
+        acc: (planes, W, L) projective accumulators, L ≥ S; table: (M, row)
         affine rows (real points on every unmasked lane); idx, sign, mask:
         (S,) int32 (sign and mask may be None: all 0, all 1)."""
         if not is_cuda(acc, table, idx, sign, mask):
             return self.add_mixed_masked_plain(acc, S, table, idx, sign, mask)
-        self._kernel_ok()
+        kernel = self._kernel(0)
         self._check_points(acc)
         require(acc.is_contiguous() and S <= acc.shape[2],
-                "acc must be a contiguous (planes, 8, L) tensor with L >= S")
+                "acc must be a contiguous (planes, W, L) tensor with L >= S")
         require(table.dtype == torch.int32 and table.is_contiguous()
                 and table.dim() == 2 and table.shape[1] == self.row,
                 f"table must be contiguous (M, {self.row}) int32 rows")
@@ -140,83 +168,73 @@ class _TCurveBase:
                                   and t.shape == (S,)),
                     "idx, sign and mask must be contiguous (S,) int32")
         ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-        self._k_mixed.launch(acc.data_ptr(), acc.stride(1), S, table.data_ptr(),
-                             idx.data_ptr(), ptr(sign), ptr(mask),
-                             self.b3_row(acc.device).data_ptr(), stream(acc))
+        kernel.launch(acc.data_ptr(), acc.stride(1), S, table.data_ptr(),
+                      idx.data_ptr(), ptr(sign), ptr(mask),
+                      self.b3_row(acc.device).data_ptr(), stream(acc))
 
     # -- complete add and double ---------------------------------------------
     def add(self, P, Q):
         if not is_cuda(P, Q):
             return self._stack(self.curve.add(self._coords(P), self._coords(Q)))
-        self._kernel_ok()
+        kernel = self._kernel(1)
         self._check_points(P, Q)
         P, Q = self._lanes(P), self._lanes(Q)
         n = P.shape[2]
         require(Q.shape[2] == n, "add takes two batches of one width")
-        out = torch.empty((self.planes, 8, n), dtype=torch.int32, device=P.device)
-        self._k_add.launch(P.data_ptr(), P.stride(1), Q.data_ptr(), Q.stride(1),
-                           out.data_ptr(), n, n,
-                           self.b3_row(P.device).data_ptr(), stream(P))
+        out = torch.empty((self.planes, self.W, n), dtype=torch.int32,
+                          device=P.device)
+        kernel.launch(P.data_ptr(), P.stride(1), Q.data_ptr(), Q.stride(1),
+                      out.data_ptr(), n, n, self.b3_row(P.device).data_ptr(),
+                      stream(P))
         return out
 
     def double(self, P):
         if not is_cuda(P):
             return self._stack(self.curve.double(self._coords(P)))
-        self._kernel_ok()
+        kernel = self._kernel(2)
         self._check_points(P)
         P = self._lanes(P)
         n = P.shape[2]
-        out = torch.empty((self.planes, 8, n), dtype=torch.int32, device=P.device)
-        self._k_double.launch(P.data_ptr(), P.stride(1), out.data_ptr(), n, n,
-                              self.b3_row(P.device).data_ptr(), stream(P))
+        out = torch.empty((self.planes, self.W, n), dtype=torch.int32,
+                          device=P.device)
+        kernel.launch(P.data_ptr(), P.stride(1), out.data_ptr(), n, n,
+                      self.b3_row(P.device).data_ptr(), stream(P))
         return out
 
     # -- host decode ---------------------------------------------------------
     def to_affine_host(self, P) -> list:
-        """(planes, 8, n) projective -> host affine points (None = infinity);
+        """(planes, W, n) projective -> host affine points (None = infinity);
         G2 coordinates come back as (c0, c1) pairs of ints."""
         return self.curve.to_affine_host(self._coords(P), self.F.modulus)
 
 
 class TCurve(_TCurveBase):
-    """G1: a=0 curve over Fp, points (3, 8, n)."""
+    """G1: a=0 curve over Fp, points (3, W, n)."""
 
     NP = 1
+    GROUP = "g1"
 
     def __init__(self, F: Field, b3_host: int):
-        m = b3_host % F.modulus * F.R % F.modulus
-        super().__init__(F, [(m >> (32 * i)) & 0xFFFFFFFF for i in range(8)],
-                         DevCurve(DevField(F), b3_host),
-                         (G1_ADD_MIXED_MASKED, G1_ADD, G1_DOUBLE))
+        super().__init__(F, [b3_host], DevCurve(DevField(F), b3_host))
 
     def table(self, points, device):
-        """Host affine points (no infinity) -> (N, 16) Montgomery rows."""
-        q, R = self.F.modulus, self.F.R
-        flat = [c % q * R % q for p in points for c in p]
-        rows = ints_to_limbs32(flat).reshape(len(points), 16)
-        return torch.from_numpy(rows.view("<i4")).to(device)
+        """Host affine points (no infinity) -> (N, 2W) Montgomery rows."""
+        return self._rows([c for p in points for c in p], len(points), device)
 
 
 class TCurve2(_TCurveBase):
-    """G2: a=0 curve over Fp2 = Fp[u]/(u² − β), points (6, 8, n)."""
+    """G2: a=0 curve over Fp2 = Fp[u]/(u² − β), points (6, W, n)."""
 
     NP = 2
+    GROUP = "g2"
 
     def __init__(self, F: Field, beta: int, b3_host):
         if beta != -1:
             raise NotImplementedError("the G2 kernels are built for u² = −1")
         c0, c1 = (b3_host.c0, b3_host.c1) if hasattr(b3_host, "c0") else b3_host
-        words = []
-        for c in (c0, c1):
-            m = c % F.modulus * F.R % F.modulus
-            words += [(m >> (32 * i)) & 0xFFFFFFFF for i in range(8)]
-        super().__init__(F, words, DevCurve(DevField2(F, beta), (c0, c1)),
-                         (G2_ADD_MIXED_MASKED, G2_ADD, G2_DOUBLE))
+        super().__init__(F, [c0, c1], DevCurve(DevField2(F, beta), (c0, c1)))
 
     def table(self, points, device):
-        """Host affine G2 points (Fp2 coordinates) -> (N, 32) rows."""
-        q, R = self.F.modulus, self.F.R
-        flat = [c % q * R % q for p in points
-                for co in p for c in (co.c0, co.c1)]
-        rows = ints_to_limbs32(flat).reshape(len(points), 32)
-        return torch.from_numpy(rows.view("<i4")).to(device)
+        """Host affine G2 points (Fp2 coordinates) -> (N, 4W) rows."""
+        return self._rows([c for p in points for co in p for c in (co.c0, co.c1)],
+                          len(points), device)

@@ -1,17 +1,21 @@
 """Prime-field elements as 32-bit limbs on the device, and their plain arithmetic.
 
 Port of gnark_icicle_tpu/ops/field.py (``LimbField`` :96, host limb helpers
-:42-93). The reference holds an element as 16 16-bit limbs in an ``(N, 16)``
-int32 array; the kernels here hold it as 8 32-bit limbs, limb-major, in an
-``(8, N)`` int32 tensor whose words are read as uint32. Both are Montgomery
-form with R = 2^256, so converting between them is a bit repack with no
-arithmetic (:func:`repack16_to_32`, :func:`repack32_to_16`).
+:42-93). The reference holds an element as K = 2W 16-bit limbs in an
+``(N, K)`` int32 array; the kernels here hold it as W 32-bit words,
+limb-major, in a ``(W, N)`` int32 tensor whose words are read as uint32. W is
+:func:`words_for` the modulus, ceil((bits + 1) / 32): 8 for both BN254 fields
+and BLS12-381 Fr, 12 for BLS12-381 Fp, so 2W is the reference's limb count
+(its :121). Both are Montgomery form with R = 2^(32W), so converting between
+them is a bit repack with no arithmetic (:func:`repack16_to_32`,
+:func:`repack32_to_16`).
 
 The plain arithmetic (:class:`Field` ``mont_mul``/``add``/``sub``/``neg``/
 ``to_mont``/``from_mont``) is the PyTorch twin of the CUDA kernels. It works
-in int64 on 16-bit limbs, ``(16, N)``: PyTorch's uint32 arithmetic is
+in int64 on 16-bit limbs, ``(2W, N)``: PyTorch's uint32 arithmetic is
 incomplete on the CPU, and a 32x32-bit product does not fit int64. A 16x16
-product does, and so does a column of 16 of them (< 2^36).
+product does, and so does a column of 24 of them (< 2^37), which float64
+holds exactly.
 """
 
 from __future__ import annotations
@@ -20,15 +24,18 @@ import numpy as np
 import torch
 
 MASK16 = 0xFFFF
-K32 = 8    # 32-bit limbs per element (BN254: both fields are < 2^256)
-K16 = 16   # 16-bit limbs per element
+
+
+def words_for(modulus: int) -> int:
+    """32-bit words per element: one spare bit above p, so that 2p < R."""
+    return -(-(modulus.bit_length() + 1) // 32)
 
 
 # ---------------------------------------------------------------------------
 # host <-> limb conversions (numpy)
 # ---------------------------------------------------------------------------
 
-def ints_to_limbs32(xs, n_limbs: int = K32) -> np.ndarray:
+def ints_to_limbs32(xs, n_limbs: int) -> np.ndarray:
     """Python ints -> (N, n_limbs) uint32 little-endian limbs."""
     nb = 4 * n_limbs
     try:
@@ -77,14 +84,14 @@ def from_lanes(t: torch.Tensor) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 def to16(x: torch.Tensor) -> torch.Tensor:
-    """(8, ...) int32 words -> (16, ...) int64 16-bit limbs."""
+    """(W, ...) int32 words -> (2W, ...) int64 16-bit limbs."""
     v = x.to(torch.int64) & 0xFFFFFFFF
     return torch.stack([v & MASK16, v >> 16], dim=1).reshape(
         (2 * x.shape[0],) + tuple(x.shape[1:]))
 
 
 def to32(x16: torch.Tensor) -> torch.Tensor:
-    """(16, ...) int64 16-bit limbs -> (8, ...) int32 words (uint32 bits)."""
+    """(2W, ...) int64 16-bit limbs -> (W, ...) int32 words (uint32 bits)."""
     v = x16[0::2] | (x16[1::2] << 16)
     return torch.where(v >= (1 << 31), v - (1 << 32), v).to(torch.int32)
 
@@ -112,23 +119,24 @@ def _normalize(x: torch.Tensor, rounds: int) -> torch.Tensor:
 
 
 def _col(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-    """A (16,) limb vector shaped to broadcast against (16, ...) limbs."""
+    """A (2W,) limb vector shaped to broadcast against (2W, ...) limbs."""
     return v.view((-1,) + (1,) * (like.dim() - 1))
 
 
 class Field:
-    """Montgomery arithmetic mod an odd prime p < 2^254 (one per modulus).
+    """Montgomery arithmetic mod an odd prime p over W = words_for(p) 32-bit
+    words (one instance per modulus).
 
-    ``encode``/``decode`` move Python ints to and from ``(8, N)`` Montgomery
+    ``encode``/``decode`` move Python ints to and from ``(W, N)`` Montgomery
     tensors; the arithmetic methods are the plain versions of the kernels and
-    accept tensors on any device (a ``(8, 1)`` operand broadcasts).
+    accept tensors on any device (a ``(W, 1)`` operand broadcasts).
     """
 
     def __init__(self, modulus: int):
-        if modulus.bit_length() > 254:
-            raise ValueError("the limb layout needs p < 2^254 (4p < R)")
         self.modulus = modulus
-        self.R = 1 << 256
+        self.n32 = words_for(modulus)   # W
+        self.n16 = 2 * self.n32         # 16-bit limbs of the plain version
+        self.R = 1 << (32 * self.n32)
         self.R2 = self.R * self.R % modulus
         self.rinv = pow(self.R, -1, modulus)
         self.nprime = (-pow(modulus, -1, self.R)) % self.R   # -p^-1 mod R
@@ -139,15 +147,17 @@ class Field:
     def _c(self, device):
         key = torch.device(device)
         if key not in self._consts:
+            K = self.n16
+
             def limbs16(v):
-                return [(v >> (16 * i)) & MASK16 for i in range(K16)]
+                return [(v >> (16 * i)) & MASK16 for i in range(K)]
 
             def toeplitz(v, rows):  # T[r, i] = limb r - i of v: T @ x = v·x
                 lv = limbs16(v)
-                T = np.zeros((rows, K16))
+                T = np.zeros((rows, K))
                 for r in range(rows):
-                    for i in range(K16):
-                        if 0 <= r - i < K16:
+                    for i in range(K):
+                        if 0 <= r - i < K:
                             T[r, i] = lv[r - i]
                 return torch.from_numpy(T).to(key)
 
@@ -157,42 +167,44 @@ class Field:
                 "negp": torch.tensor(limbs16(self.R - self.modulus),
                                      dtype=torch.int64, device=key),
                 "p1": torch.tensor(p1, dtype=torch.int64, device=key),  # p + 1
-                "np_t": toeplitz(self.nprime, K16),           # mod R: 16 rows
-                "p_t": toeplitz(self.modulus, 2 * K16 + 1),   # full product
+                "np_t": toeplitz(self.nprime, K),           # mod R: K rows
+                "p_t": toeplitz(self.modulus, 2 * K + 1),   # full product
             }
         return self._consts[key]
 
     # -- host encode/decode ------------------------------------------------
     def encode(self, xs, device) -> torch.Tensor:
-        """Python ints -> (8, N) Montgomery-form tensor."""
+        """Python ints -> (W, N) Montgomery-form tensor."""
         q, R = self.modulus, self.R
-        return to_lanes(ints_to_limbs32([int(x) % q * R % q for x in xs]), device)
+        return to_lanes(ints_to_limbs32([int(x) % q * R % q for x in xs],
+                                        self.n32), device)
 
     def decode(self, t: torch.Tensor) -> list:
-        """(8, N) Montgomery-form tensor -> Python ints."""
+        """(W, N) Montgomery-form tensor -> Python ints."""
         q, rinv = self.modulus, self.rinv
         return [v * rinv % q for v in limbs32_to_ints(from_lanes(t))]
 
     def encode_plain(self, xs, device) -> torch.Tensor:
-        return to_lanes(ints_to_limbs32([int(x) % self.modulus for x in xs]), device)
+        return to_lanes(ints_to_limbs32([int(x) % self.modulus for x in xs],
+                                        self.n32), device)
 
     def decode_plain(self, t: torch.Tensor) -> list:
         return limbs32_to_ints(from_lanes(t))
 
     def const(self, value: int, device) -> torch.Tensor:
-        """(8, 1) Montgomery-form constant."""
+        """(W, 1) Montgomery-form constant."""
         return self.encode([value], device)
 
     def plain_const(self, value: int, device) -> torch.Tensor:
-        """(8, 1) constant taken as it is (R^2 for to_mont, 1 for from_mont)."""
-        return to_lanes(ints_to_limbs32([value]), device)
+        """(W, 1) constant taken as it is (R^2 for to_mont, 1 for from_mont)."""
+        return to_lanes(ints_to_limbs32([value], self.n32), device)
 
-    # -- plain arithmetic on (16, N) int64 limbs ----------------------------
+    # -- plain arithmetic on (2W, N) int64 limbs ----------------------------
     def _cond_sub16(self, x: torch.Tensor, hi) -> torch.Tensor:
-        """x + hi·2^256 (< 2p; x normalized 16 limbs) -> mod p.
+        """x + hi·R (< 2p; x normalized 2W limbs) -> mod p.
 
-        x − p is formed as x + (2^256 − p): the top limb of the sum is at
-        least 1 exactly when x ≥ p, and every addend is non-negative."""
+        x − p is formed as x + (R − p): the top limb of the sum is at least 1
+        exactly when x ≥ p, and every addend is non-negative."""
         c = self._c(x.device)
         d = _normalize(torch.cat([x + _col(c["negp"], x), hi[None]]), 1)
         return torch.where(d[-1:] >= 1, d[:-1], x)
@@ -203,8 +215,8 @@ class Field:
         return self._cond_sub16(s[:-1], s[-1])
 
     def sub16(self, a, b):
-        """a − b + p as a + p + (2^256 − 1 − b) + 1: non-negative addends; the
-        2^256 lands in the top limb and is dropped (as ops/field_t.py:231)."""
+        """a − b + p as a + p + (R − 1 − b) + 1: non-negative addends; the R
+        lands in the top limb and is dropped (as ops/field_t.py:231)."""
         a, b = torch.broadcast_tensors(a, b)
         c = self._c(a.device)
         s = a + (MASK16 - b) + _col(c["p1"], a)
@@ -218,29 +230,30 @@ class Field:
         """a * b * R^-1 mod p (separated REDC, as LimbField.mont_mul).
 
         All products are taken in float64, which is exact here: every
-        partial sum stays below 2^53. t = a·b as 33 uncarried columns
-        (< 2^36); m = (t mod R)·N' mod R and u = m·p as products with
-        constant Toeplitz matrices; then (t + u) / R < 2p and one
-        conditional subtraction."""
+        partial sum stays below 2^53. t = a·b as 2K + 1 uncarried columns
+        (< K·2^32 ≤ 2^37 for K = 2W ≤ 24 limbs); m = (t mod R)·N' mod R and
+        u = m·p as products with constant Toeplitz matrices; then
+        (t + u) / R < 2p and one conditional subtraction."""
         a, b = torch.broadcast_tensors(a, b)
         c = self._c(a.device)
+        K = self.n16
         n = a.shape[1:]
         af, bf = a.to(torch.float64), b.to(torch.float64)
-        t = torch.zeros((2 * K16 + 1,) + n, dtype=torch.float64, device=a.device)
-        for i in range(K16):
-            t[i:i + K16].addcmul_(af[i:i + 1], bf)
-        ti = t[:K16].to(torch.int64)
+        t = torch.zeros((2 * K + 1,) + n, dtype=torch.float64, device=a.device)
+        for i in range(K):
+            t[i:i + K].addcmul_(af[i:i + 1], bf)
+        ti = t[:K].to(torch.int64)
         # t mod R with limbs < 2^21 (one split round; the value mod R holds)
         tl = ti & MASK16
         tl[1:] += ti[:-1] >> 16
-        m = _normalize(torch.matmul(c["np_t"], tl.to(torch.float64).reshape(K16, -1))
-                       .to(torch.int64).reshape((K16,) + n), 3)
+        m = _normalize(torch.matmul(c["np_t"], tl.to(torch.float64).reshape(K, -1))
+                       .to(torch.int64).reshape((K,) + n), 3)
         m[-1] &= MASK16                                      # mod R
-        u = torch.matmul(c["p_t"], m.to(torch.float64).reshape(K16, -1))
-        s = _normalize((t + u.reshape((2 * K16 + 1,) + n)).to(torch.int64), 3)
-        return self._cond_sub16(s[K16:2 * K16], s[2 * K16])
+        u = torch.matmul(c["p_t"], m.to(torch.float64).reshape(K, -1))
+        s = _normalize((t + u.reshape((2 * K + 1,) + n)).to(torch.int64), 3)
+        return self._cond_sub16(s[K:2 * K], s[2 * K])
 
-    # -- plain arithmetic on (8, N) int32 words (the kernels' twins) --------
+    # -- plain arithmetic on (W, N) int32 words (the kernels' twins) --------
     def mont_mul(self, a, b):
         return to32(self.mont_mul16(to16(a), to16(b)))
 

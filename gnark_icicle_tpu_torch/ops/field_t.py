@@ -5,7 +5,9 @@ Port of gnark_icicle_tpu/ops/field_t.py ``TField`` (:320), whose
 ``fr_mont_mul``; ``fr_sub`` joins it because computeH's pointwise
 ``(a·b − c)·den`` runs on the card too. Operands are ``(8, n)`` int32
 Montgomery tensors (``ops/field.py``); ``b`` of ``mont_mul`` may be one
-``(8, 1)`` column that broadcasts.
+``(8, 1)`` column that broadcasts. The kernels are built for the scalar
+fields of BN254 and BLS12-381 (both 8 words); :class:`TField` picks the
+entries of its modulus.
 
 On a CPU tensor each method runs the plain PyTorch version; on a CUDA tensor
 it launches the kernel or raises.
@@ -15,13 +17,16 @@ from __future__ import annotations
 
 import torch
 
+from ..curves import bls12_381, bn254
 from .cuda import Kernel, is_cuda, require, stream
 from .field import Field
 
-FR_MODULUS = 21888242871839275222246405745257275088548364400416034343698204186575808495617
-
-FR_MONT_MUL = Kernel("fr", "fr_mont_mul", "gnark_icicle_tpu/ops/field_t.py:353")
-FR_SUB = Kernel("fr", "fr_sub", "gnark_icicle_tpu/ops/field_t.py:353")
+_K1 = "gnark_icicle_tpu/ops/field_t.py:353"
+# scalar-field modulus -> (fr_mont_mul, fr_sub) of its curve
+FR_KERNELS = {
+    q: (Kernel("fr", curve, "fr_mont_mul", _K1), Kernel("fr", curve, "fr_sub", _K1))
+    for q, curve in ((bn254.R, "bn254"), (bls12_381.R, "bls12_381"))
+}
 
 
 def _check_lanes(*ts):
@@ -30,38 +35,42 @@ def _check_lanes(*ts):
                 and t.is_contiguous(), "expected a contiguous (8, n) int32 tensor")
 
 
+def fr_kernels(modulus: int):
+    """The Fr kernel entries of a modulus; raises for a field with none."""
+    if modulus not in FR_KERNELS:
+        raise NotImplementedError(
+            f"no Fr kernels are built for the modulus {modulus:#x}")
+    return FR_KERNELS[modulus]
+
+
 class TField:
     """Elementwise Fr arithmetic on ``(8, n)`` tensors (kernel K1's port)."""
 
     def __init__(self, F: Field):
         self.F = F
 
-    def _kernel_ok(self):
-        if self.F.modulus != FR_MODULUS:
-            raise NotImplementedError("the fr kernels are built for BN254 Fr only")
-
     def mont_mul(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         if not is_cuda(a, b):
             return self.F.mont_mul(a, b)
-        self._kernel_ok()
+        k_mul, _ = fr_kernels(self.F.modulus)
         _check_lanes(a, b)
         n = a.shape[1]
         bcast = b.shape[1] == 1 and n != 1
         require(bcast or b.shape[1] == n, "b must be (8, n) or (8, 1)")
         out = torch.empty_like(a)
-        FR_MONT_MUL.launch(a.data_ptr(), b.data_ptr(), b.shape[1], int(bcast),
-                           out.data_ptr(), n, stream(a))
+        k_mul.launch(a.data_ptr(), b.data_ptr(), b.shape[1], int(bcast),
+                     out.data_ptr(), n, stream(a))
         return out
 
     def sub(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         if not is_cuda(a, b):
             return self.F.sub(a, b)
-        self._kernel_ok()
+        _, k_sub = fr_kernels(self.F.modulus)
         _check_lanes(a, b)
         require(a.shape == b.shape, "fr_sub takes two (8, n) tensors")
         out = torch.empty_like(a)
-        FR_SUB.launch(a.data_ptr(), b.data_ptr(), out.data_ptr(), a.shape[1],
-                      stream(a))
+        k_sub.launch(a.data_ptr(), b.data_ptr(), out.data_ptr(), a.shape[1],
+                     stream(a))
         return out
 
     def to_mont(self, x: torch.Tensor) -> torch.Tensor:

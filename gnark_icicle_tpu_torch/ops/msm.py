@@ -5,7 +5,9 @@ transposed path: signed c-bit digits (:82), one payload sort per window,
 ``searchsorted`` bucket runs, the staged waves over count-sorted
 (window, bucket) lanes (:570-594, ``_wave_accumulate_t`` :187), the
 weighted bucket reduction (``_bucket_reduce_t``/``_weighted_chunked_t``
-:399-469) and Horner over the windows. ``pick_window`` (:51) is copied.
+:399-469) and Horner over the windows. ``pick_window`` (:51) is copied; the
+windows follow the scalar field's bits as in the reference (254 bits for
+BN254 r, 255 for BLS12-381 r: 17 windows of 16 bits either way).
 
 The reference's wave schedule is kept: one launch of the group's
 ``add_mixed_masked`` kernel (``ops/ec_t.py``) per wave, which gathers each
@@ -16,7 +18,7 @@ takes the same Pippenger path and gives the same affine point.
 Inputs: an affine point table of rows (``TCurve.table``), an ``(N,)`` bool
 infinity mask (those lanes go to the trash bucket B, as at :540-542), and
 the scalars as plain-form ``(8, N)`` int32 32-bit limbs. The result is one
-projective point, ``(planes, 8, 1)``.
+projective point, ``(planes, W, 1)``.
 """
 
 from __future__ import annotations
@@ -24,8 +26,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .cuda import resolve_device
 from .ec_t import _TCurveBase
-from .field import ints_to_limbs32, to_lanes
+from .field import ints_to_limbs32, to_lanes, words_for
 
 
 def pick_window(n: int) -> int:
@@ -70,7 +73,7 @@ class MSMKernel:
     # -- phase 3 primitives: scans along the last axis -----------------------
     def _suffix_scan(self, P: torch.Tensor, m: int) -> torch.Tensor:
         """Inclusive suffix sums out_i = Σ_{j≥i} P_j along the last axis of
-        (planes, 8, ..., m), as log₂(m) rounds of roll + add + select."""
+        (planes, W, ..., m), as log₂(m) rounds of roll + add + select."""
         if m == 1:
             return P
         tc = self.tc
@@ -79,8 +82,8 @@ class MSMKernel:
         for k in range(int(np.ceil(np.log2(m)))):
             shift = 1 << k
             rolled = torch.roll(P, -shift, dims=-1)
-            added = tc.add(P.reshape(shape[0], 8, -1),
-                           rolled.reshape(shape[0], 8, -1)).reshape(shape)
+            added = tc.add(P.reshape(shape[0], shape[1], -1),
+                           rolled.reshape(shape[0], shape[1], -1)).reshape(shape)
             P = torch.where((lane + shift) < m, added, P)
         return P
 
@@ -102,33 +105,34 @@ class MSMKernel:
         assert V * M == m and M & (M - 1) == 0 and V >= 2, \
             "m, chunk must be powers of 2"
         tc = self.tc
-        planes, lead = P.shape[0], P.shape[2:-1]
-        g = P.reshape((planes, 8) + lead + (V, M))
-        width = g[..., 0].numel() // (planes * 8)
+        planes, W, lead = P.shape[0], P.shape[1], P.shape[2:-1]
+        g = P.reshape((planes, W) + lead + (V, M))
+        width = g[..., 0].numel() // (planes * W)
         running = tc.identity(width, P.device)
         acc = tc.identity(width, P.device)
         for j in range(M - 1, -1, -1):  # running_v = T_v, acc_v = Σ_j (j+1)·P_vj
-            running = tc.add(running, g[..., j].reshape(planes, 8, width))
+            running = tc.add(running, g[..., j].reshape(planes, W, width))
             acc = tc.add(acc, running)
-        shp = (planes, 8) + lead + (V,)
+        shp = (planes, W) + lead + (V,)
         sum_a = self._suffix_scan(acc.reshape(shp), V)[..., 0]
         s1 = self._suffix_scan(running.reshape(shp), V)
         hi = self._suffix_scan(s1, V)[..., 1]
-        hi = hi.reshape(planes, 8, -1)
+        hi = hi.reshape(planes, W, -1)
         for _ in range(M.bit_length() - 1):
             hi = tc.double(hi)
-        out = tc.add(hi, sum_a.reshape(planes, 8, -1))
-        return out.reshape((planes, 8) + lead)
+        out = tc.add(hi, sum_a.reshape(planes, W, -1))
+        return out.reshape((planes, W) + lead)
 
     def _bucket_reduce(self, buckets: torch.Tensor, W: int, B: int):
-        """Σ_b (b+1)·bucket[w, b] per window: (planes, 8, W·B) -> (planes, 8, W)."""
-        grid = buckets.reshape(buckets.shape[0], 8, W, B)
+        """Σ_b (b+1)·bucket[w, b] per window: (planes, K, W·B) -> (planes, K, W)
+        (K words per coordinate plane)."""
+        grid = buckets.reshape(buckets.shape[0], buckets.shape[1], W, B)
         return self._weighted_chunked(grid, B)
 
     # -- phase 2: staged waves ---------------------------------------------------
     def _wave_accumulate(self, table, order_flat, sign_flat, starts_p,
                          counts_p, win_of_lane, stage_sizes, n, L):
-        """Bucket sums, (planes, 8, L), in count-sorted lane order. Wave t adds
+        """Bucket sums, (planes, W, L), in count-sorted lane order. Wave t adds
         sorted point starts[l] + t to every lane l of the stage's prefix that
         still has points; each stage runs until every lane outside the next
         prefix is done."""
@@ -153,7 +157,7 @@ class MSMKernel:
     # -- the MSM ---------------------------------------------------------------
     def msm(self, table: torch.Tensor, inf_mask: torch.Tensor,
             scalars: torch.Tensor, c: int) -> torch.Tensor:
-        """Σ_i s_i·P_i -> (planes, 8, 1) projective."""
+        """Σ_i s_i·P_i -> (planes, W, 1) projective."""
         tc = self.tc
         dev = scalars.device
         n = scalars.shape[1]
@@ -196,7 +200,7 @@ class MSMKernel:
         acc = self._wave_accumulate(table, order.reshape(-1),
                                     sorted_sign.reshape(-1), starts_p, counts_p,
                                     win_of_lane, stage_sizes, n, L)
-        per_window = self._bucket_reduce(acc[..., inv_order], W, B)  # (pl, 8, W)
+        per_window = self._bucket_reduce(acc[..., inv_order], W, B)  # (pl, K, W)
 
         # Horner over windows, top-down: acc = acc·2^c + S_w
         res = per_window[..., W - 1:W]
@@ -208,11 +212,13 @@ class MSMKernel:
 
 
 def msm_host(tc: _TCurveBase, scalar_field, points_host, scalars_host,
-             device, c: int | None = None):
-    """Host points and ints -> host affine result (None = identity).
+             device=None, c: int | None = None):
+    """Host points and ints -> host affine result (None = identity), on
+    ``device`` (None: the first CUDA card).
 
     Port of gnark_icicle_tpu/ops/msm.py:924 for tests and small callers:
     infinity points are replaced by a real point and masked out."""
+    device = resolve_device(device)
     n = len(points_host)
     assert n == len(scalars_host) and n > 0
     dummy = next((p for p in points_host if p is not None), None)
@@ -222,7 +228,8 @@ def msm_host(tc: _TCurveBase, scalar_field, points_host, scalars_host,
     table = tc.table([p if p is not None else dummy for p in points_host],
                      device)
     q = scalar_field.modulus
-    scal = to_lanes(ints_to_limbs32([int(s) % q for s in scalars_host]), device)
+    scal = to_lanes(ints_to_limbs32([int(s) % q for s in scalars_host],
+                                    words_for(q)), device)
     kern = MSMKernel(tc, scalar_bits=q.bit_length())
     res = kern.msm(table, inf, scal, c or pick_window(n))
     return tc.to_affine_host(res)[0]

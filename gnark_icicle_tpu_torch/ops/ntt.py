@@ -9,10 +9,10 @@ Port of gnark_icicle_tpu/ops/ntt.py (``bitrev_indices`` :34, ``_pow_table``
 
 Each radix-2 stage is one launch of ``csrc/fr.cu`` ``ntt_stage`` (the
 butterfly add/sub with the twiddle product inline, replacing the
-reference's per-stage K1 products, ops/ntt.py:204 ``_butterflies_t``), in
-place on a copy of the input: unlike the reference, transforms never consume
-their argument. The MXU twiddle path and ``FourStepNTT`` are TPU devices and
-are not ported.
+reference's per-stage K1 products, ops/ntt.py:204 ``_butterflies_t``) of
+the domain's scalar field (BN254 or BLS12-381 r), in place on a copy of the
+input: unlike the reference, transforms never consume their argument. The
+MXU twiddle path and ``FourStepNTT`` are TPU devices and are not ported.
 """
 
 from __future__ import annotations
@@ -22,9 +22,12 @@ import torch
 
 from .cuda import Kernel, is_cuda, require, stream
 from .field import Field, to16, to32
-from .field_t import TField
+from .field_t import FR_KERNELS, TField
 
-NTT_STAGE = Kernel("fr", "ntt_stage", "gnark_icicle_tpu/ops/field_t.py:353")
+# scalar-field modulus -> its ntt_stage entry
+NTT_STAGE = {q: Kernel("fr", k_mul.curve, "ntt_stage",
+                       "gnark_icicle_tpu/ops/field_t.py:353")
+             for q, (k_mul, _) in FR_KERNELS.items()}
 
 
 def bitrev_indices(n: int) -> np.ndarray:
@@ -41,19 +44,20 @@ def bitrev_indices(n: int) -> np.ndarray:
 def ntt_stage_plain(F: Field, x: torch.Tensor, m: int, stride: int,
                     tw: torch.Tensor, dif: bool) -> None:
     """The plain version of ``ntt_stage``: the same stage in place on x."""
-    v = x.view(8, -1, 2, m)
+    W, K = F.n32, F.n16
+    v = x.view(W, -1, 2, m)
     g = v.shape[1]
-    w = to16(tw[:, ::stride][:, :m].contiguous())                 # (16, m)
-    w = w[:, None, :].expand(16, g, m).reshape(16, -1)
-    a = to16(v[:, :, 0, :].reshape(8, -1))
-    b = to16(v[:, :, 1, :].reshape(8, -1))
+    w = to16(tw[:, ::stride][:, :m].contiguous())                 # (K, m)
+    w = w[:, None, :].expand(K, g, m).reshape(K, -1)
+    a = to16(v[:, :, 0, :].reshape(W, -1))
+    b = to16(v[:, :, 1, :].reshape(W, -1))
     if dif:
         lo, hi = F.add16(a, b), F.mont_mul16(F.sub16(a, b), w)
     else:
         bw = F.mont_mul16(b, w)
         lo, hi = F.add16(a, bw), F.sub16(a, bw)
-    v[:, :, 0, :] = to32(lo).view(8, g, m)
-    v[:, :, 1, :] = to32(hi).view(8, g, m)
+    v[:, :, 0, :] = to32(lo).view(W, g, m)
+    v[:, :, 1, :] = to32(hi).view(W, g, m)
 
 
 def ntt_stage(F: Field, x: torch.Tensor, m: int, stride: int,
@@ -64,13 +68,16 @@ def ntt_stage(F: Field, x: torch.Tensor, m: int, stride: int,
     twiddle table."""
     if not is_cuda(x, tw):
         return ntt_stage_plain(F, x, m, stride, tw, dif)
+    if F.modulus not in NTT_STAGE:
+        raise NotImplementedError(
+            f"no ntt_stage kernel is built for the modulus {F.modulus:#x}")
     require(x.dtype == torch.int32 and x.shape[0] == 8 and x.is_contiguous()
             and tw.is_contiguous(), "ntt_stage takes contiguous (8, n) int32")
     n = x.shape[1]
     require(n % (2 * m) == 0 and (m - 1) * stride < tw.shape[1],
             "stage width does not match the data or the twiddle table")
-    NTT_STAGE.launch(x.data_ptr(), n, m, stride, tw.data_ptr(), tw.shape[1],
-                     int(dif), stream(x))
+    NTT_STAGE[F.modulus].launch(x.data_ptr(), n, m, stride, tw.data_ptr(),
+                                tw.shape[1], int(dif), stream(x))
 
 
 def _pow_table(tf: TField, base_mont: torch.Tensor, n: int) -> torch.Tensor:

@@ -2,14 +2,15 @@
 
 Every test here needs an NVIDIA GPU: it carries the ``cuda`` marker and skips
 inside the ``cuda_device`` fixture where torch sees none. The file imports
-nothing of JAX, so it also runs on a machine without it. There,
-tests/conftest.py (which configures JAX) is left out:
+nothing of JAX and nothing of the JAX package, so it also runs on a machine
+without them. There, tests/conftest.py (which configures JAX) is left out:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
 The CPU tests hold the plain versions to the JAX package; these hold the
-kernels to the plain versions, bit for bit, and the whole slice on the card
-to the same slice on the CPU.
+kernels to the plain versions, bit for bit, for BN254 (8-word Fp) and
+BLS12-381 (12-word Fp), and the whole slice on the card to the same slice on
+the CPU.
 """
 
 import dataclasses
@@ -18,22 +19,31 @@ import random
 import pytest
 import torch
 
-from gnark_icicle_tpu.curves import bn254
-from gnark_icicle_tpu.frontend import Circuit, Public, Secret, compile_circuit
 from gnark_icicle_tpu_torch.backend import groth16
+from gnark_icicle_tpu_torch.frontend import Circuit, Public, Secret, compile_circuit
 from gnark_icicle_tpu_torch.ops.ec_t import TCurve, TCurve2
 from gnark_icicle_tpu_torch.ops.field import field_for
 from gnark_icicle_tpu_torch.ops.field_t import TField
 from gnark_icicle_tpu_torch.ops.msm import msm_host
 from gnark_icicle_tpu_torch.ops.ntt import domain_for, ntt_stage, ntt_stage_plain
 
-from test_torch_common import CURVE, P, R, cuda_device, rand_ints  # noqa: F401
+from test_torch_common import CURVES, cuda_device, rand_ints  # noqa: F401
 
 pytestmark = pytest.mark.cuda
-G1, G2 = CURVE.g1, CURVE.g2
+NAMES = sorted(CURVES)
 
 
-def test_fr_kernels_match_plain(cuda_device):
+def _group(curve, group):
+    """The port's TCurve/TCurve2 of a host curve."""
+    F = field_for(curve.fp.modulus)
+    if group == "g1":
+        return TCurve(F, 3 * curve.g1.b % curve.fp.modulus)
+    return TCurve2(F, curve.tower.beta, curve.g2.b * 3)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_fr_kernels_match_plain(cuda_device, name):
+    R = CURVES[name].fr.modulus
     F = field_for(R)
     tf = TField(F)
     a = F.encode(rand_ints(60, R, 4096), cuda_device)
@@ -42,9 +52,14 @@ def test_fr_kernels_match_plain(cuda_device):
     assert torch.equal(tf.mont_mul(a, b), F.mont_mul(a, b))
     assert torch.equal(tf.mont_mul(a, c), F.mont_mul(a, c))
     assert torch.equal(tf.sub(a, b), F.sub(a, b))
+    # operands at p − 1 and products near R: the top-word carries
+    edge = F.encode([R - 1, R - 2, (F.R - 1) % R, F.R % R] * 8, cuda_device)
+    assert torch.equal(tf.mont_mul(edge, edge.flip(1)), F.mont_mul(edge, edge.flip(1)))
 
 
-def test_ntt_stage_kernel_matches_plain(cuda_device):
+@pytest.mark.parametrize("name", NAMES)
+def test_ntt_stage_kernel_matches_plain(cuda_device, name):
+    R = CURVES[name].fr.modulus
     F = field_for(R)
     n = 1 << 12
     tw = F.encode(rand_ints(90, R, n // 2), cuda_device)
@@ -56,23 +71,26 @@ def test_ntt_stage_kernel_matches_plain(cuda_device):
         assert torch.equal(xk, xp)
 
 
-@pytest.mark.parametrize("name", ["intt_nat_to_rev", "coset_ntt_rev_in",
-                                  "coset_intt_nat_to_rev", "ntt", "intt"])
-def test_domain_transforms_match_cpu(cuda_device, name):
-    F = field_for(R)
+@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("transform", ["intt_nat_to_rev", "coset_ntt_rev_in",
+                                       "coset_intt_nat_to_rev", "ntt", "intt"])
+def test_domain_transforms_match_cpu(cuda_device, name, transform):
+    curve = CURVES[name]
+    F = field_for(curve.fr.modulus)
     log_n = 10
-    x = F.encode(rand_ints(95, R, 1 << log_n), "cpu")
-    card = domain_for(F, CURVE.fr, log_n, cuda_device, coset=True)
-    host = domain_for(F, CURVE.fr, log_n, "cpu", coset=True)
-    got = getattr(card, name)(x.to(cuda_device))
-    assert torch.equal(got.cpu(), getattr(host, name)(x))
+    x = F.encode(rand_ints(95, curve.fr.modulus, 1 << log_n), "cpu")
+    card = domain_for(F, curve.fr, log_n, cuda_device, coset=True)
+    host = domain_for(F, curve.fr, log_n, "cpu", coset=True)
+    got = getattr(card, transform)(x.to(cuda_device))
+    assert torch.equal(got.cpu(), getattr(host, transform)(x))
 
 
+@pytest.mark.parametrize("name", NAMES)
 @pytest.mark.parametrize("group", ["g1", "g2"])
-def test_group_kernels_match_plain(cuda_device, group):
-    F = field_for(P)
-    tc = (TCurve(F, 3 * G1.b % P) if group == "g1"
-          else TCurve2(F, CURVE.tower.beta, G2.b * 3))
+def test_group_kernels_match_plain(cuda_device, name, group):
+    P = CURVES[name].fp.modulus
+    tc = _group(CURVES[name], group)
+    F = tc.F
     n = 2048
 
     def rand_planes(seed, planes, count):
@@ -95,11 +113,13 @@ def test_group_kernels_match_plain(cuda_device, group):
     assert torch.equal(tc.double(Pt[..., :100]), tc.double(Pt)[..., :100])
 
 
+@pytest.mark.parametrize("name", NAMES)
 @pytest.mark.parametrize("group", ["g1", "g2"])
-def test_msm_matches_host_oracle(cuda_device, group):
-    grp = G1 if group == "g1" else G2
-    tc = (TCurve(field_for(P), 3 * G1.b % P) if group == "g1"
-          else TCurve2(field_for(P), CURVE.tower.beta, G2.b * 3))
+def test_msm_matches_host_oracle(cuda_device, name, group):
+    curve = CURVES[name]
+    R = curve.fr.modulus
+    grp = curve.g1 if group == "g1" else curve.g2
+    tc = _group(curve, group)
     n = 300
     k0, dk = rand_ints(200, R, 2, edge=False)
     cur, step = grp.scalar_mul(grp.generator, k0), grp.scalar_mul(grp.generator, dk)
@@ -111,7 +131,7 @@ def test_msm_matches_host_oracle(cuda_device, group):
     want = grp.msm(scal, pts)
     if group == "g2" and want is not None:
         want = ((want[0].c0, want[0].c1), (want[1].c0, want[1].c1))
-    assert msm_host(tc, CURVE.fr, pts, scal, cuda_device) == want
+    assert msm_host(tc, curve.fr, pts, scal, cuda_device) == want
 
 
 STEPS = 260  # 262 wires: the G2 key products take the ladder too (>= 256)
@@ -134,20 +154,43 @@ def _fields(obj):
             if not f.name.startswith("_")}
 
 
-def test_groth16_on_card_matches_cpu(cuda_device):
+@pytest.mark.parametrize("name", NAMES)
+def test_groth16_on_card_matches_cpu(cuda_device, name):
+    curve = CURVES[name]
+    R = curve.fr.modulus
     cs = compile_circuit(R, Chain)
     v = 3
     for i in range(STEPS):
         v = (v * v + v + i) % R
     keys, proofs = {}, {}
     for dev in ("cpu", cuda_device):
-        pk, vk = groth16.setup(cs, bn254.BN254, rng=random.Random(1), device=dev)
+        pk, vk = groth16.setup(cs, curve, rng=random.Random(1), device=dev)
         keys[str(dev)] = (pk, vk)
-        proofs[str(dev)] = groth16.prove(cs, pk, [v], [3], bn254.BN254,
+        proofs[str(dev)] = groth16.prove(cs, pk, [v], [3], curve,
                                          rng=random.Random(2), device=dev)
     (pk_c, vk_c), (pk_g, vk_g) = keys.values()
     assert _fields(pk_g) == _fields(pk_c) and _fields(vk_g) == _fields(vk_c)
     proof_c, proof_g = proofs.values()
     assert _fields(proof_g) == _fields(proof_c)
-    groth16.verify(proof_g, vk_g, [v], bn254.BN254)
-    assert not groth16.is_valid(proof_g, vk_g, [(v + 1) % R], bn254.BN254)
+    groth16.verify(proof_g, vk_g, [v], curve)
+    assert not groth16.is_valid(proof_g, vk_g, [(v + 1) % R], curve)
+
+
+def test_entry_points_default_to_the_card(cuda_device):
+    """With no device given, setup and prove run on cuda:0 (the launch
+    counts of the kernels move)."""
+    from gnark_icicle_tpu_torch.device import DeviceCtx
+    from gnark_icicle_tpu_torch.ops import cuda as kc
+
+    curve = CURVES["bn254"]
+    assert DeviceCtx(curve).device == torch.device("cuda", 0)
+    R = curve.fr.modulus
+    cs = compile_circuit(R, Chain)
+    v = 3
+    for i in range(STEPS):
+        v = (v * v + v + i) % R
+    before = sum(k.launches for k in kc.KERNELS.values())
+    pk, vk = groth16.setup(cs, curve, rng=random.Random(1))
+    proof = groth16.prove(cs, pk, [v], [3], curve, rng=random.Random(2))
+    assert sum(k.launches for k in kc.KERNELS.values()) > before
+    groth16.verify(proof, vk, [v], curve)

@@ -1,8 +1,11 @@
-"""The port runs without JAX, and chip_smoke.py refuses to run without a GPU.
+"""The port stands alone, and runs on the card unless asked for the CPU.
 
-The machine with the card has no JAX: a subprocess with ``jax`` blocked on
-``sys.meta_path`` imports every module of the port and runs a tiny
-compile → setup → prove → verify slice.
+The machine with the card has no JAX, and the port imports nothing of the
+JAX package either: a subprocess with ``jax`` and every ``gnark_icicle_tpu``
+module blocked on ``sys.meta_path`` imports every module of the port and
+runs a tiny compile → setup → prove → verify slice with the port's own
+frontend and curves. chip_smoke.py refuses to run without a GPU, and the
+entry points raise where there is no card and no ``device="cpu"``.
 """
 
 import os
@@ -12,26 +15,33 @@ import shutil
 import subprocess
 import sys
 
+import pytest
+
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "gnark_icicle_tpu_torch"
+# the files that run on the machine with the card
+STANDALONE = (sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                            REPO / "tests" / "test_torch_cuda.py"])
 
 SLICE = r'''
 import importlib, pkgutil, random, sys
 
-class BlockJax:
+class Block:
+    """jax, jaxlib and the JAX package (gnark_icicle_tpu and its modules)."""
     def find_spec(self, name, path, target=None):
-        if name == "jax" or name.startswith(("jax.", "jaxlib")):
-            raise ImportError("jax is blocked: " + name)
+        top = name.split(".")[0]
+        if top in ("jax", "jaxlib", "gnark_icicle_tpu"):
+            raise ImportError("blocked: " + name)
 
-sys.meta_path.insert(0, BlockJax())
+sys.meta_path.insert(0, Block())
 import torch
 torch.set_num_threads(1)  # the test run shares the machine among workers
 import gnark_icicle_tpu_torch as port
 for mod in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
     importlib.import_module(mod.name)
 
-from gnark_icicle_tpu.curves import bn254
-from gnark_icicle_tpu.frontend import Circuit, Public, Secret, compile_circuit
+from gnark_icicle_tpu_torch.curves import bn254
+from gnark_icicle_tpu_torch.frontend import Circuit, Public, Secret, compile_circuit
 from gnark_icicle_tpu_torch.backend import groth16
 
 R, STEPS = bn254.R, 12
@@ -55,9 +65,8 @@ proof = groth16.prove(cs, pk, [v], [3], bn254.BN254, rng=random.Random(2),
                       device="cpu")
 groth16.verify(proof, vk, [v], bn254.BN254)
 assert not groth16.is_valid(proof, vk, [v + 1], bn254.BN254)
-leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith(
-    ("jax.", "gnark_icicle_tpu.ops", "gnark_icicle_tpu.device",
-     "gnark_icicle_tpu.backend.groth16")))
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "gnark_icicle_tpu"))
 assert not leaked, leaked
 print("SLICE-OK")
 '''
@@ -84,12 +93,16 @@ def test_no_jax_import_in_port_sources():
         assert not pat.search(f.read_text()), f
 
 
+@pytest.mark.parametrize("path", STANDALONE, ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_package_import_in_standalone_sources(path):
+    pat = re.compile(r"^\s*(import|from)\s+gnark_icicle_tpu(?!_torch)\b", re.M)
+    assert not pat.search(path.read_text()), path
+
+
 def test_chip_smoke_refuses_without_gpu(tmp_path):
     import torch
 
     if torch.cuda.is_available():
-        import pytest
-
         pytest.skip("a GPU is present: chip_smoke.py would run for real")
     for cwd, script in ((REPO, REPO / "chip_smoke.py"),
                         (tmp_path, shutil.copy(REPO / "chip_smoke.py", tmp_path))):
@@ -98,3 +111,39 @@ def test_chip_smoke_refuses_without_gpu(tmp_path):
                              capture_output=True, text=True, timeout=120)
         assert out.returncode != 0
         assert '"ok": true' not in out.stdout
+
+
+@pytest.mark.parametrize("entry", ["setup", "prove", "DeviceCtx", "msm_host"])
+def test_entry_points_raise_without_cuda(entry):
+    """No device given and no card: every entry point raises instead of
+    running the plain versions on the CPU."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the entry points would run on it")
+    from gnark_icicle_tpu_torch.backend import groth16
+    from gnark_icicle_tpu_torch.curves import bn254
+    from gnark_icicle_tpu_torch.device import DeviceCtx
+    from gnark_icicle_tpu_torch.frontend import Circuit, Public, Secret, compile_circuit
+    from gnark_icicle_tpu_torch.ops.ec_t import TCurve
+    from gnark_icicle_tpu_torch.ops.field import field_for
+    from gnark_icicle_tpu_torch.ops.msm import msm_host
+
+    class Square(Circuit):
+        x = Secret()
+        out = Public()
+
+        def define(self, api):
+            api.assert_is_equal(api.mul(self.x, self.x), self.out)
+
+    curve = bn254.BN254
+    calls = {
+        "setup": lambda: groth16.setup(compile_circuit(bn254.R, Square), curve),
+        "prove": lambda: groth16.prove(compile_circuit(bn254.R, Square), None,
+                                       [9], [3], curve, device=None),
+        "DeviceCtx": lambda: DeviceCtx(curve, None),
+        "msm_host": lambda: msm_host(TCurve(field_for(bn254.P), 9), curve.fr,
+                                     [curve.g1.generator], [5]),
+    }
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[entry]()
