@@ -3,27 +3,37 @@
 
     python3 chip_smoke.py
 
-For each curve the port covers, BN254 (Fp at 8 32-bit words) and BLS12-381
-(Fp at 12), phases print one JSON line each on stdout:
+For each curve the port covers, BN254 (Fp at 8 32-bit words), BLS12-381 and
+BLS12-377 (Fp at 12; BLS12-377's Fp2 has u^2 = -5) and BW6-761 (Fp at 24, Fr
+at 12, G2 over Fp), phases print one JSON line each on stdout:
   1. build: compile every (CUDA source, curve) pair in
-     gnark_icicle_tpu_torch/csrc/, all nvcc processes at once, and report
-     ptxas's registers and spills;
+     gnark_icicle_tpu_torch/csrc/ (BW6-761 builds no g2.cu), all nvcc
+     processes at once, and report each one's seconds and ptxas's registers
+     and spills;
   2. kernels: each kernel entry against its plain PyTorch version on the
      card, bit-equal (Fr product, subtraction and NTT stage at 2^16 lanes;
      G1 and G2 masked signed mixed add, add and double at 2^14 lanes, with
-     operands at p - 1 and near R), then again at the shapes the 2^17 prove
-     gives it, with CUDA-event times of both there and the least time the
-     card could take (bound_ms); the mixed adds are also timed at setup's
-     fixed-base ladder widths (one table row, mask = a bit);
-  3. msm: a G1 MSM at 2^12 points and a G2 MSM at 2^10 points against the
-     host oracle of the port's curves/, in affine form;
+     operands at 0, 1, p - 1, p - 2 and near R), then again at the shapes its
+     curve's path gives it (the 2^17 Chain prove; for BW6-761 the outer
+     proof of the 2-chain), with CUDA-event times of both there and the
+     least time the card could take (bound_ms); the mixed adds are also
+     timed at setup's fixed-base ladder widths (one table row, mask = a
+     bit). BW6-761's G2 runs its G1 entries with G2's b3 and is checked so;
+  3. msm: G1 and G2 MSMs (2^12 and 2^10 points; BW6-761 2^10 and 2^10)
+     against the host oracle of the port's curves/, in affine form;
   4. groth16: the 2^17-step Chain circuit (bench.py's rollup-scale
-     benchmark): compile, setup (host/points split), a first prove, two
-     timed proves with solve / computeH / MSM phase times, one prove under
-     torch.profiler (device busy share, device time by kernel); the port's
-     verifier accepts the proof and rejects a tampered public input. The
-     kernels' launch counts are set to 0 just before setup and read just
-     after the last prove, and every kernel of the curve must have run;
+     benchmark) on BN254, BLS12-381 and BLS12-377: compile, setup
+     (host/points split), a first prove, two timed proves with solve /
+     computeH / MSM phase times, one prove under torch.profiler (device busy
+     share, device time by kernel); the port's verifier accepts the proof
+     and rejects a tampered public input. The kernels' launch counts are set
+     to 0 just before setup and read just after the last prove, and every
+     kernel of the curve must have run;
+  2chain: the BW6-761 outer proof that phase 4's BLS12-377 proof verifies
+     (gnark's native 2-chain): the in-circuit Groth16 verifier of std/
+     compiled over BW6-761's r (BLS12-377's p), then setup, a first prove,
+     two timed proves and a profiled one on the card, verify, and the inner
+     public input + 1 rejected; launch counts as in phase 4;
   5. the JSON line of all kernels (the counts of their own curve's path);
   6. the card's name and power limit from nvidia-smi.
 The last line is {"ok": true, "device": {...}}. Any failure raises: the
@@ -41,22 +51,50 @@ import subprocess
 import sys
 import time
 
-CURVE_NAMES = ("bn254", "bls12_381")
-CHAIN_LOG = {"bn254": 17, "bls12_381": 17}  # Chain(2^17 - 2): 131,510 constraints
+CURVE_NAMES = ("bn254", "bls12_381", "bls12_377", "bw6_761")
+CHAIN_CURVES = ("bn254", "bls12_381", "bls12_377")   # phase 4
+# Chain(2^17 - 2): 131,510 constraints
+CHAIN_LOG = {"bn254": 17, "bls12_381": 17, "bls12_377": 17}
 REPS_KERNEL = 20    # timed launches per kernel
 N_FR = 1 << 16      # lanes of the Fr kernel checks
 N_EC = 1 << 14      # lanes of the group-law kernel checks
-N_MSM = {"g1": 1 << 12, "g2": 1 << 10}  # points of the MSM checks
-# the main path's kernel shapes for the 2^17 Chain (2^18 domain, c = 16):
-SLICE = {
-    "fr": 1 << 18,              # computeH pointwise, scalings, Montgomery
-    "ntt": (1 << 18, 1 << 12),  # (n, m) of one radix-2 stage
-    "points": 1 << 17,          # MSM point table rows
-    "wave": 17 << 15,           # first wave stage: W·B = 17·2^15 lanes
-    "reduce": 17 << 11,         # chunked bucket reduction: W·V = 17·2048
-    "double": 17,               # the reduction's doublings: W lanes
-    "ladder": {"g1": 1 << 18, "g2": 131512},  # setup's fixed-base ladders
-}
+# points of the MSM checks
+N_MSM = {"bn254": {"g1": 1 << 12, "g2": 1 << 10}, "bls12_381": {"g1": 1 << 12, "g2": 1 << 10},
+         "bls12_377": {"g1": 1 << 12, "g2": 1 << 10}, "bw6_761": {"g1": 1 << 10, "g2": 1 << 10}}
+
+
+def _path_shapes(log_n: int, msm_points: int, table_rows: int, fr_bits: int,
+                 ladder: dict) -> dict:
+    """The kernel shapes of a Groth16 prove on a 2^log_n domain: the largest
+    MSM (the h·Z one, msm_points scalars, pick_window's c) sets the first wave
+    stage (windows·2^(c-1) lanes) and the bucket reduction's widths."""
+    from gnark_icicle_tpu_torch.ops.msm import pick_window
+
+    c = pick_window(msm_points)
+    windows = -(-fr_bits // c) + 1
+    B = 1 << (c - 1)
+    V = 2048 if B > 2048 else 1 << -(-(B.bit_length() - 1) // 2)
+    return {"fr": 1 << log_n,                  # computeH pointwise, Montgomery
+            "ntt": (1 << log_n, 1 << (log_n - 6)),  # (n, m) of one radix-2 stage
+            "points": table_rows,              # MSM point table rows
+            "wave": windows * B,               # first wave stage
+            "reduce": windows * V,             # chunked bucket reduction
+            "double": windows,                 # the reduction's doublings
+            "ladder": ladder}                  # setup's fixed-base ladders
+
+
+def slice_shapes(name: str) -> dict:
+    """The kernel shapes of a curve's main path: the 2^17 Chain (2^18
+    domain, c = 16: 17 windows, 557,056 wave lanes) for the first three
+    curves; for BW6-761 the 2-chain's outer proof (35,871 constraints,
+    35,856 wires, a 2^16 domain; the h·Z MSM of 65,536 points at c = 12: 33
+    windows, 67,584 wave lanes; setup's G1 ladder over 3·35,856 − 2 + 65,535
+    scalars, its G2 ladder over 35,856)."""
+    if name == "bw6_761":
+        return _path_shapes(16, 1 << 16, 35856, 377,
+                            {"g1": 3 * 35856 - 2 + 65535, "g2": 35856})
+    bits = {"bn254": 254, "bls12_381": 255, "bls12_377": 253}[name]
+    return _path_shapes(18, 1 << 18, 1 << 17, bits, {"g1": 1 << 18, "g2": 131512})
 # The card's rates for the bound (the least time the card could take): HBM
 # bandwidth from NVIDIA's H100 SXM data sheet; 32-bit integer multiply-adds
 # at 64 per SM per clock (compute capability 9.0), at the card's maximum SM
@@ -81,9 +119,10 @@ def _smi(query: str) -> str:
 
 
 def _curves() -> dict:
-    from gnark_icicle_tpu_torch.curves import bls12_381, bn254
+    from gnark_icicle_tpu_torch.curves import bls12_377, bls12_381, bn254, bw6_761
 
-    return {"bn254": bn254.BN254, "bls12_381": bls12_381.BLS12_381}
+    return {"bn254": bn254.BN254, "bls12_381": bls12_381.BLS12_381,
+            "bls12_377": bls12_377.BLS12_377, "bw6_761": bw6_761.BW6_761}
 
 
 def _cuda_ms(fn, reps: int) -> float:
@@ -130,24 +169,25 @@ def phase_build() -> None:
     from gnark_icicle_tpu_torch.ops import cuda as kc
 
     seconds = kc.load_all()
-    regs = {}
+    regs, each = {}, {}
     out_dir = os.path.join(kc.BUILD_ROOT, kc._source_hash())
-    for src in kc.SOURCES:
-        for curve in kc.CURVES:
-            stem = kc.lib_stem(src[:-3], curve)
-            path = os.path.join(out_dir, stem + ".log")
-            lines = open(path).read().splitlines() if os.path.exists(path) else []
-            regs[stem] = [ln.split("ptxas info    : ")[-1] for ln in lines
-                          if "registers" in ln or "spill" in ln]
-    _say("build", seconds=seconds, ptxas=regs)
+    for src, curve in kc.libraries():
+        stem = kc.lib_stem(src, curve)
+        path = os.path.join(out_dir, stem + ".log")
+        lines = open(path).read().splitlines() if os.path.exists(path) else []
+        regs[stem] = [ln.split("ptxas info    : ")[-1] for ln in lines
+                      if "registers" in ln or "spill" in ln]
+        path = os.path.join(out_dir, stem + ".seconds")
+        each[stem] = float(open(path).read()) if os.path.exists(path) else None
+    _say("build", seconds=seconds, nvcc_seconds=each, ptxas=regs)
 
 
 def _rand_fe(rng, q, n):
-    """n random elements of Z/q, led by p - 1, p - 2 and values near R."""
+    """n random elements of Z/q, led by 0, 1, p - 1, p - 2 and values near R."""
     from gnark_icicle_tpu_torch.ops.field import field_for
 
     R = field_for(q).R
-    edge = [q - 1, q - 2, (R - 1) % q, R % q, (R >> 1) % q]
+    edge = [0, 1, q - 1, q - 2, (R - 1) % q, R % q, (R >> 1) % q]
     return edge + [rng.randrange(q) for _ in range(n - len(edge))]
 
 
@@ -165,8 +205,8 @@ def _rand_dev(F, planes: int, n: int, device):
 
 def phase_kernels(device, name: str, rates: dict) -> list:
     """Every kernel entry of one curve against its plain version on the card,
-    bit-equal: first at the check sizes (N_FR, N_EC), then at the main
-    path's shapes (SLICE), where both versions are also timed."""
+    bit-equal: first at the check sizes (N_FR, N_EC), then at the shapes of
+    its curve's path (slice_shapes), where both versions are also timed."""
     import torch
 
     from gnark_icicle_tpu_torch.ops import cuda as kc
@@ -182,6 +222,7 @@ def phase_kernels(device, name: str, rates: dict) -> list:
     fr, fp = field_for(R), field_for(P)
     tf = TField(fr)
     results = []
+    shapes = slice_shapes(name)
 
     def record(kname, check_err, shape, args, run, run_plain, nbytes, products,
                words, **extra):
@@ -209,7 +250,7 @@ def phase_kernels(device, name: str, rates: dict) -> list:
     a = fr.encode(_rand_fe(rng, R, n), device)
     b = fr.encode(_rand_fe(rng, R, n)[::-1], device)
     c1 = fr.const(rng.randrange(R), device)
-    nf = SLICE["fr"]
+    nf = shapes["fr"]
     big = list(_rand_dev(fr, 2, nf, device))
     lane = 4 * fr.n32   # bytes of one element
     record("fr_mont_mul", max(_max_abs_err(tf.mont_mul(a, b), fr.mont_mul(a, b)),
@@ -230,7 +271,7 @@ def phase_kernels(device, name: str, rates: dict) -> list:
     for m, stride, dif in ((8, n // 16, False), (n // 64, 32, True)):
         err = max(err, _max_abs_err(stage(ntt_stage, m, stride, dif)(a.clone(), tw),
                                     stage(ntt_stage_plain, m, stride, dif)(a.clone(), tw)))
-    big_n, big_m = SLICE["ntt"]
+    big_n, big_m = shapes["ntt"]
     stride = big_n // (2 * big_m)
     record("ntt_stage", err, f"n={big_n}, m={big_m}",
            [_rand_dev(fr, 1, big_n, device)[0], _rand_dev(fr, 1, big_n // 2, device)[0]],
@@ -242,8 +283,13 @@ def phase_kernels(device, name: str, rates: dict) -> list:
     # elements test them), identity lanes, random signs and masks
     n = N_EC
     g1 = TCurve(fp, 3 * curve.g1.b % P)
-    g2 = TCurve2(fp, curve.tower.beta, curve.g2.b * 3)
+    fp2 = hasattr(curve.g2.b, "c0")
+    g2 = (TCurve2(fp, curve.tower.beta, curve.g2.b * 3) if fp2
+          else TCurve(fp, 3 * curve.g2.b % P))
     for tc, tag in ((g1, "g1"), (g2, "g2")):
+        # BW6-761's G2 runs the g1 entries with its own b3: checked below,
+        # recorded once (as g1)
+        check_only = not fp2 and tag == "g2"
         coord = 4 * fp.n32 * tc.NP          # bytes of one coordinate
         per_product = 3 if tc.NP == 2 else 1
 
@@ -283,15 +329,30 @@ def phase_kernels(device, name: str, rates: dict) -> list:
             return run
 
         P_, Q_ = rand_points(n), rand_points(n)
-        # an edge table: rows at p - 1 and near R
+        # an edge table: rows at 0, 1, p - 1 and near R
         check = [P_] + rand_wave(n, 1 << 12)
         edge = fp.encode(_rand_fe(rng, P, 2 * tc.NP * 8), device)
         check[1][:8] = edge.reshape(fp.n32, 8, 2 * tc.NP).permute(1, 2, 0).reshape(8, -1)
-        lanes = SLICE["wave"]
-        w_path = rand_wave(lanes, SLICE["points"])
+        if check_only:
+            errs = [_max_abs_err(wave(tc.add_mixed_masked, n)(*[t.clone() for t in check]),
+                                 wave(tc.add_mixed_masked_plain, n)(*[t.clone() for t in check])),
+                    _max_abs_err(tc.add(P_, Q_), plain("add")(P_, Q_)),
+                    _max_abs_err(tc.double(P_), plain("double")(P_))]
+            lanes = shapes["ladder"]["g2"]
+            w_ladder = rand_wave(lanes, 1, signed=False)
+            acc = rand_points(lanes)
+            errs.append(_max_abs_err(wave(tc.add_mixed_masked, lanes)(acc.clone(), *w_ladder),
+                                     wave(tc.add_mixed_masked_plain, lanes)(acc.clone(), *w_ladder)))
+            if max(errs) != 0:
+                raise AssertionError(f"{prefix}g1_* with G2's b3 differ from the plain version")
+            _say("kernel_check", curve=name, group="g2 over Fp (g1 entries, G2's b3)",
+                 max_abs_err=max(errs), ladder_lanes=lanes)
+            continue
+        lanes = shapes["wave"]
+        w_path = rand_wave(lanes, shapes["points"])
         nb, k = wave_bytes(lanes, w_path)
         # K6's role: setup's fixed-base ladder step (one row, no sign, mask = bit)
-        ladder_lanes = SLICE["ladder"][tag]
+        ladder_lanes = shapes["ladder"][tag]
         w_ladder = rand_wave(ladder_lanes, 1, signed=False)
         acc_ladder = rand_points(ladder_lanes)
         lad = [wave(tc.add_mixed_masked, ladder_lanes), wave(tc.add_mixed_masked_plain, ladder_lanes)]
@@ -305,7 +366,7 @@ def phase_kernels(device, name: str, rates: dict) -> list:
         record(f"{tag}_add_mixed_masked",
                _max_abs_err(wave(tc.add_mixed_masked, n)(*[t.clone() for t in check]),
                             wave(tc.add_mixed_masked_plain, n)(*[t.clone() for t in check])),
-               f"{lanes} lanes, {SLICE['points']} table rows",
+               f"{lanes} lanes, {shapes['points']} table rows",
                [rand_points(lanes)] + w_path,
                wave(tc.add_mixed_masked, lanes), wave(tc.add_mixed_masked_plain, lanes),
                nb, k * PRODUCTS["add_mixed_masked"] * per_product, fp.n32,
@@ -313,7 +374,7 @@ def phase_kernels(device, name: str, rates: dict) -> list:
                        "ms": _cuda_ms(lambda: lad[0](acc_ladder, *w_ladder), REPS_KERNEL),
                        "plain_ms": _cuda_ms(lambda: lad[1](acc_ladder, *w_ladder), 2),
                        "bound_ms": l_bound, "bound_by": l_by})
-        for op, width in (("add", SLICE["reduce"]), ("double", SLICE["double"])):
+        for op, width in (("add", shapes["reduce"]), ("double", shapes["double"])):
             args = [P_, Q_] if op == "add" else [P_]
             record(f"{tag}_{op}", _max_abs_err(getattr(tc, op)(*args), plain(op)(*args)),
                    f"{width} lanes", [rand_points(width) for _ in args],
@@ -340,8 +401,8 @@ def _chain_points(group, k0: int, dk: int, n: int, q: int):
     return pts, logs
 
 
-def phase_msm(ctx) -> None:
-    """G1 MSM at 2^12 and G2 MSM at 2^10 points against the host oracle:
+def phase_msm(ctx, name: str) -> None:
+    """G1 and G2 MSMs (N_MSM points) against the host oracle:
     Σ s_i·(k_i·G) = (Σ s_i·k_i)·G, one scalar product on curves/."""
     from gnark_icicle_tpu_torch.ops.msm import msm_host
 
@@ -349,7 +410,7 @@ def phase_msm(ctx) -> None:
     rng = random.Random(11)
     q = curve.fr.modulus
     for tag, group, tc in (("g1", curve.g1, ctx.g1), ("g2", curve.g2, ctx.g2)):
-        n = N_MSM[tag]
+        n = N_MSM[name][tag]
         pts, logs = _chain_points(group, rng.randrange(1, q), rng.randrange(1, q), n, q)
         scal = [rng.randrange(q) for _ in range(n)]
         scal[:3] = [0, 1, q - 1]
@@ -358,7 +419,7 @@ def phase_msm(ctx) -> None:
         seconds = time.perf_counter() - t0
         want = group.scalar_mul(group.generator,
                                 sum(s * k for s, k in zip(scal, logs)) % q)
-        if tag == "g2" and want is not None:
+        if tag == "g2" and ctx.g2_fp2 and want is not None:
             want = ((want[0].c0, want[0].c1), (want[1].c0, want[1].c1))
         if got != want:
             raise AssertionError(f"{curve.name} {tag} MSM at {n} points differs "
@@ -398,38 +459,19 @@ def _profiled(run) -> dict:
             "top": [{"kernel": k, "device_ms": ms, "launches": c} for k, (ms, c) in top]}
 
 
-def phase_groth16(device, name: str) -> dict:
-    """The 2^17-step Chain on one curve: compile, setup, first prove, two
-    timed proves, one profiled prove, verify and a tampered public input.
-    Returns the launch counts of this path."""
+def _prove_path(device, name: str, cs, pub, sec, bad_pub, phase: str,
+                **report) -> tuple:
+    """Setup, a first prove, two timed proves and one under torch.profiler
+    for one compiled circuit on one curve, then verify and a tampered public
+    input. The curve's launch counts are set to 0 just before setup and read
+    just after the last prove; every kernel of the curve must have run.
+    Returns (launches, vk, proof)."""
     import torch
 
     from gnark_icicle_tpu_torch.backend import groth16
-    from gnark_icicle_tpu_torch.frontend import Circuit, Public, Secret, compile_circuit
     from gnark_icicle_tpu_torch.ops import cuda as kc
 
     curve = _curves()[name]
-    q = curve.fr.modulus
-    steps = (1 << CHAIN_LOG[name]) - 2
-
-    class Chain(Circuit):
-        x = Secret()
-        out = Public()
-
-        def define(self, api):
-            v = self.x
-            for i in range(steps):
-                v = api.add(api.mul(v, v), v, i)
-            api.assert_is_equal(v, self.out)
-
-    t0 = time.perf_counter()
-    cs = compile_circuit(q, Chain)
-    t_compile = time.perf_counter() - t0
-    v = 3
-    for i in range(steps):
-        v = (v * v + v + i) % q
-    pub, sec = [v], [3]
-
     phases, setup_split = [], {}
 
     class Grab(logging.Handler):
@@ -472,18 +514,85 @@ def phase_groth16(device, name: str) -> dict:
     peak = torch.cuda.max_memory_allocated()
     log.removeHandler(grab)
 
+    t0 = time.perf_counter()
     groth16.verify(proof, vk, pub, curve)
-    if groth16.is_valid(proof, vk, [(v + 1) % q], curve):
+    t_verify = time.perf_counter() - t0
+    if groth16.is_valid(proof, vk, bad_pub, curve):
         raise AssertionError("the verifier accepted a tampered public input")
-    _say("groth16", curve=curve.name, constraints=cs.nb_constraints, wires=cs.nb_wires,
-         domain_log_n=pk.domain_log_n, compile_s=t_compile, setup_s=t_setup,
+    _say(phase, curve=curve.name, constraints=cs.nb_constraints, wires=cs.nb_wires,
+         domain_log_n=pk.domain_log_n, **report, setup_s=t_setup,
          setup_split=setup_split, first_prove_s=t_first, proves=timed,
-         profiled_prove=profiled, peak_device_bytes=peak,
+         profiled_prove=profiled, peak_device_bytes=peak, verify_s=t_verify,
          verified=True, tampered_rejected=True)
     missing = [k for k, c in launches.items() if c <= 0]
     if missing:
         raise AssertionError(f"kernels the {name} path never launched: {missing}")
     _say("launches", curve=curve.name, **launches)
+    return launches, vk, proof
+
+
+def phase_groth16(device, name: str) -> tuple:
+    """The 2^17-step Chain on one curve: compile, then _prove_path.
+    Returns (launches, vk, proof, public inputs)."""
+    from gnark_icicle_tpu_torch.frontend import Circuit, Public, Secret, compile_circuit
+
+    q = _curves()[name].fr.modulus
+    steps = (1 << CHAIN_LOG[name]) - 2
+
+    class Chain(Circuit):
+        x = Secret()
+        out = Public()
+
+        def define(self, api):
+            v = self.x
+            for i in range(steps):
+                v = api.add(api.mul(v, v), v, i)
+            api.assert_is_equal(v, self.out)
+
+    t0 = time.perf_counter()
+    cs = compile_circuit(q, Chain)
+    t_compile = time.perf_counter() - t0
+    v = 3
+    for i in range(steps):
+        v = (v * v + v + i) % q
+    launches, vk, proof = _prove_path(device, name, cs, [v], [3], [(v + 1) % q],
+                                      "groth16", compile_s=t_compile)
+    return launches, vk, proof, [v]
+
+
+def phase_2chain(device, inner_vk, inner_proof, inner_pub) -> dict:
+    """The BW6-761 outer proof that the BLS12-377 proof of phase 4 verifies:
+    the circuit OuterG16 of tools/run_2chain_device.py, compiled over
+    BW6-761's r (= BLS12-377's p) with the port's std/ gadgets, then
+    _prove_path; the tampered input is the inner public value + 1."""
+    from gnark_icicle_tpu_torch.curves import bls12_377
+    from gnark_icicle_tpu_torch.frontend import Circuit, Public, Secret, compile_circuit
+    from gnark_icicle_tpu_torch.std.recursion.native_groth16 import (
+        NativeGroth16Verifier, NativeVerifierProof,
+    )
+
+    class OuterG16(Circuit):
+        inner_pub = Public()
+        pr = Secret(shape=8)  # ax ay | bx0 bx1 by0 by1 | cx cy
+
+        def define(self, api):
+            gv = NativeGroth16Verifier(api, inner_vk)
+            p = self.pr
+            w = NativeVerifierProof(ar=(p[0], p[1]), bs=((p[2], p[3]), (p[4], p[5])),
+                                    krs=(p[6], p[7]))
+            gv.assert_proof(w, [self.inner_pub])
+
+    t0 = time.perf_counter()
+    cs = compile_circuit(bls12_377.P, OuterG16)
+    t_compile = time.perf_counter() - t0
+    pr = inner_proof
+    w = OuterG16(inner_pub=inner_pub[0],
+                 pr=[pr.ar[0], pr.ar[1], pr.bs[0].c0, pr.bs[0].c1, pr.bs[1].c0,
+                     pr.bs[1].c1, pr.krs[0], pr.krs[1]])
+    opub, osec = w.witness_values(bls12_377.P)
+    bad = [(inner_pub[0] + 1) % bls12_377.R]
+    launches, _, _ = _prove_path(device, "bw6_761", cs, opub, osec, bad, "2chain",
+                                 compile_s=t_compile)
     return launches
 
 
@@ -503,10 +612,14 @@ def main() -> int:
     for name in CURVE_NAMES:
         kernels += phase_kernels(device, name, rates)
     for name in CURVE_NAMES:
-        phase_msm(DeviceCtx(_curves()[name], device))
-    launches = {}
-    for name in CURVE_NAMES:
-        launches.update(phase_groth16(device, name))
+        phase_msm(DeviceCtx(_curves()[name], device), name)
+    launches, inner = {}, None
+    for name in CHAIN_CURVES:
+        counts, vk, proof, pub = phase_groth16(device, name)
+        launches.update(counts)
+        if name == "bls12_377":
+            inner = (vk, proof, pub)
+    launches.update(phase_2chain(device, *inner))
     for k in kernels:
         k["launches"] = launches[k["name"]]
     _say("done", seconds=time.perf_counter() - t_start)

@@ -30,9 +30,9 @@ from .keys import Proof, ProvingKey
 
 
 def _compute_h(ctx: DeviceCtx, a, b, c, log_n: int):
-    """(a·b−c)/Z as plain-form (8, n) scalars in bit-reversed order.
+    """(a·b−c)/Z as plain-form (Wr, n) scalars in bit-reversed order.
 
-    a, b, c: (N, 8) uint32 plain-form limbs, N ≤ n. On the coset g·<ω>,
+    a, b, c: (N, Wr) uint32 plain-form limbs, N ≤ n. On the coset g·<ω>,
     Z(g·ωⁱ) = gⁿ−1 is constant, so one product by a scalar replaces the
     reference's ``den`` vector."""
     q = ctx.curve.fr.modulus
@@ -91,8 +91,9 @@ def prove(cs, pk: ProvingKey, public_values, secret_values, curve,
     log.info("groth16 prove: solve took=%.3fs", t_solved - t_start)
 
     log_n = pk.domain_log_n
-    h = _compute_h(ctx, solved_u32(res, "a"), solved_u32(res, "b"),
-                   solved_u32(res, "c"), log_n)
+    W = ctx.fr.n32
+    h = _compute_h(ctx, solved_u32(res, "a", W), solved_u32(res, "b", W),
+                   solved_u32(res, "c", W), log_n)
     ctx.sync()
     t_h = time.perf_counter()
     log.info("groth16 prove: computeH took=%.3fs", t_h - t_solved)
@@ -100,7 +101,7 @@ def prove(cs, pk: ProvingKey, public_values, secret_values, curve,
     dev = pk.device_arrays(ctx)
     t_pk = time.perf_counter()
     log.info("groth16 prove: pk staging took=%.3fs", t_pk - t_h)
-    wires = ctx.fr_scalars(solved_u32(res, "wires"))
+    wires = ctx.fr_scalars(solved_u32(res, "wires", W))
     priv = wires[:, cs.nb_public:].contiguous()
 
     def msm(kern, pts, scal):

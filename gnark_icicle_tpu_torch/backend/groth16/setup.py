@@ -8,7 +8,8 @@ that the same rng gives the same keys as the reference. The batch scalar multipl
 fixed-base ladder (``ops/fixed_base.py``); all the G1 products of the proving
 key (A, B, K and Z) share one ladder run. Circuits with BSB22 commitments
 are not supported yet. ``curve`` is one of the port's curves (BN254,
-BLS12-381); the scalar bits, the ladders and the key's points follow it.
+BLS12-381, BLS12-377, BW6-761); the scalar bits, the ladders and the key's
+points follow it, and BW6-761's G2 points keep their Fp coordinates.
 """
 
 from __future__ import annotations
@@ -172,8 +173,9 @@ def setup(cs, curve, rng=None, engine: str = "auto", device=None):
 
 
 def _fp2_point(curve, p):
-    """A ladder result ((x0, x1), (y0, y1)) as host Fp2 coordinates."""
-    if p is None or hasattr(p[0], "c0"):
+    """A ladder result ((x0, x1), (y0, y1)) as host Fp2 coordinates; a point
+    of a G2 over Fp (BW6-761: int coordinates) as it is."""
+    if p is None or hasattr(p[0], "c0") or isinstance(p[0], int):
         return p
     tp = curve.tower
     return (Fp2(tp, *p[0]), Fp2(tp, *p[1]))

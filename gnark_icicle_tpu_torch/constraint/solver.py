@@ -14,9 +14,9 @@ a, b, c (L·R = O) the Groth16 prover consumes (≙ solver.go a/b/c fill).
 Copied from gnark_icicle_tpu/constraint/solver.py:1, so that the port imports nothing of
 the JAX package; tests/test_torch_copies.py holds it to the original.
 ``SolveResult._u16`` (:55) goes through :func:`solved_u32`, which reads the
-native solver's (N, 4) uint64 arrays as (N, 8) 32-bit limbs, the layout of
-the port's kernels, and converts Python ints itself where the reference
-reaches its JAX MSM module.
+native solver's (N, 4) or (N, 6) uint64 arrays as (N, 8) or (N, 12) 32-bit
+limbs, the layout of the port's kernels, and converts Python ints itself
+where the reference reaches its JAX MSM module.
 """
 
 from __future__ import annotations
@@ -62,10 +62,12 @@ class SolveResult:
     c = property(lambda s: s._get("c"))
 
     def _u16(self, name):
-        """(N, 16) int32 16-bit-limb view (plain form, device layout)."""
+        """(N, 16) int32 16-bit-limb view (plain form, device layout); as
+        the original, the native solve's full width ((N, 24) for 6 words)."""
         from ..ops.field import repack32_to_16
 
-        return repack32_to_16(solved_u32(self, name))
+        words = 2 * self._u64[name].shape[1] if name in self._u64 else 8
+        return repack32_to_16(solved_u32(self, name, words))
 
     def wires_u16(self):
         return self._u16("wires")
@@ -80,14 +82,21 @@ class SolveResult:
         return self._u16("c")
 
 
-def solved_u32(res, name: str) -> np.ndarray:
-    """``res.<name>`` (wires, a, b or c) as (N, 8) uint32 plain-form limbs."""
+def solved_u32(res, name: str, n_words: int) -> np.ndarray:
+    """``res.<name>`` (wires, a, b or c) as (N, n_words) uint32 plain-form
+    limbs: n_words = ``ops.field.words_for(q)`` of the scalar field, 8 below
+    2^255 and 12 for BW6-761's 377-bit r. The native solver's (N, 4) or
+    (N, 6) 64-bit words are viewed as 32-bit words of that count."""
     if name in res._u64:
         arr = np.ascontiguousarray(res._u64[name], dtype="<u8")
-        return arr.view("<u4").reshape(arr.shape[0], -1).astype(np.uint32)
+        out = arr.view("<u4").reshape(arr.shape[0], -1).astype(np.uint32)
+        if out.shape[1] != n_words:
+            raise ValueError(f"the native solve holds {out.shape[1]} words, "
+                             f"not {n_words}")
+        return out
     from ..ops.field import ints_to_limbs32
 
-    return ints_to_limbs32(res._ints[name], 8)
+    return ints_to_limbs32(res._ints[name], n_words)
 
 
 def solve(cs: R1CS, public_values: list, secret_values: list,

@@ -1,6 +1,6 @@
 // Montgomery field arithmetic over N 32-bit words and the RCB16 a=0 group
-// law for Hopper, for BN254 (N = 8 for both fields) and BLS12-381 (Fp: N = 12,
-// Fr: N = 8).
+// law for Hopper, for BN254 (N = 8 for both fields), BLS12-381 and BLS12-377
+// (Fp: N = 12, Fr: N = 8) and BW6-761 (Fp: N = 24, Fr: N = 12).
 //
 // Shared by fr.cu, g1.cu and g2.cu, each built once per curve (see the end of
 // this file). An element is N little-endian 32-bit limbs in Montgomery form
@@ -20,9 +20,11 @@
 // What bounds these kernels on the card: the 32x32->64-bit integer multiply
 // rate (CIOS Montgomery: 2 * N^2 multiply-adds per product) and registers (an
 // element is N registers; the G2 mixed add keeps about ten Fp2 temporaries,
-// 20N registers before the multiply's own, which spills at N = 12). The
-// design answer here is the simplest one: one thread per lane, fully unrolled
-// limb loops so the limbs stay in registers, and no shared memory.
+// 20N registers before the multiply's own, which spills at N = 12, and so
+// does the G1 mixed add at N = 24). The design answer here is the simplest
+// one: one thread per lane, unrolled limb loops so the limbs stay in
+// registers (at N = 24 the product's outer loop stays rolled, see fmul), and
+// no shared memory.
 #pragma once
 
 #include <cstdint>
@@ -111,6 +113,91 @@ struct Bls381Fr {
   static constexpr uint32_t INV = 0xffffffffu;
 };
 
+struct Bls377Fp {
+  // BLS12-377 p (377 bits) = 258664426012969094010652733694893533536393512754914660539884262666720468348340822774968888139573360124440321458177
+  static constexpr int N = 12;
+  static constexpr int BETA = -5;
+  static __device__ __forceinline__ uint32_t mod(int i) {
+    switch (i) {
+      case 0: return 0x00000001u;
+      case 1: return 0x8508c000u;
+      case 2: return 0x30000000u;
+      case 3: return 0x170b5d44u;
+      case 4: return 0xba094800u;
+      case 5: return 0x1ef3622fu;
+      case 6: return 0x00f5138fu;
+      case 7: return 0x1a22d9f3u;
+      case 8: return 0x6ca1493bu;
+      case 9: return 0xc63b05c0u;
+      case 10: return 0x17c510eau;
+      default: return 0x01ae3a46u;
+    }
+  }
+  static constexpr uint32_t INV = 0xffffffffu;
+};
+
+struct Bls377Fr {
+  // BLS12-377 r (253 bits) = 8444461749428370424248824938781546531375899335154063827935233455917409239041
+  static constexpr int N = 8;
+  static __device__ __forceinline__ uint32_t mod(int i) {
+    switch (i) {
+      case 0: return 0x00000001u;
+      case 1: return 0x0a118000u;
+      case 2: return 0xd0000001u;
+      case 3: return 0x59aa76feu;
+      case 4: return 0x5c37b001u;
+      case 5: return 0x60b44d1eu;
+      case 6: return 0x9a2ca556u;
+      default: return 0x12ab655eu;
+    }
+  }
+  static constexpr uint32_t INV = 0xffffffffu;
+};
+
+struct Bw6Fp {
+  // BW6-761 p (761 bits) = 6891450384315732539396789682275657542479668912536150109513790160209623422243491736087683183289411687640864567753786613451161759120554247759349511699125301598951605099378508850372543631423596795951899700429969112842764913119068299
+  // No BETA: BW6-761's G2 lies over Fp itself (a sextic twist over the base
+  // field), so this field has no Fp2 and no g2.cu build.
+  static constexpr int N = 24;
+  static __device__ __forceinline__ uint32_t mod(int i) {
+    switch (i) {
+      case 0: return 0x0000008bu;
+      case 1: return 0xf49d0000u;
+      case 2: return 0x70000082u;
+      case 3: return 0xe6913e68u;
+      case 4: return 0xeaf0a437u;
+      case 5: return 0x160cf8aeu;
+      case 6: return 0x5667a8f8u;
+      case 7: return 0x98a116c2u;
+      case 8: return 0x73ebff2eu;
+      case 9: return 0x71dcd3dcu;
+      case 10: return 0x12f9fd90u;
+      case 11: return 0x8689c8edu;
+      case 12: return 0x25b42304u;
+      case 13: return 0x03cebaffu;
+      case 14: return 0xe584e919u;
+      case 15: return 0x707ba638u;
+      case 16: return 0x8087be41u;
+      case 17: return 0x528275efu;
+      case 18: return 0x81d14688u;
+      case 19: return 0xb926186au;
+      case 20: return 0x04faff3eu;
+      case 21: return 0xd187c940u;
+      case 22: return 0xfb83ce0au;
+      default: return 0x0122e824u;
+    }
+  }
+  static constexpr uint32_t INV = 0x8fa798ddu;
+};
+
+struct Bw6Fr {
+  // BW6-761 r (377 bits): the modulus of BLS12-377's base field (the
+  // 2-chain), so the words are Bls377Fp's
+  static constexpr int N = 12;
+  static __device__ __forceinline__ uint32_t mod(int i) { return Bls377Fp::mod(i); }
+  static constexpr uint32_t INV = Bls377Fp::INV;
+};
+
 // ---------------------------------------------------------------------------
 // base field element
 // ---------------------------------------------------------------------------
@@ -139,22 +226,24 @@ __device__ __forceinline__ Elt<P> reduce_once(const uint32_t t[P::N], uint32_t h
   return r;
 }
 
-// CIOS Montgomery product a * b * 2^-(32N) mod p. With a, b < p every outer
-// step leaves t < 2p, held in the N words of t plus the word t[N] (t[N + 1]
-// takes the carry of the product row). 2p < R for every field here (N is
-// ceil((bits + 1) / 32)), so t[N] is 0 at the end; reduce_once still reads it.
+// CIOS Montgomery product a * b * 2^-(32N) mod p with the outer loop rolled,
+// for N = 24 (BW6-761 Fp): fmul below, step for step, but the fully unrolled
+// 24 x 24 product, inlined a dozen times per group-law kernel, made g1.cu's
+// build minutes longer than any other and spilled more (PERF.md). The inner
+// loops stay unrolled.
 template <class P>
-__device__ __forceinline__ Elt<P> fmul(const Elt<P>& a, const Elt<P>& b) {
+__device__ __forceinline__ Elt<P> fmul_rolled(const Elt<P>& a, const Elt<P>& b) {
   constexpr int N = P::N;
   uint32_t t[N + 2];
 #pragma unroll
   for (int j = 0; j < N + 2; ++j) t[j] = 0;
-#pragma unroll
+#pragma unroll 1
   for (int i = 0; i < N; ++i) {
+    const uint32_t bi = b.v[i];
     uint64_t c = 0;
 #pragma unroll
     for (int j = 0; j < N; ++j) {
-      uint64_t uv = (uint64_t)a.v[j] * b.v[i] + t[j] + c;
+      uint64_t uv = (uint64_t)a.v[j] * bi + t[j] + c;
       t[j] = (uint32_t)uv;
       c = uv >> 32;
     }
@@ -175,6 +264,48 @@ __device__ __forceinline__ Elt<P> fmul(const Elt<P>& a, const Elt<P>& b) {
     t[N] = t[N + 1] + (uint32_t)(uv >> 32);
   }
   return reduce_once<P>(t, t[N]);
+}
+
+// CIOS Montgomery product a * b * 2^-(32N) mod p. With a, b < p every outer
+// step leaves t < 2p, held in the N words of t plus the word t[N] (t[N + 1]
+// takes the carry of the product row). 2p < R for every field here (N is
+// ceil((bits + 1) / 32)), so t[N] is 0 at the end; reduce_once still reads it.
+template <class P>
+__device__ __forceinline__ Elt<P> fmul(const Elt<P>& a, const Elt<P>& b) {
+  if constexpr (P::N >= 24) {
+    return fmul_rolled<P>(a, b);
+  } else {
+    constexpr int N = P::N;
+    uint32_t t[N + 2];
+#pragma unroll
+    for (int j = 0; j < N + 2; ++j) t[j] = 0;
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      uint64_t c = 0;
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        uint64_t uv = (uint64_t)a.v[j] * b.v[i] + t[j] + c;
+        t[j] = (uint32_t)uv;
+        c = uv >> 32;
+      }
+      uint64_t uv = (uint64_t)t[N] + c;
+      t[N] = (uint32_t)uv;
+      t[N + 1] = (uint32_t)(uv >> 32);
+      const uint32_t m = t[0] * P::INV;
+      uv = (uint64_t)m * P::mod(0) + t[0];
+      c = uv >> 32;
+#pragma unroll
+      for (int j = 1; j < N; ++j) {
+        uv = (uint64_t)m * P::mod(j) + t[j] + c;
+        t[j - 1] = (uint32_t)uv;
+        c = uv >> 32;
+      }
+      uv = (uint64_t)t[N] + c;
+      t[N - 1] = (uint32_t)uv;
+      t[N] = t[N + 1] + (uint32_t)(uv >> 32);
+    }
+    return reduce_once<P>(t, t[N]);
+  }
 }
 
 template <class P>
@@ -236,6 +367,7 @@ __device__ __forceinline__ void fstore(uint32_t* base, long long ld, long long l
 
 // ---------------------------------------------------------------------------
 // quadratic extension Fp2 = Fp[u]/(u^2 - BETA), BETA = -1 (BN254, BLS12-381)
+// or -5 (BLS12-377)
 // ---------------------------------------------------------------------------
 
 template <class P>
@@ -246,15 +378,21 @@ struct Elt2 {
 
 template <class P>
 __device__ __forceinline__ Elt2<P> fmul(const Elt2<P>& a, const Elt2<P>& b) {
-  // c0 = m0 + BETA * m1 is written as m0 - m1 below: another BETA (as
-  // BLS12-377's -5) needs its own reduction of the m1 term
-  static_assert(P::BETA == -1, "the Fp2 product is written for u^2 = -1");
-  // Karatsuba, 3 base products: c0 = m0 - m1, c1 = (a0+a1)(b0+b1) - m0 - m1
+  static_assert(P::BETA == -1 || P::BETA == -5,
+                "the Fp2 product is written for u^2 = -1 and u^2 = -5");
+  // Karatsuba, 3 base products: c0 = m0 + BETA m1, c1 = (a0+a1)(b0+b1) - m0 - m1
   const Elt<P> m0 = fmul(a.c0, b.c0);
   const Elt<P> m1 = fmul(a.c1, b.c1);
   const Elt<P> m2 = fmul(fadd(a.c0, a.c1), fadd(b.c0, b.c1));
   Elt2<P> r;
-  r.c0 = fsub(m0, m1);
+  if constexpr (P::BETA == -1) {
+    r.c0 = fsub(m0, m1);
+  } else {
+    // 5 m1 by the add chain m1 + 4 m1 (each step canonical, as the plain
+    // version's DevField2._beta_term), then c0 = m0 - 5 m1
+    const Elt<P> m1x2 = fadd(m1, m1);
+    r.c0 = fsub(m0, fadd(m1, fadd(m1x2, m1x2)));
+  }
   r.c1 = fsub(fsub(m2, m0), m1);
   return r;
 }
@@ -451,9 +589,9 @@ static inline unsigned int n_blocks(long long n, int threads) {
 }
 
 // ---------------------------------------------------------------------------
-// the curve of this translation unit: every .cu is built once per curve, with
-// -DCURVE_BN254 or -DCURVE_BLS12_381 (ops/cuda.py), and names its C entries
-// through ENTRY (BN254 unprefixed, BLS12-381 with "bls12_381_")
+// the curve of this translation unit: every .cu is built once per curve that
+// needs it, with -DCURVE_<NAME> (ops/cuda.py), and names its C entries
+// through ENTRY (BN254 unprefixed, the others with "<name>_")
 // ---------------------------------------------------------------------------
 
 #if defined(CURVE_BN254)
@@ -464,6 +602,14 @@ using CurveFr = FrP;
 using CurveFp = Bls381Fp;
 using CurveFr = Bls381Fr;
 #define ENTRY(name) bls12_381_##name
+#elif defined(CURVE_BLS12_377)
+using CurveFp = Bls377Fp;
+using CurveFr = Bls377Fr;
+#define ENTRY(name) bls12_377_##name
+#elif defined(CURVE_BW6_761)
+using CurveFp = Bw6Fp;
+using CurveFr = Bw6Fr;
+#define ENTRY(name) bw6_761_##name
 #else
-#error "build with -DCURVE_BN254 or -DCURVE_BLS12_381"
+#error "build with -DCURVE_BN254, -DCURVE_BLS12_381, -DCURVE_BLS12_377 or -DCURVE_BW6_761"
 #endif

@@ -1,17 +1,19 @@
 // Fr (scalar field) kernels: the elementwise Montgomery product, the
 // subtraction computeH needs, and one radix-2 NTT stage. Built once per curve
-// (field.cuh, CurveFr): BN254 r and BLS12-381 r, 8 words each.
+// (field.cuh, CurveFr): BN254, BLS12-381 and BLS12-377 r at 8 words, BW6-761 r
+// at 12.
 //
 // Replaces TPU kernel K1: gnark_icicle_tpu/ops/field_t.py:353 TField.mont_mul
 // (Pallas body _mul_kernel, :314), which carries every NTT butterfly stage
 // (gnark_icicle_tpu/ops/ntt.py:190 _tmul, :204 _butterflies_t) and through
 // them computeH (gnark_icicle_tpu/backend/groth16/prove.py:31).
 //
-// Bound on the card: fr_mont_mul and fr_sub read 64 bytes and write 32 per
-// lane, so at 2^18 lanes they are bound by device memory, not by the 128
-// integer multiply-adds of one product. An NTT stage is the same plus a
-// twiddle read. The design keeps one lane per thread on the limb-major
-// (8, n) layout, so every limb load is a coalesced 128-byte line per warp,
+// Bound on the card: fr_mont_mul and fr_sub read 8N bytes and write 4N per
+// lane (N = 8 or 12 words), so at 2^16-2^18 lanes they are bound by device
+// memory, not by the 2N^2 integer multiply-adds of one product. An NTT stage
+// is the same plus a twiddle read. The design keeps one lane per thread on
+// the limb-major (N, n) layout, so every limb load is a coalesced 128-byte
+// line per warp,
 // and fuses the twiddle product into the butterfly (no separate pass over
 // the d-half as the TPU version makes). Fusing several stages through shared
 // memory is later work.
@@ -20,7 +22,7 @@
 using FrM = CurveFr;
 using Fr = Elt<FrM>;
 
-// out = a * b; b is either (8, n) or one broadcast column (b_ld == 1).
+// out = a * b; b is either (N, n) or one broadcast column (b_ld == 1).
 __global__ void k_fr_mont_mul(const uint32_t* a, const uint32_t* b, long long b_ld, int b_bcast,
                               uint32_t* out, long long n) {
   const long long l = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -36,7 +38,7 @@ __global__ void k_fr_sub(const uint32_t* a, const uint32_t* b, uint32_t* out, lo
   fstore<FrM>(out, n, l, fsub(fload<FrM>(a, n, l), fload<FrM>(b, n, l)));
 }
 
-// One radix-2 stage over (8, n) data in place. Stage half-width m: lane k
+// One radix-2 stage over (N, n) data in place. Stage half-width m: lane k
 // of n/2 is butterfly j = k mod m of group g = k / m, touching elements
 // i0 = 2mg + j and i1 = i0 + m with twiddle tw[j * stride] (the layout of
 // gnark_icicle_tpu/ops/ntt.py:224, view (-1, 2, m)).

@@ -1,6 +1,7 @@
 // G1 (over Fp) group-law kernels: the MSM wave step, the complete add and
 // the double. Built once per curve (field.cuh, CurveFp): BN254 at 8 words,
-// BLS12-381 at 12.
+// BLS12-381 and BLS12-377 at 12, BW6-761 at 24. BW6-761's G2 lies over Fp too
+// (the sextic twist y^2 = x^3 + 4): it runs these entries with its own b3 row.
 //
 // Replaces TPU kernels K2 (gnark_icicle_tpu/ops/ec_t.py:266 TCurve._mul, the
 // Fp product called 11 times per wave step), K4 (ops/ec_t.py:529
@@ -9,11 +10,12 @@
 // fixed-base ladder's mixed adds through ops/ec.py DevCurve).
 //
 // Bound on the card: integer multiply rate. A mixed add is 11 Fp products
-// (11 * 2N^2 multiply-adds: 1,408 at N = 8, 3,168 at N = 12) against 8N bytes
-// gathered and 24N bytes of accumulator read and written, so it sits far
-// above the memory roofline; registers come next (three accumulator
-// coordinates, the gathered point and about six temporaries of N words
-// each). The design fuses the whole RCB16 schedule, the table gather (by
+// (11 * 2N^2 multiply-adds: 1,408 at N = 8, 3,168 at N = 12, 12,672 at
+// N = 24) against 8N bytes gathered and 24N bytes of accumulator read and
+// written, so it sits far above the memory roofline; registers come next
+// (three accumulator coordinates, the gathered point and about six
+// temporaries of N words each: about 240 registers at N = 24, so BW6-761
+// spills). The design fuses the whole RCB16 schedule, the table gather (by
 // index, inside the kernel), the sign and the mask into one kernel, one lane
 // per thread, so nothing between the 11 products touches device memory;
 // masked-off lanes return before loading.

@@ -1,6 +1,8 @@
-// G2 (over Fp2 = Fp[u]/(u^2 + 1)) group-law kernels: the MSM wave step, the
-// complete add and the double. Built once per curve (field.cuh, CurveFp):
-// BN254 at 8 words, BLS12-381 at 12.
+// G2 (over Fp2 = Fp[u]/(u^2 - beta)) group-law kernels: the MSM wave step,
+// the complete add and the double. Built once per curve with an Fp2
+// (field.cuh, CurveFp): BN254 at 8 words and beta = -1, BLS12-381 at 12 and
+// beta = -1, BLS12-377 at 12 and beta = -5. BW6-761 has no Fp2 and no build
+// of this file.
 //
 // Replaces TPU kernels K3 (gnark_icicle_tpu/ops/ec_t.py:649 TCurve2._mul,
 // the Fp2 Karatsuba product of the G2 wave) and K5 (ops/ec_t.py:896

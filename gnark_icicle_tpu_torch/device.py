@@ -2,7 +2,10 @@
 torch device.
 
 Port of gnark_icicle_tpu/device.py ``DeviceCtx`` (:47) for the curves whose
-kernels are built: BN254 and BLS12-381. The context takes a ``torch.device``
+kernels are built: BN254, BLS12-381, BLS12-377 and BW6-761. G2 lies over Fp2
+for the first three and over Fp itself for BW6-761 (embedding degree 6: the
+sextic twist is defined over the base field), as in the reference (:69-78).
+The context takes a ``torch.device``
 (default: the first CUDA card; there is no fallback to the CPU, which a
 caller asks for with ``"cpu"``); proving-key points are staged once per key
 (``backend/groth16/keys.py``) as Montgomery-form row tables. The uint16
@@ -23,7 +26,8 @@ from .ops.msm import MSMKernel
 from .ops.ntt import Domain, domain_for
 
 
-CURVES = ("bn254", "bls12-381")  # the curves whose kernels are built
+# the curves whose kernels are built
+CURVES = ("bn254", "bls12-381", "bls12-377", "bw6-761")
 
 
 class DeviceCtx:
@@ -38,8 +42,12 @@ class DeviceCtx:
         self.device = resolve_device(device)
         self.fp = field_for(curve.fp.modulus)
         self.fr = field_for(curve.fr.modulus)
-        self.g1 = TCurve(self.fp, 3 * curve.g1.b % curve.fp.modulus)
-        self.g2 = TCurve2(self.fp, curve.tower.beta, curve.g2.b * 3)
+        p = curve.fp.modulus
+        self.g1 = TCurve(self.fp, 3 * curve.g1.b % p)
+        # G2 over Fp2 (its b has c0/c1) or, for BW6-761, over Fp
+        self.g2_fp2 = hasattr(curve.g2.b, "c0")
+        self.g2 = (TCurve2(self.fp, curve.tower.beta, curve.g2.b * 3)
+                   if self.g2_fp2 else TCurve(self.fp, 3 * curve.g2.b % p))
         bits = curve.fr.modulus.bit_length()
         self.msm_g1 = MSMKernel(self.g1, bits)
         self.msm_g2 = MSMKernel(self.g2, bits)
@@ -59,7 +67,7 @@ class DeviceCtx:
 
     # -- host <-> device conversions ----------------------------------------
     def fr_scalars(self, limbs_u32: np.ndarray) -> torch.Tensor:
-        """(N, 8) uint32 plain-form limbs -> (8, N) device scalars."""
+        """(N, Wr) uint32 plain-form limbs -> (Wr, N) device scalars."""
         return to_lanes(limbs_u32, self.device)
 
     def _points(self, tc, points_host, filler):
@@ -74,16 +82,18 @@ class DeviceCtx:
         return self._points(self.g1, points_host, (0, 1))
 
     def g2_points(self, points_host):
+        if not self.g2_fp2:  # BW6-761: G2 coordinates live in Fp
+            return self._points(self.g2, points_host, (0, 1))
         tp = self.curve.tower
         return self._points(self.g2, points_host, (Fp2.zero(tp), Fp2.one(tp)))
 
     def g1_to_host(self, P):
-        """(3, 8, 1) projective -> host affine / None."""
+        """(3, W, 1) projective -> host affine / None."""
         return self.g1.to_affine_host(P)[0]
 
     def g2_to_host(self, P):
         res = self.g2.to_affine_host(P)[0]
-        if res is None:
-            return None
+        if res is None or not self.g2_fp2:
+            return res
         tp = self.curve.tower
         return (Fp2(tp, *res[0]), Fp2(tp, *res[1]))

@@ -1,7 +1,8 @@
 """Build, load and launch the hand-written Hopper kernels in ``csrc/``.
 
 Each ``csrc/*.cu`` source is compiled at first use by ``nvcc`` into one shared
-library per curve with a plain C interface
+library per curve that needs it (``CURVE_SOURCES``: BW6-761 has no Fp2, so no
+``g2.cu``) with a plain C interface
 (``-gencode arch=compute_90a,code=sm_90a``, ``-DCURVE_<NAME>``: field.cuh
 picks the moduli and the entry prefix), under
 ``build/gnark_icicle_tpu_torch/<hash of the sources>/`` at the root of the
@@ -33,7 +34,12 @@ BUILD_ROOT = os.path.join(os.path.dirname(_PKG_DIR), "build",
 SOURCES = ("fr.cu", "g1.cu", "g2.cu")
 HEADER = "field.cuh"
 # curve -> prefix of its C entry names (field.cuh ENTRY)
-CURVES = {"bn254": "", "bls12_381": "bls12_381_"}
+CURVES = {"bn254": "", "bls12_381": "bls12_381_", "bls12_377": "bls12_377_",
+          "bw6_761": "bw6_761_"}
+# curve -> the sources built for it; BW6-761's G2 lies over Fp and runs the
+# g1.cu entries with its own b3 row
+CURVE_SOURCES = {"bn254": ("fr", "g1", "g2"), "bls12_381": ("fr", "g1", "g2"),
+                 "bls12_377": ("fr", "g1", "g2"), "bw6_761": ("fr", "g1")}
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
@@ -83,41 +89,51 @@ def lib_stem(src: str, curve: str) -> str:
     return f"{src}_{curve}"
 
 
+def libraries() -> list:
+    """Every (source, curve) pair that is built, sources without ``.cu``."""
+    return [(src, curve) for curve, srcs in CURVE_SOURCES.items() for src in srcs]
+
+
 def build() -> str:
     """Compile every (source, curve) that has no library yet; returns the
     directory.
 
     The libraries land in a directory named by a hash of the sources, each
     written to a temporary name and renamed, so a half-built file is never
-    loaded. ``-Xptxas -v`` output (registers, spills) goes to ``<stem>.log``.
+    loaded. ``-Xptxas -v`` output (registers, spills) goes to ``<stem>.log``
+    and the wall seconds of each nvcc process to ``<stem>.seconds``.
     """
     out_dir = os.path.join(BUILD_ROOT, _source_hash())
     os.makedirs(out_dir, exist_ok=True)
     nvcc = _nvcc()
     procs = []
-    for src in SOURCES:
-        for curve in CURVES:
-            stem = lib_stem(src[:-3], curve)
-            lib = os.path.join(out_dir, f"lib{stem}.so")
-            if os.path.exists(lib):
-                continue
-            tmp = f"{lib}.{os.getpid()}.tmp"
-            cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
-                   "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                   "-Xptxas", "-v", f"-DCURVE_{curve.upper()}", "-I", CSRC,
-                   "-o", tmp, os.path.join(CSRC, src)]
-            log = open(os.path.join(out_dir, f"{stem}.log"), "w")
-            procs.append((subprocess.Popen(cmd, stdout=log,
-                                           stderr=subprocess.STDOUT),
-                          log, tmp, lib, stem))
-    failed = []
-    for proc, log, tmp, lib, stem in procs:
-        rc = proc.wait()
-        log.close()
-        if rc != 0:
-            failed.append(stem)
+    for src, curve in libraries():
+        stem = lib_stem(src, curve)
+        lib = os.path.join(out_dir, f"lib{stem}.so")
+        if os.path.exists(lib):
             continue
-        os.replace(tmp, lib)
+        tmp = f"{lib}.{os.getpid()}.tmp"
+        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+               "-Xptxas", "-v", f"-DCURVE_{curve.upper()}", "-I", CSRC,
+               "-o", tmp, os.path.join(CSRC, src + ".cu")]
+        log = open(os.path.join(out_dir, f"{stem}.log"), "w")
+        procs.append((subprocess.Popen(cmd, stdout=log,
+                                       stderr=subprocess.STDOUT),
+                      log, tmp, lib, stem, time.perf_counter()))
+    failed = []
+    while procs:  # poll, so that each library's seconds end when its nvcc does
+        for entry in [e for e in procs if e[0].poll() is not None]:
+            proc, log, tmp, lib, stem, t0 = entry
+            procs.remove(entry)
+            log.close()
+            with open(os.path.join(out_dir, f"{stem}.seconds"), "w") as f:
+                f.write(f"{time.perf_counter() - t0:.3f}\n")
+            if proc.returncode != 0:
+                failed.append(stem)
+            else:
+                os.replace(tmp, lib)
+        time.sleep(0.1)
     if failed:
         logs = "\n".join(
             open(os.path.join(out_dir, f"{s}.log")).read() for s in failed)
@@ -129,16 +145,15 @@ def load_all() -> float:
     """Build (if needed) and load every library; returns the seconds spent."""
     t0 = time.perf_counter()
     with _lock:
-        if len(_libs) < len(SIGNATURES) * len(CURVES):
+        if len(_libs) < len(libraries()):
             out_dir = build()
-            for src, fns in SIGNATURES.items():
-                for curve, prefix in CURVES.items():
-                    stem = lib_stem(src, curve)
-                    lib = ctypes.CDLL(os.path.join(out_dir, f"lib{stem}.so"))
-                    for name, argtypes in fns.items():
-                        getattr(lib, prefix + name).argtypes = argtypes
-                        getattr(lib, prefix + name).restype = ctypes.c_int
-                    _libs[stem] = lib
+            for src, curve in libraries():
+                stem = lib_stem(src, curve)
+                lib = ctypes.CDLL(os.path.join(out_dir, f"lib{stem}.so"))
+                for name, argtypes in SIGNATURES[src].items():
+                    getattr(lib, CURVES[curve] + name).argtypes = argtypes
+                    getattr(lib, CURVES[curve] + name).restype = ctypes.c_int
+                _libs[stem] = lib
     return time.perf_counter() - t0
 
 

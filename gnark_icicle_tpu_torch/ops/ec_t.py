@@ -2,7 +2,9 @@
 
 Port of gnark_icicle_tpu/ops/ec_t.py ``TCurve`` (:208) and ``TCurve2``
 (:586), for the base field's W words (``ops/field.py`` ``words_for``: 8 for
-BN254, 12 for BLS12-381; the reference's ``self.K = F.K``, :232 and :621). A
+BN254, 12 for BLS12-381 and BLS12-377, 24 for BW6-761; the reference's
+``self.K = F.K``, :232 and :621). BW6-761's G2 lies over Fp: it is a
+:class:`TCurve` with G2's b3, on the ``g1.cu`` entries of BW6-761. A
 batch of projective points is ONE int32 tensor of coordinate planes: G1
 ``(3, W, n)`` for (X, Y, Z), G2 ``(6, W, n)`` for (x0, x1, y0, y1, z0, z1),
 each plane a ``(W, n)`` Montgomery element batch. Identity is (0 : 1 : 0). A
@@ -27,7 +29,7 @@ from __future__ import annotations
 
 import torch
 
-from ..curves import bls12_381, bn254
+from ..curves import bls12_377, bls12_381, bn254, bw6_761
 from .cuda import Kernel, is_cuda, require, stream
 from .ec import DevCurve, DevField, DevField2
 from .field import Field, ints_to_limbs32, to16, to32
@@ -40,13 +42,16 @@ def _group_kernels(curve: str, g: str, k_mixed: str, k_mul: str):
             Kernel(g, curve, f"{g}_double", k_mul))
 
 
-# base-field modulus -> {"g1": kernels, "g2": kernels} of its curve
+# base-field modulus -> {"g1": kernels, "g2": kernels} of its curve; the
+# "g2" (Fp2) family only where the curve's G2 lies over Fp2
 EC_KERNELS = {
     q: {"g1": _group_kernels(curve, "g1", "gnark_icicle_tpu/ops/ec_t.py:529",
                              "gnark_icicle_tpu/ops/ec_t.py:266"),
-        "g2": _group_kernels(curve, "g2", "gnark_icicle_tpu/ops/ec_t.py:896",
-                             "gnark_icicle_tpu/ops/ec_t.py:649")}
-    for q, curve in ((bn254.P, "bn254"), (bls12_381.P, "bls12_381"))
+        **({"g2": _group_kernels(curve, "g2", "gnark_icicle_tpu/ops/ec_t.py:896",
+                                 "gnark_icicle_tpu/ops/ec_t.py:649")}
+           if fp2 else {})}
+    for q, curve, fp2 in ((bn254.P, "bn254", True), (bls12_381.P, "bls12_381", True),
+                          (bls12_377.P, "bls12_377", True), (bw6_761.P, "bw6_761", False))
 }
 
 
@@ -209,7 +214,7 @@ class _TCurveBase:
 
 
 class TCurve(_TCurveBase):
-    """G1: a=0 curve over Fp, points (3, W, n)."""
+    """An a=0 curve over Fp, points (3, W, n): G1, and BW6-761's G2."""
 
     NP = 1
     GROUP = "g1"
@@ -229,8 +234,8 @@ class TCurve2(_TCurveBase):
     GROUP = "g2"
 
     def __init__(self, F: Field, beta: int, b3_host):
-        if beta != -1:
-            raise NotImplementedError("the G2 kernels are built for u² = −1")
+        if beta not in (-1, -5):
+            raise NotImplementedError("the G2 kernels are built for u² = −1 and u² = −5")
         c0, c1 = (b3_host.c0, b3_host.c1) if hasattr(b3_host, "c0") else b3_host
         super().__init__(F, [c0, c1], DevCurve(DevField2(F, beta), (c0, c1)))
 

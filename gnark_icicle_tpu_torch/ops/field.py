@@ -5,7 +5,8 @@ Port of gnark_icicle_tpu/ops/field.py (``LimbField`` :96, host limb helpers
 ``(N, K)`` int32 array; the kernels here hold it as W 32-bit words,
 limb-major, in a ``(W, N)`` int32 tensor whose words are read as uint32. W is
 :func:`words_for` the modulus, ceil((bits + 1) / 32): 8 for both BN254 fields
-and BLS12-381 Fr, 12 for BLS12-381 Fp, so 2W is the reference's limb count
+and the BLS12-381 and BLS12-377 Fr, 12 for their Fp and for BW6-761 Fr, 24
+for BW6-761 Fp, so 2W is the reference's limb count
 (its :121). Both are Montgomery form with R = 2^(32W), so converting between
 them is a bit repack with no arithmetic (:func:`repack16_to_32`,
 :func:`repack32_to_16`).
@@ -14,7 +15,7 @@ The plain arithmetic (:class:`Field` ``mont_mul``/``add``/``sub``/``neg``/
 ``to_mont``/``from_mont``) is the PyTorch twin of the CUDA kernels. It works
 in int64 on 16-bit limbs, ``(2W, N)``: PyTorch's uint32 arithmetic is
 incomplete on the CPU, and a 32x32-bit product does not fit int64. A 16x16
-product does, and so does a column of 24 of them (< 2^37), which float64
+product does, and so does a column of 48 of them (< 2^38), which float64
 holds exactly.
 """
 
@@ -231,7 +232,7 @@ class Field:
 
         All products are taken in float64, which is exact here: every
         partial sum stays below 2^53. t = a·b as 2K + 1 uncarried columns
-        (< K·2^32 ≤ 2^37 for K = 2W ≤ 24 limbs); m = (t mod R)·N' mod R and
+        (< K·2^32 < 2^38 for K = 2W ≤ 48 limbs); m = (t mod R)·N' mod R and
         u = m·p as products with constant Toeplitz matrices; then
         (t + u) / R < 2p and one conditional subtraction."""
         a, b = torch.broadcast_tensors(a, b)
@@ -250,8 +251,19 @@ class Field:
                        .to(torch.int64).reshape((K,) + n), 3)
         m[-1] &= MASK16                                      # mod R
         u = torch.matmul(c["p_t"], m.to(torch.float64).reshape(K, -1))
-        s = _normalize((t + u.reshape((2 * K + 1,) + n)).to(torch.int64), 3)
-        return self._cond_sub16(s[K:2 * K], s[2 * K])
+        s = (t + u.reshape((2 * K + 1,) + n)).to(torch.int64)
+        # t + u ≡ 0 mod R. Carried limb by limb, its low half ripples one
+        # limb per round (K rounds). After three rounds every limb is at most
+        # 2^16, so the low half is worth 0 or exactly R: it carries 1 into
+        # the high half where any of its limbs is nonzero.
+        for _ in range(3):
+            carry = s[:-1] >> 16
+            s[:-1] &= MASK16
+            s[1:] += carry
+        hi = s[K:]
+        hi[0] += (s[:K] != 0).any(dim=0)
+        hi = _normalize(hi, 0)
+        return self._cond_sub16(hi[:K], hi[K])
 
     # -- plain arithmetic on (W, N) int32 words (the kernels' twins) --------
     def mont_mul(self, a, b):

@@ -3,8 +3,8 @@
 Port of gnark_icicle_tpu/ops/fixed_base.py (``FixedBaseMul`` :23,
 ``batch_scalar_mul_host`` :118). The ladder 2^i·G is computed once on the
 host; the product of every scalar is then a masked mixed-add ladder of one
-step per scalar bit (254 for BN254 r, 255 for BLS12-381 r) over all scalars
-at once: step i adds ladder point i on the lanes whose
+step per scalar bit (254 for BN254 r, 255 for BLS12-381 r, 253 for
+BLS12-377 r, 377 for BW6-761 r) over all scalars at once: step i adds ladder point i on the lanes whose
 scalar has bit i set. Each step is one launch of the group's
 ``add_mixed_masked`` kernel with mask = bit and no sign, which is where the
 role of TPU kernel K6 (ops/ec_pallas.py:440, reached through DevCurve for
@@ -35,7 +35,7 @@ class FixedBaseMul:
         self.ladder = tc.table(pows, self.device)  # (bits, row)
 
     def mul(self, scalars: torch.Tensor) -> torch.Tensor:
-        """(8, N) plain 32-bit limbs -> (planes, W, N) projective products."""
+        """(Wr, N) plain 32-bit limbs -> (planes, W, N) projective products."""
         n = scalars.shape[1]
         acc = self.tc.identity(n, self.device)
         idx = torch.zeros(n, dtype=torch.int32, device=self.device)
@@ -51,8 +51,9 @@ def batch_scalar_mul_host(tc: _TCurveBase, host_group, base, scalars,
     """Host ints -> host affine points (None for a zero scalar).
 
     Work is cut into chunks of at most ``chunk`` scalars to bound device
-    memory; one chunk of 2^18 G2 accumulators is 24W·2^18 bytes (50 MB for
-    BN254, 75 MB for BLS12-381)."""
+    memory; one chunk of 2^18 G2 accumulators is 24W·2^18 bytes over Fp2
+    (50 MB for BN254, 75 MB for BLS12-381 and BLS12-377) and 12W·2^18 bytes
+    over Fp (75 MB for BW6-761's G1 and G2 at W = 24)."""
     fb = FixedBaseMul(tc, host_group, base, scalar_bits, device)
     out = []
     n_words = -(-scalar_bits // 32)

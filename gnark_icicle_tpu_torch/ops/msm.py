@@ -7,7 +7,9 @@ transposed path: signed c-bit digits (:82), one payload sort per window,
 weighted bucket reduction (``_bucket_reduce_t``/``_weighted_chunked_t``
 :399-469) and Horner over the windows. ``pick_window`` (:51) is copied; the
 windows follow the scalar field's bits as in the reference (254 bits for
-BN254 r, 255 for BLS12-381 r: 17 windows of 16 bits either way).
+BN254 r, 255 for BLS12-381 r, 253 for BLS12-377 r: 17 windows of 16 bits;
+377 for BW6-761 r: 25 windows of 16 bits, 36 of the 11 bits that about 46k
+points get).
 
 The reference's wave schedule is kept: one launch of the group's
 ``add_mixed_masked`` kernel (``ops/ec_t.py``) per wave, which gathers each
@@ -17,8 +19,9 @@ takes the same Pippenger path and gives the same affine point.
 
 Inputs: an affine point table of rows (``TCurve.table``), an ``(N,)`` bool
 infinity mask (those lanes go to the trash bucket B, as at :540-542), and
-the scalars as plain-form ``(8, N)`` int32 32-bit limbs. The result is one
-projective point, ``(planes, W, 1)``.
+the scalars as plain-form ``(Wr, N)`` int32 32-bit limbs (Wr words of the
+scalar field: 8, or 12 for BW6-761 r). The result is one projective point,
+``(planes, W, 1)``.
 """
 
 from __future__ import annotations
@@ -48,8 +51,9 @@ class MSMKernel:
 
     # -- phase 1: signed digits ------------------------------------------------
     def _signed_digits(self, scalars: torch.Tensor, c: int) -> torch.Tensor:
-        """(8, N) plain 32-bit limbs -> (W, N) int64 digits in
-        [-2^(c-1), 2^(c-1)]; W = ceil(bits/c) + 1 absorbs the last carry."""
+        """(Wr, N) plain 32-bit limbs -> (W, N) int64 digits in
+        [-2^(c-1), 2^(c-1)]; W = ceil(bits/c) + 1 absorbs the last carry.
+        A window may straddle two words; every word is read."""
         n_windows = -(-self.scalar_bits // c) + 1
         limbs = scalars.to(torch.int64) & 0xFFFFFFFF
         n_limbs = limbs.shape[0]

@@ -4,14 +4,15 @@ Port of gnark_icicle_tpu/ops/ntt.py (``bitrev_indices`` :34, ``_pow_table``
 :45, ``Domain`` :58, ``domain_for`` :377): the transforms computeH uses —
 ``intt_nat_to_rev`` (:317), ``coset_ntt_rev_in`` (:351) and
 ``coset_intt_nat_to_rev`` (:371) — plus ``ntt`` and ``intt``. Data is one
-``(8, n)`` Montgomery tensor (``ops/field.py``); the reference's
-``(n, 16)`` arrays act along axis -2, these along the last axis.
+``(W, n)`` Montgomery tensor (``ops/field.py``); the reference's
+``(n, 2W)`` arrays act along axis -2, these along the last axis.
 
 Each radix-2 stage is one launch of ``csrc/fr.cu`` ``ntt_stage`` (the
 butterfly add/sub with the twiddle product inline, replacing the
 reference's per-stage K1 products, ops/ntt.py:204 ``_butterflies_t``) of
-the domain's scalar field (BN254 or BLS12-381 r), in place on a copy of the
-input: unlike the reference, transforms never consume their argument. The
+the domain's scalar field (BN254, BLS12-381, BLS12-377 or BW6-761 r), in
+place on a copy of the input: unlike the reference, transforms never consume
+their argument. The
 MXU twiddle path and ``FourStepNTT`` are TPU devices and are not ported.
 """
 
@@ -22,7 +23,7 @@ import torch
 
 from .cuda import Kernel, is_cuda, require, stream
 from .field import Field, to16, to32
-from .field_t import FR_KERNELS, TField
+from .field_t import FR_KERNELS, TField, check_lanes
 
 # scalar-field modulus -> its ntt_stage entry
 NTT_STAGE = {q: Kernel("fr", k_mul.curve, "ntt_stage",
@@ -62,17 +63,16 @@ def ntt_stage_plain(F: Field, x: torch.Tensor, m: int, stride: int,
 
 def ntt_stage(F: Field, x: torch.Tensor, m: int, stride: int,
               tw: torch.Tensor, dif: bool) -> None:
-    """One radix-2 DIF or DIT stage of half-width m, in place on (8, n) x.
+    """One radix-2 DIF or DIT stage of half-width m, in place on (W, n) x.
 
-    Butterfly j of each 2m-group uses tw[:, j * stride] of the (8, n/2)
+    Butterfly j of each 2m-group uses tw[:, j * stride] of the (W, n/2)
     twiddle table."""
     if not is_cuda(x, tw):
         return ntt_stage_plain(F, x, m, stride, tw, dif)
     if F.modulus not in NTT_STAGE:
         raise NotImplementedError(
             f"no ntt_stage kernel is built for the modulus {F.modulus:#x}")
-    require(x.dtype == torch.int32 and x.shape[0] == 8 and x.is_contiguous()
-            and tw.is_contiguous(), "ntt_stage takes contiguous (8, n) int32")
+    check_lanes(F.n32, x, tw)
     n = x.shape[1]
     require(n % (2 * m) == 0 and (m - 1) * stride < tw.shape[1],
             "stage width does not match the data or the twiddle table")
@@ -81,7 +81,7 @@ def ntt_stage(F: Field, x: torch.Tensor, m: int, stride: int,
 
 
 def _pow_table(tf: TField, base_mont: torch.Tensor, n: int) -> torch.Tensor:
-    """[base^0, ..., base^(n-1)] in Montgomery form as (8, n), log-depth."""
+    """[base^0, ..., base^(n-1)] in Montgomery form as (W, n), log-depth."""
     F = tf.F
     table = F.const(1, base_mont.device)
     cur = base_mont

@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from gnark_icicle_tpu_torch.curves import bls12_381, bn254
+from gnark_icicle_tpu_torch.curves import bls12_377, bls12_381, bn254, bw6_761
 from gnark_icicle_tpu_torch.ops.field import (
     repack16_to_32, repack32_to_16, from_lanes, to_lanes,
 )
@@ -22,7 +22,8 @@ from gnark_icicle_tpu_torch.ops.field import (
 P, R = bn254.P, bn254.R
 CURVE = bn254.BN254
 # the port's curves by test id; the JAX package's twins come from ref_curve
-CURVES = {"bn254": bn254.BN254, "bls12_381": bls12_381.BLS12_381}
+CURVES = {"bn254": bn254.BN254, "bls12_381": bls12_381.BLS12_381,
+          "bls12_377": bls12_377.BLS12_377, "bw6_761": bw6_761.BW6_761}
 
 # The test run shares the machine among several worker processes: one
 # intra-op thread keeps the plain PyTorch paths from oversubscribing it.
@@ -31,9 +32,15 @@ torch.set_num_threads(1)
 
 def ref_curve(name: str):
     """The JAX package's curve object of a test id."""
-    from gnark_icicle_tpu.curves import bls12_381 as ref_bls, bn254 as ref_bn
+    from gnark_icicle_tpu.curves import bls12_377, bls12_381, bn254, bw6_761
 
-    return {"bn254": ref_bn.BN254, "bls12_381": ref_bls.BLS12_381}[name]
+    return {"bn254": bn254.BN254, "bls12_381": bls12_381.BLS12_381,
+            "bls12_377": bls12_377.BLS12_377, "bw6_761": bw6_761.BW6_761}[name]
+
+
+def g2_over_fp2(curve) -> bool:
+    """True where G2 lies over Fp2; BW6-761's lies over Fp."""
+    return hasattr(curve.g2.b, "c0")
 
 
 def rand_ints(seed: int, q: int, n: int, edge: bool = True) -> list:
@@ -66,11 +73,12 @@ def public_fields(obj) -> dict:
 def to_reference(obj, ref_curve_obj):
     """A port key or proof as the JAX package's class of the same name, with
     every G2 coordinate as the JAX package's Fp2 (the port's own Fp2 compares
-    equal to it, but the JAX verifier should get its own objects)."""
+    equal to it, but the JAX verifier should get its own objects). BW6-761's
+    G2 coordinates are ints and stay as they are."""
     from gnark_icicle_tpu.backend.groth16 import keys as ref_keys
     from gnark_icicle_tpu.curves.tower import Fp2
 
-    tp = ref_curve_obj.tower
+    tp = getattr(ref_curve_obj, "tower", None)
 
     def conv(v):
         if hasattr(v, "c0"):

@@ -2,13 +2,15 @@
 originals on the CPU.
 
 gnark_icicle_tpu_torch keeps its own copies of the JAX-free host modules it
-needs (frontend, constraint, native solver, curves, logger, debug, profile),
-so that it imports nothing of the JAX package. Each copy must behave as its
-original: the same R1CS from the same circuit, the same wires from the
-native and the Python solver, the same curve constants and pairings.
+needs (frontend, constraint, native solver, curves, logger, debug, profile,
+and the native 2-chain gadgets of std/), so that it imports nothing of the
+JAX package. Each copy must behave as its original: the same R1CS from the
+same circuit, the same wires from the native and the Python solver, the same
+curve constants and pairings, the same gadget results under the Engine.
 """
 
 import dataclasses
+import random
 
 import pytest
 
@@ -17,8 +19,9 @@ from gnark_icicle_tpu import frontend as ref_frontend
 from gnark_icicle_tpu.curves import bls12_377 as ref_bls377
 from gnark_icicle_tpu.curves import bls12_381 as ref_bls381
 from gnark_icicle_tpu.curves import bn254 as ref_bn254
+from gnark_icicle_tpu.curves import bw6_761 as ref_bw6
 from gnark_icicle_tpu_torch import constraint, frontend
-from gnark_icicle_tpu_torch.curves import bls12_377, bls12_381, bn254
+from gnark_icicle_tpu_torch.curves import bls12_377, bls12_381, bn254, bw6_761
 
 CURVE_MODULES = {"bn254": (bn254, ref_bn254), "bls12_381": (bls12_381, ref_bls381),
                  "bls12_377": (bls12_377, ref_bls377)}
@@ -160,3 +163,210 @@ def test_pairing_matches_and_checks(curve):
     g1, g2 = c.g1.generator, c.g2.generator
     assert c.pairing([(p, q), (c.g1.scalar_mul(g1, c.fr.modulus - 210), g2)])
     assert not c.pairing([(p, q), (c.g1.scalar_mul(g1, c.fr.modulus - 209), g2)])
+
+
+def test_bw6_761_constants_match():
+    assert (bw6_761.P, bw6_761.R, bw6_761.GAMMA) == (ref_bw6.P, ref_bw6.R, ref_bw6.GAMMA)
+    c, rc = bw6_761.BW6_761, ref_bw6.BW6_761
+    assert c.name == rc.name
+    for f, rf in ((c.fr, rc.fr), (c.fp, rc.fp)):
+        assert (f.modulus, f.two_adicity, f.multiplicative_generator) == \
+            (rf.modulus, rf.two_adicity, rf.multiplicative_generator)
+    assert c.fr.root_of_unity(16) == rc.fr.root_of_unity(16)
+    for g, rg in ((c.g1, rc.g1), (c.g2, rc.g2)):
+        assert (g.b, g.generator, g.order) == (rg.b, rg.generator, rg.order)
+        assert g.scalar_mul(g.generator, 12345) == rg.scalar_mul(rg.generator, 12345)
+
+
+def test_bw6_761_pairing_matches_and_checks():
+    c, rc = bw6_761.BW6_761, ref_bw6.BW6_761
+    p, q = c.g1.scalar_mul(c.g1.generator, 6), c.g2.scalar_mul(c.g2.generator, 35)
+    assert c.miller_and_final_exp([p], [q]).c == rc.miller_and_final_exp([p], [q]).c
+    g1, g2 = c.g1.generator, c.g2.generator
+    assert c.pairing([(p, q), (c.g1.scalar_mul(g1, c.fr.modulus - 210), g2)])
+    assert not c.pairing([(p, q), (c.g1.scalar_mul(g1, c.fr.modulus - 209), g2)])
+
+
+# -- the native 2-chain gadgets (std/), on both packages under the Engine ----
+# The tests of tests/test_native_recursion.py:65-177, run once on the port's
+# copies and once on the originals.
+
+def _gadgets(pkg: str):
+    """(curves.bls12_377, tower, Engine, EngineUnsatisfiedError,
+    BLS12377Pairing) of one package."""
+    import importlib
+
+    base = {"port": "gnark_icicle_tpu_torch", "jax": "gnark_icicle_tpu"}[pkg]
+    b377 = importlib.import_module(base + ".curves.bls12_377")
+    tower = importlib.import_module(base + ".curves.tower")
+    engine = importlib.import_module(base + ".frontend.engine")
+    pairing = importlib.import_module(base + ".std.pairing_bls12_377")
+    return b377, tower, engine.Engine, engine.EngineUnsatisfiedError, pairing.BLS12377Pairing
+
+
+def _gin1(pr, p):
+    return (pr.fp.constant(p[0]), pr.fp.constant(p[1]))
+
+
+def _gin2(pr, q):
+    return (pr.e2.constant(q[0].c0, q[0].c1), pr.e2.constant(q[1].c0, q[1].c1))
+
+
+def _aff1(P, p):
+    X, Y, Z = (int(v) for v in P)
+    if Z == 0:
+        return None
+    zi = pow(Z, -1, p)
+    return (X * zi % p, Y * zi % p)
+
+
+def _aff2(P, tower, tp):
+    X, Y, Z = (tower.Fp2(tp, int(c[0]), int(c[1])) for c in P)
+    if Z.c0 == 0 and Z.c1 == 0:
+        return None
+    zi = Z.inv()
+    return (X * zi, Y * zi)
+
+
+PKGS = ["port", "jax"]
+
+
+@pytest.mark.parametrize("pkg", PKGS)
+def test_native_g1_complete_formulas_match_host(pkg):
+    b377, _, Engine, _, Pairing = _gadgets(pkg)
+    rng = random.Random(41)
+    eng = Engine(b377.P)
+    pr = Pairing(eng)
+    g1g, host = pr.g1, b377.G1
+    p, q = host.random_point(rng), host.random_point(rng)
+    P = g1g.from_affine(_gin1(pr, p))
+    Qp = g1g.from_affine(_gin1(pr, q))
+    aff = lambda X: _aff1(X, b377.P)  # noqa: E731
+    assert aff(g1g.add(P, Qp)) == host.add(p, q)
+    assert aff(g1g.double(P)) == host.add(p, p)
+    ident = g1g.identity()
+    assert aff(g1g.add(ident, P)) == p and aff(g1g.add(P, ident)) == p
+    assert aff(g1g.add(P, g1g.neg(P))) is None
+    assert aff(g1g.add(P, P)) == host.add(p, p)
+    k = rng.randrange(1, b377.R)
+    assert aff(g1g.scalar_mul_const(P, k)) == host.scalar_mul(p, k)
+    assert aff(g1g.scalar_mul(eng, P, k, 253)) == host.scalar_mul(p, k)
+    assert aff(g1g.scalar_mul(eng, P, 0, 253)) is None
+    assert aff(g1g.scalar_mul_const(P, b377.R)) is None
+
+
+@pytest.mark.parametrize("pkg", PKGS)
+def test_native_g2_complete_formulas_match_host(pkg):
+    b377, tower, Engine, _, Pairing = _gadgets(pkg)
+    rng = random.Random(42)
+    pr = Pairing(Engine(b377.P))
+    g2g, host = pr.g2, b377.G2
+    p, q = host.random_point(rng), host.random_point(rng)
+    P = g2g.from_affine(_gin2(pr, p))
+    Qp = g2g.from_affine(_gin2(pr, q))
+    aff = lambda X: _aff2(X, tower, b377.TOWER)  # noqa: E731
+    assert aff(g2g.add(P, Qp)) == host.add(p, q)
+    assert aff(g2g.double(P)) == host.add(p, p)
+    assert aff(g2g.add(P, g2g.neg(P))) is None
+    k = rng.randrange(1, b377.R)
+    assert aff(g2g.scalar_mul_const(P, k)) == host.scalar_mul(p, k)
+    assert aff(g2g.scalar_mul_const(P, b377.R)) is None
+
+
+# on y² = x³ + 1 but outside the order-r subgroup (tests/test_native_recursion.py:112)
+_G1_NONSUB = (2, 3)
+_G2_NONSUB_Y = (
+    87422840072826444250887876553565942107355551262075501346398264275644536685914269348883251443966746472990108358918,
+    215532314401042231238087290877698852638896402558755014880383192266220331697178391270737005425522628434566521626153,
+)
+
+
+@pytest.mark.parametrize("pkg", PKGS)
+def test_native_fast_subgroup_check_g1(pkg):
+    b377, _, Engine, Unsat, Pairing = _gadgets(pkg)
+    rng = random.Random(43)
+    for pt in (b377.G1_GEN, b377.G1.random_point(rng)):
+        pr = Pairing(Engine(b377.P))
+        pr.assert_g1_member(_gin1(pr, pt))
+    x, y = _G1_NONSUB
+    for bad in (_G1_NONSUB, (x, (y + 1) % b377.P)):
+        pr = Pairing(Engine(b377.P))
+        with pytest.raises(Unsat):
+            pr.assert_g1_member(_gin1(pr, bad))
+
+
+@pytest.mark.parametrize("pkg", PKGS)
+def test_native_fast_subgroup_check_g2(pkg):
+    b377, tower, Engine, Unsat, Pairing = _gadgets(pkg)
+    rng = random.Random(44)
+    TP = b377.TOWER
+    bad = (tower.Fp2(TP, 2, 1), tower.Fp2(TP, *_G2_NONSUB_Y))
+    assert bad[1] * bad[1] == bad[0] * bad[0] * bad[0] + b377.G2_B
+    for qt in (b377.G2_GEN, b377.G2.random_point(rng)):
+        pr = Pairing(Engine(b377.P))
+        pr.assert_g2_member(_gin2(pr, qt))
+    off = (bad[0], tower.Fp2(TP, bad[1].c0, (bad[1].c1 + 1) % b377.P))
+    for pt in (bad, off):
+        pr = Pairing(Engine(b377.P))
+        with pytest.raises(Unsat):
+            pr.assert_g2_member(_gin2(pr, pt))
+
+
+def _outer_circuit(pkg: str, vk):
+    """OuterG16 of tools/run_2chain_device.py:80-92 over one package."""
+    import importlib
+
+    base = {"port": "gnark_icicle_tpu_torch", "jax": "gnark_icicle_tpu"}[pkg]
+    fe = importlib.import_module(base + ".frontend")
+    ng = importlib.import_module(base + ".std.recursion.native_groth16")
+
+    class OuterG16(fe.Circuit):
+        inner_pub = fe.Public()
+        pr = fe.Secret(shape=8)
+
+        def define(self, api):
+            gv = ng.NativeGroth16Verifier(api, vk)
+            p = self.pr
+            w = ng.NativeVerifierProof(ar=(p[0], p[1]), bs=((p[2], p[3]), (p[4], p[5])),
+                                       krs=(p[6], p[7]))
+            gv.assert_proof(w, [self.inner_pub])
+
+    return fe, OuterG16
+
+
+def test_outer_2chain_circuit_and_solve_match_reference():
+    """The BW6-761 outer circuit (the in-circuit verifier of a BLS12-377
+    Groth16 proof) compiles to the reference's R1CS with either package's
+    gadgets, and the port's native solver (6 64-bit words: BW6-761's r has
+    377 bits) and Python solver give the reference's wires."""
+    import importlib
+
+    from gnark_icicle_tpu_torch.backend import groth16
+
+    from test_torch_common import to_reference
+
+    steps = 8
+    cs = frontend.compile_circuit(bls12_377.R, chain_circuit(frontend, steps))
+    v = 3
+    for i in range(steps):
+        v = (v * v + v + i) % bls12_377.R
+    pk, vk = groth16.setup(cs, bls12_377.BLS12_377, rng=random.Random(3), device="cpu")
+    proof = groth16.prove(cs, pk, [v], [3], bls12_377.BLS12_377,
+                          rng=random.Random(4), device="cpu")
+    ref_vk = to_reference(vk, importlib.import_module(
+        "gnark_icicle_tpu.curves.bls12_377").BLS12_377)
+    fe, Outer = _outer_circuit("port", vk)
+    rfe, ROuter = _outer_circuit("jax", ref_vk)
+    ocs = fe.compile_circuit(bls12_377.P, Outer)
+    ref_ocs = rfe.compile_circuit(bls12_377.P, ROuter)
+    assert ocs.nb_constraints == ref_ocs.nb_constraints
+    assert _state(ocs) == _state(ref_ocs)
+    values = [proof.ar[0], proof.ar[1], proof.bs[0].c0, proof.bs[0].c1,
+              proof.bs[1].c0, proof.bs[1].c1, proof.krs[0], proof.krs[1]]
+    pub, sec = Outer(inner_pub=v, pr=values).witness_values(bls12_377.P)
+    want = ref_constraint.solve(ref_ocs, pub, sec, native=False).wires
+    for native in (True, False):
+        res = constraint.solve(ocs, pub, sec, native=native)
+        assert res.wires == want, native
+        if native and res._u64:  # the C++ core ran (a host compiler exists)
+            assert res._u64["wires"].shape[1] == 6

@@ -8,9 +8,10 @@ without them. There, tests/conftest.py (which configures JAX) is left out:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
 The CPU tests hold the plain versions to the JAX package; these hold the
-kernels to the plain versions, bit for bit, for BN254 (8-word Fp) and
-BLS12-381 (12-word Fp), and the whole slice on the card to the same slice on
-the CPU.
+kernels to the plain versions, bit for bit, for BN254 (8-word Fp),
+BLS12-381 and BLS12-377 (12-word Fp; BLS12-377's Fp2 has u² = −5) and BW6-761
+(24-word Fp, 12-word Fr, G2 over Fp), and the whole slice on the card to the
+same slice on the CPU.
 """
 
 import dataclasses
@@ -27,17 +28,18 @@ from gnark_icicle_tpu_torch.ops.field_t import TField
 from gnark_icicle_tpu_torch.ops.msm import msm_host
 from gnark_icicle_tpu_torch.ops.ntt import domain_for, ntt_stage, ntt_stage_plain
 
-from test_torch_common import CURVES, cuda_device, rand_ints  # noqa: F401
+from test_torch_common import CURVES, cuda_device, g2_over_fp2, rand_ints  # noqa: F401
 
 pytestmark = pytest.mark.cuda
 NAMES = sorted(CURVES)
 
 
 def _group(curve, group):
-    """The port's TCurve/TCurve2 of a host curve."""
+    """The port's TCurve/TCurve2 of a host curve (BW6-761's G2: a TCurve)."""
     F = field_for(curve.fp.modulus)
-    if group == "g1":
-        return TCurve(F, 3 * curve.g1.b % curve.fp.modulus)
+    if group == "g1" or not g2_over_fp2(curve):
+        grp = curve.g1 if group == "g1" else curve.g2
+        return TCurve(F, 3 * grp.b % curve.fp.modulus)
     return TCurve2(F, curve.tower.beta, curve.g2.b * 3)
 
 
@@ -129,7 +131,7 @@ def test_msm_matches_host_oracle(cuda_device, name, group):
         cur = grp.add(cur, step)
     scal = rand_ints(201, R, n)  # leads with 0, 1, r − 1
     want = grp.msm(scal, pts)
-    if group == "g2" and want is not None:
+    if isinstance(tc, TCurve2) and want is not None:
         want = ((want[0].c0, want[0].c1), (want[1].c0, want[1].c1))
     assert msm_host(tc, curve.fr, pts, scal, cuda_device) == want
 

@@ -5,9 +5,12 @@ The CUDA kernels cannot run without a card, but their field and group-law
 device functions are plain C++: with a stub ``cuda_runtime.h`` that defines
 the CUDA qualifiers away, g++ compiles them for the CPU. A small driver reads
 operands on stdin and prints results, once per curve (-DCURVE_BN254,
--DCURVE_BLS12_381). The operands include 0, 1, p − 1, p − 2, R − 1 and
-R mod p, where the CIOS top-word carries and the final subtraction matter
-(BLS12-381 r has 255 bits in 8 words). Results must be equal and canonical.
+-DCURVE_BLS12_381, -DCURVE_BLS12_377, -DCURVE_BW6_761). The operands include
+0, 1, p − 1, p − 2, R − 1 and R mod p, where the CIOS top-word carries and the
+final subtraction matter (BLS12-381 r has 255 bits in 8 words). Results must
+be equal and canonical. The fields are 8 words (BN254, the BLS12 r), 12
+(BLS12-381 and BLS12-377 p, BW6-761 r) and 24 (BW6-761 p); BLS12-377's Fp2
+has u² = −5, and BW6-761's G2 lies over Fp, so it runs the G1 law with G2's b.
 """
 
 import random
@@ -16,11 +19,10 @@ import subprocess
 
 import pytest
 
-from gnark_icicle_tpu_torch.curves import bls12_381, bn254
 from gnark_icicle_tpu_torch.ops.cuda import CSRC
 from gnark_icicle_tpu_torch.ops.field import words_for
 
-CURVES = {"bn254": bn254.BN254, "bls12_381": bls12_381.BLS12_381}
+from test_torch_common import CURVES, g2_over_fp2, ref_curve
 
 STUB = """#pragma once
 #define __device__
@@ -57,6 +59,15 @@ template <class P> void field_ops() {
   }
 }
 
+template <class P> void f2_ops() {
+  std::string op;
+  while (std::cin >> op && op != "end") {
+    Elt2<P> a = rd2<P>(), b = rd2<P>();
+    wr2(fmul(a, b));
+    printf("\n");
+  }
+}
+
 template <class E, class RD, class WR> void group_ops(RD rd, WR wr) {
   std::string op;
   while (std::cin >> op && op != "end") {
@@ -76,7 +87,10 @@ int main() {
     if (which == "fp") field_ops<CurveFp>();
     else if (which == "fr") field_ops<CurveFr>();
     else if (which == "g1") group_ops<Elt<CurveFp>>(rd<CurveFp>, wr<CurveFp>);
+#if !defined(CURVE_BW6_761)  // BW6-761 has no Fp2
+    else if (which == "f2") f2_ops<CurveFp>();
     else group_ops<Elt2<CurveFp>>(rd2<CurveFp>, wr2<CurveFp>);
+#endif
     fflush(stdout);
   }
 }
@@ -143,14 +157,16 @@ def test_field_arithmetic_matches_python_ints(host_build, name, fld):
 @pytest.mark.parametrize("name", sorted(CURVES))
 @pytest.mark.parametrize("group", ["g1", "g2"])
 def test_group_law_matches_host_curve(host_build, name, group):
-    """Projective RCB add, mixed add and double against the affine host
-    group law, on points with a random Z; every output word canonical."""
-    curve = CURVES[name]
+    """Projective RCB add, mixed add and double against the affine group law
+    of gnark_icicle_tpu.curves, on points with a random Z; every output word
+    canonical.
+    BW6-761's G2 (over Fp) runs the G1 law with G2's b."""
+    curve = ref_curve(name)  # the JAX package's host curve
     p = curve.fp.modulus
     n = words_for(p)
     R = 1 << (32 * n)
     G = curve.g1 if group == "g1" else curve.g2
-    fp2 = group == "g2"
+    fp2 = group == "g2" and g2_over_fp2(curve)
     F2 = type(curve.g2.generator[0])
 
     def enc(c):
@@ -161,7 +177,7 @@ def test_group_law_matches_host_curve(host_build, name, group):
     b3 = G.b * 3 if fp2 else 3 * G.b % p
     one = F2(curve.tower, 1, 0) if fp2 else 1
     rng = random.Random(9)
-    lines, want = [group], []
+    lines, want = ["g2" if fp2 else "g1"], []
     for k in range(8):
         P1 = G.scalar_mul(G.generator, rng.randrange(1, curve.fr.modulus))
         P2 = P1 if k % 4 == 0 else G.scalar_mul(G.generator, rng.randrange(1, curve.fr.modulus))
@@ -186,3 +202,40 @@ def test_group_law_matches_host_curve(host_build, name, group):
             X, Y, Z = vals
             zi = pow(Z, -1, p)
             assert (X * zi % p, Y * zi % p) == w
+
+
+@pytest.mark.parametrize("name", sorted(n for n in CURVES if g2_over_fp2(CURVES[n])))
+def test_fp2_product_matches_host_tower(host_build, name):
+    """The Fp2 Karatsuba product against the host tower's, u² = β: −1 for
+    BN254 and BLS12-381, −5 for BLS12-377, whose c0 = m0 − 5·m1 is formed by
+    an add chain; operands at p − 1 and near R."""
+    curve = ref_curve(name)  # the JAX package's host tower
+    p = curve.fp.modulus
+    n = words_for(p)
+    R = 1 << (32 * n)
+    F2 = type(curve.g2.generator[0])
+    rng = random.Random(13)
+    edge = [0, 1, p - 1, p - 2, (R - 1) % p, R % p]
+    vals = [(a, b) for a in edge for b in edge]
+    vals += [(rng.randrange(p), rng.randrange(p)) for _ in range(40)]
+    lines, want = ["f2"], []
+    for x in vals:
+        y = vals[rng.randrange(len(vals))]
+        lines.append("mul " + " ".join(_words(c * R % p, n) for c in x + y))
+        want.append(F2(curve.tower, *x) * F2(curve.tower, *y))
+    lines.append("end")
+    rinv = pow(R, -1, p)
+    for line, w in zip(_run(host_build[name], lines), want, strict=True):
+        c0, c1 = _ints(line, n)
+        assert c0 < p and c1 < p
+        assert (c0 * rinv % p, c1 * rinv % p) == (w.c0, w.c1)
+
+
+@pytest.mark.parametrize("name", sorted(CURVES))
+def test_cios_bound_holds(name):
+    """2p < R = 2^(32N) for both fields of every curve: the CIOS product's
+    running value stays below 2p and fits N words plus one carry word that
+    ends at 0, which the kernels' final conditional subtraction assumes."""
+    for q in (CURVES[name].fp.modulus, CURVES[name].fr.modulus):
+        n = words_for(q)
+        assert 2 * q < 1 << (32 * n) and q >= 1 << (32 * (n - 1))

@@ -1,10 +1,13 @@
 """The port's Groth16 slice (gnark_icicle_tpu_torch.backend.groth16) against
 the JAX package on a Chain circuit (bench.py's benchmark circuit, cut in
-depth): about 300 constraints on BN254 and 65 on BLS12-381 (a 2^7 domain, so
-that setup's G1 products take the fixed-base ladder). Same rng, same keys,
-same h, same proof bytes; the JAX verifier accepts the port's proof; both
-verifiers reject a tampered public input. Each side compiles the circuit
-with its own frontend and proves over its own curve objects.
+depth), one case per curve: about 300 constraints on BN254 (a 2^9 domain), 65
+on BLS12-381 and BLS12-377 (2^7: setup's G1 products take the fixed-base
+ladder; BLS12-377's Fp2 has u² = −5) and 63 on BW6-761 (2^6, with 257 G1
+setup products, so the ladder runs at 24 words too; its G2 lies over Fp).
+Same rng, same keys, same h, same proof bytes; the JAX verifier accepts the
+port's proof; both verifiers reject a tampered public input. Each side
+compiles the circuit with its own frontend and proves over its own curve
+objects; the JAX side proves with its host engine.
 """
 
 import dataclasses
@@ -29,9 +32,9 @@ from test_torch_common import (
     CURVE, CURVES, R, public_fields as _fields, ref_curve, to_reference,
 )
 
-STEPS = 300
-STEPS_BLS = 64
-BLS = "bls12_381"
+# Chain steps and the domain they give, per curve
+STEPS = {"bn254": 300, "bls12_381": 64, "bls12_377": 64, "bw6_761": 62}
+LOG_N = {"bn254": 9, "bls12_381": 7, "bls12_377": 7, "bw6_761": 6}
 
 
 def chain_circuit(fe, steps: int):
@@ -57,7 +60,15 @@ def _witness(q, steps, x0=3):
     return [v], [x0]
 
 
-def _slice(curve_name, steps):
+_SLICES: dict = {}
+
+
+def _slice(curve_name):
+    """Both packages' setup and prove of one curve's Chain (cached: each
+    worker builds a curve's slice once)."""
+    if curve_name in _SLICES:
+        return _SLICES[curve_name]
+    steps = STEPS[curve_name]
     curve, ref = CURVES[curve_name], ref_curve(curve_name)
     q = curve.fr.modulus
     cs = frontend.compile_circuit(q, chain_circuit(frontend, steps))
@@ -70,93 +81,81 @@ def _slice(curve_name, steps):
                           device="cpu")
     ref_proof = ref_g16.prove(ref_cs, ref_pk, pub, sec, ref,
                               rng=random.Random(2), engine="host")
-    return dict(cs=cs, ref_cs=ref_cs, pub=pub, sec=sec, pk=pk, vk=vk,
-                ref_pk=ref_pk, ref_vk=ref_vk, proof=proof, ref_proof=ref_proof,
-                curve=curve, ref=ref, steps=steps)
+    _SLICES[curve_name] = dict(
+        name=curve_name, cs=cs, ref_cs=ref_cs, pub=pub, sec=sec, pk=pk, vk=vk,
+        ref_pk=ref_pk, ref_vk=ref_vk, proof=proof, ref_proof=ref_proof,
+        curve=curve, ref=ref, steps=steps)
+    return _SLICES[curve_name]
 
 
 @pytest.fixture(scope="module")
 def slice_run():
-    return _slice("bn254", STEPS)
+    """The BN254 slice, for the tests that need one curve."""
+    return _slice("bn254")
 
 
-@pytest.fixture(scope="module")
-def slice_run_bls12_381():
-    return _slice(BLS, STEPS_BLS)
+@pytest.fixture(scope="module", params=sorted(STEPS))
+def run(request):
+    """One case per curve."""
+    return _slice(request.param)
 
 
-def test_circuit_size(slice_run):
-    assert 300 <= slice_run["cs"].nb_constraints < 512
-
-
-def test_circuit_size_bls12_381(slice_run_bls12_381):
-    run = slice_run_bls12_381
-    assert 64 < run["cs"].nb_constraints <= 128
-    assert run["pk"].domain_log_n == 7
-
-
-@pytest.mark.parametrize("key", ["pk", "vk"])
-def test_setup_matches_reference(slice_run, key):
-    assert _fields(slice_run[key]) == _fields(slice_run["ref_" + key])
+def test_circuit_size(run):
+    n = run["cs"].nb_constraints
+    assert n > run["steps"] and run["pk"].domain_log_n == LOG_N[run["name"]]
+    assert 1 << (LOG_N[run["name"]] - 1) < n <= 1 << LOG_N[run["name"]]
+    if run["name"] == "bn254":
+        assert 300 <= n < 512
 
 
 @pytest.mark.parametrize("key", ["pk", "vk"])
-def test_setup_matches_reference_bls12_381(slice_run_bls12_381, key):
-    test_setup_matches_reference(slice_run_bls12_381, key)
+def test_setup_matches_reference(run, key):
+    assert _fields(run[key]) == _fields(run["ref_" + key])
 
 
-def test_compute_h_matches_host(slice_run):
-    cs, pk, curve = slice_run["cs"], slice_run["pk"], slice_run["curve"]
-    res = solve(cs, slice_run["pub"], slice_run["sec"])
+def test_compute_h_matches_host(run):
+    cs, pk, curve = run["cs"], run["pk"], run["curve"]
+    res = solve(cs, run["pub"], run["sec"])
     ctx = DeviceCtx(curve, "cpu")
     n = 1 << pk.domain_log_n
-    h = _compute_h(ctx, solved_u32(res, "a"), solved_u32(res, "b"),
-                   solved_u32(res, "c"), pk.domain_log_n)
+    W = ctx.fr.n32
+    h = _compute_h(ctx, solved_u32(res, "a", W), solved_u32(res, "b", W),
+                   solved_u32(res, "c", W), pk.domain_log_n)
     want = z_scalars_bitreversed(
-        compute_h_host(res.a, res.b, res.c, pk.domain_log_n,
-                       slice_run["ref"].fr),
+        compute_h_host(res.a, res.b, res.c, pk.domain_log_n, run["ref"].fr),
         pk.domain_log_n, n)
     assert ctx.fr.decode_plain(h) == want
 
 
-def test_compute_h_matches_host_bls12_381(slice_run_bls12_381):
-    test_compute_h_matches_host(slice_run_bls12_381)
+def _proof_bytes(run, proof) -> bytes:
+    """The JAX package's proof serialisation; for BW6-761, whose G2 lies
+    over Fp and which that serialiser does not cover, the raw coordinates
+    (Ar, Bs, Krs), each big-endian in the 96 bytes of a 761-bit element."""
+    ref = run["ref"]
+    if run["name"] != "bw6_761":
+        return proof_to_bytes(ref, proof)
+    return b"".join(c.to_bytes(96, "big") for pt in (proof.ar, proof.bs, proof.krs)
+                    for c in pt)
 
 
-def test_proof_matches_reference_bytes(slice_run):
-    proof, ref_proof = slice_run["proof"], slice_run["ref_proof"]
-    ref = slice_run["ref"]
+def test_proof_matches_reference_bytes(run):
+    proof, ref_proof, ref = run["proof"], run["ref_proof"], run["ref"]
     assert _fields(proof) == _fields(ref_proof)
-    assert proof_to_bytes(ref, to_reference(proof, ref)) == \
-        proof_to_bytes(ref, ref_proof)
+    assert _proof_bytes(run, to_reference(proof, ref)) == _proof_bytes(run, ref_proof)
 
 
-def test_proof_matches_reference_bytes_bls12_381(slice_run_bls12_381):
-    test_proof_matches_reference_bytes(slice_run_bls12_381)
+def test_jax_verifier_accepts_port_proof(run):
+    ref = run["ref"]
+    ref_g16.verify(to_reference(run["proof"], ref), run["ref_vk"], run["pub"], ref)
+    groth16.verify(run["proof"], run["vk"], run["pub"], run["curve"])
 
 
-def test_jax_verifier_accepts_port_proof(slice_run):
-    ref = slice_run["ref"]
-    ref_g16.verify(to_reference(slice_run["proof"], ref), slice_run["ref_vk"],
-                   slice_run["pub"], ref)
-    groth16.verify(slice_run["proof"], slice_run["vk"], slice_run["pub"],
-                   slice_run["curve"])
-
-
-def test_jax_verifier_accepts_port_proof_bls12_381(slice_run_bls12_381):
-    test_jax_verifier_accepts_port_proof(slice_run_bls12_381)
-
-
-def test_tampered_public_input_rejected_by_both(slice_run):
-    ref, curve = slice_run["ref"], slice_run["curve"]
-    bad = [(slice_run["pub"][0] + 1) % curve.fr.modulus]
-    assert not groth16.is_valid(slice_run["proof"], slice_run["vk"], bad, curve)
-    assert not ref_g16.is_valid(to_reference(slice_run["proof"], ref),
-                                slice_run["ref_vk"], bad, ref)
-
-
-def test_tampered_public_input_rejected_by_both_bls12_381(slice_run_bls12_381):
-    test_tampered_public_input_rejected_by_both(slice_run_bls12_381)
+def test_tampered_public_input_rejected_by_both(run):
+    ref, curve = run["ref"], run["curve"]
+    bad = [(run["pub"][0] + 1) % curve.fr.modulus]
+    assert not groth16.is_valid(run["proof"], run["vk"], bad, curve)
+    assert not ref_g16.is_valid(to_reference(run["proof"], ref), run["ref_vk"],
+                                bad, ref)
 
 
 @pytest.mark.parametrize("name", ["ProvingKey", "VerifyingKey", "Proof"])
@@ -166,12 +165,16 @@ def test_dataclass_fields_match_reference(name):
     assert ours == theirs
 
 
-def test_key_carry_roundtrip(slice_run):
-    ref = slice_run["ref"]
-    pk = groth16.ProvingKey.from_reference(slice_run["ref_pk"])
-    assert _fields(pk) == _fields(slice_run["pk"])
-    assert _fields(to_reference(pk, ref)) == _fields(slice_run["ref_pk"])
-    assert isinstance(to_reference(slice_run["vk"], ref), ref_g16.VerifyingKey)
+def test_key_carry_roundtrip(run):
+    """Keys carried from the JAX package equal the port's own, field by
+    field (BW6-761's g2_* fields hold Fp coordinates, BLS12-377's Fp2 has
+    u² = −5), so one rng proves the same proof from either."""
+    ref = run["ref"]
+    pk = groth16.ProvingKey.from_reference(run["ref_pk"])
+    assert _fields(pk) == _fields(run["pk"])
+    assert _fields(to_reference(pk, ref)) == _fields(run["ref_pk"])
+    assert isinstance(to_reference(run["vk"], ref), ref_g16.VerifyingKey)
+    assert isinstance(pk.g2_beta[0], int) == (run["name"] == "bw6_761")
 
 
 @pytest.mark.parametrize("kw", [{"mesh": object()}, {"checkpoint_dir": "x"},
@@ -188,10 +191,11 @@ def test_unported_setup_engine_raises(slice_run):
 
 
 def test_unported_curve_raises():
-    from gnark_icicle_tpu_torch.curves import bls12_377
+    """BLS24-315 (G2 over Fp4, no device form) is not ported."""
+    from gnark_icicle_tpu.curves import bls24_315
 
     with pytest.raises(NotImplementedError):
-        DeviceCtx(bls12_377.BLS12_377, "cpu")
+        DeviceCtx(bls24_315.BLS24_315, "cpu")
 
 
 def test_copied_setup_helpers_match_reference(slice_run):
@@ -228,7 +232,7 @@ def test_solved_u32_matches_solver_u16(slice_run, native):
     ref_res = ref_solve(slice_run["ref_cs"], slice_run["pub"],
                         slice_run["sec"], native=native)
     for name in ("wires", "a", "b", "c"):
-        got = repack32_to_16(solved_u32(res, name))
+        got = repack32_to_16(solved_u32(res, name, 8))
         want = getattr(ref_res, name + "_u16")()
         assert (got == want).all(), name
         assert (getattr(res, name + "_u16")() == want).all(), name

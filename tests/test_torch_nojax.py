@@ -4,7 +4,8 @@ The machine with the card has no JAX, and the port imports nothing of the
 JAX package either: a subprocess with ``jax`` and every ``gnark_icicle_tpu``
 module blocked on ``sys.meta_path`` imports every module of the port and
 runs a tiny compile → setup → prove → verify slice with the port's own
-frontend and curves. chip_smoke.py refuses to run without a GPU, and the
+frontend and curves (the 2-chain's curves and std/ gadgets are among the
+modules it imports). chip_smoke.py refuses to run without a GPU, and the
 entry points raise where there is no card and no ``device="cpu"``.
 """
 
@@ -39,6 +40,11 @@ torch.set_num_threads(1)  # the test run shares the machine among workers
 import gnark_icicle_tpu_torch as port
 for mod in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
     importlib.import_module(mod.name)
+# the 2-chain's modules among them: its curves and the native gadgets
+for name in ("curves.bls12_377", "curves.bw6_761", "std.algebra_native",
+             "std.algebra_towers", "std.pairing_bls12_377",
+             "std.recursion.native_groth16"):
+    assert "gnark_icicle_tpu_torch." + name in sys.modules, name
 
 from gnark_icicle_tpu_torch.curves import bn254
 from gnark_icicle_tpu_torch.frontend import Circuit, Public, Secret, compile_circuit
