@@ -13,14 +13,20 @@ at 12, G2 over Fp), phases print one JSON line each on stdout:
   2. kernels: each kernel entry against its plain PyTorch version on the
      card, bit-equal (Fr product, subtraction and NTT stage at 2^16 lanes;
      G1 and G2 masked signed mixed add, add and double at 2^14 lanes, with
-     operands at 0, 1, p - 1, p - 2 and near R), then again at the shapes its
-     curve's path gives it (the 2^17 Chain prove; for BW6-761 the outer
-     proof of the 2-chain), with CUDA-event times of both there and the
-     least time the card could take (bound_ms); the mixed adds are also
-     timed at setup's fixed-base ladder widths (one table row, mask = a
-     bit). BW6-761's G2 runs its G1 entries with G2's b3 and is checked so;
+     operands at 0, 1, p - 1, p - 2 and near R; the bucket accumulation on
+     the lanes of a skewed 2^12-point MSM, whose long runs are split, the
+     folded segments held to the unsplit runs in affine form), then again
+     at the shapes its curve's path gives it (the 2^17 Chain prove; for
+     BW6-761 the outer proof of the 2-chain), with CUDA-event times of both
+     there and the least time the card could take (bound_ms); the mixed
+     adds are also timed at setup's fixed-base ladder widths (one table row,
+     mask = a bit) and with the mask a prefix of the lanes, as the
+     reference's waves run. BW6-761's G2 runs its G1 entries with G2's b3
+     and is checked so;
   3. msm: G1 and G2 MSMs (2^12 and 2^10 points; BW6-761 2^10 and 2^10)
-     against the host oracle of the port's curves/, in affine form;
+     against the host oracle of the port's curves/, in affine form, and a
+     skewed G1 MSM (scalars mostly 0 and 1) whose digit-1 run is longer than
+     a lane takes, so that the MSM splits it;
   4. groth16: the 2^17-step Chain circuit (bench.py's rollup-scale
      benchmark) on BN254, BLS12-381 and BLS12-377: compile, setup
      (host/points split), a first prove, two timed proves with solve /
@@ -64,10 +70,12 @@ N_MSM = {"bn254": {"g1": 1 << 12, "g2": 1 << 10}, "bls12_381": {"g1": 1 << 12, "
 
 
 def _path_shapes(log_n: int, msm_points: int, table_rows: int, fr_bits: int,
-                 ladder: dict) -> dict:
+                 ladder: dict, g2_msm: int) -> dict:
     """The kernel shapes of a Groth16 prove on a 2^log_n domain: the largest
     MSM (the h·Z one, msm_points scalars, pick_window's c) sets the first wave
-    stage (windows·2^(c-1) lanes) and the bucket reduction's widths."""
+    stage (windows·2^(c-1) lanes) and the bucket reduction's widths; the G2
+    MSM (B2 over the wires, g2_msm points and rows) the G2 bucket
+    accumulation's."""
     from gnark_icicle_tpu_torch.ops.msm import pick_window
 
     c = pick_window(msm_points)
@@ -77,7 +85,8 @@ def _path_shapes(log_n: int, msm_points: int, table_rows: int, fr_bits: int,
     return {"fr": 1 << log_n,                  # computeH pointwise, Montgomery
             "ntt": (1 << log_n, 1 << (log_n - 6)),  # (n, m) of one radix-2 stage
             "points": table_rows,              # MSM point table rows
-            "wave": windows * B,               # first wave stage
+            "msm": {"g1": msm_points, "g2": g2_msm},  # the bucket accumulation's MSMs
+            "wave": windows * B,               # one wave of the reference
             "reduce": windows * V,             # chunked bucket reduction
             "double": windows,                 # the reduction's doublings
             "ladder": ladder}                  # setup's fixed-base ladders
@@ -89,12 +98,13 @@ def slice_shapes(name: str) -> dict:
     curves; for BW6-761 the 2-chain's outer proof (35,871 constraints,
     35,856 wires, a 2^16 domain; the h·Z MSM of 65,536 points at c = 12: 33
     windows, 67,584 wave lanes; setup's G1 ladder over 3·35,856 − 2 + 65,535
-    scalars, its G2 ladder over 35,856)."""
+    scalars, its G2 ladder over 35,856). The G2 MSM is B2 over the wires:
+    131,512 points on the Chain, 35,856 on BW6-761."""
     if name == "bw6_761":
         return _path_shapes(16, 1 << 16, 35856, 377,
-                            {"g1": 3 * 35856 - 2 + 65535, "g2": 35856})
+                            {"g1": 3 * 35856 - 2 + 65535, "g2": 35856}, 35856)
     bits = {"bn254": 254, "bls12_381": 255, "bls12_377": 253}[name]
-    return _path_shapes(18, 1 << 18, 1 << 17, bits, {"g1": 1 << 18, "g2": 131512})
+    return _path_shapes(18, 1 << 18, 1 << 17, bits, {"g1": 1 << 18, "g2": 131512}, 131512)
 # The card's rates for the bound (the least time the card could take): HBM
 # bandwidth from NVIDIA's H100 SXM data sheet; 32-bit integer multiply-adds
 # at 64 per SM per clock (compute capability 9.0), at the card's maximum SM
@@ -106,6 +116,7 @@ IMAD_PER_SM_CLOCK = 64
 # (Renes-Costello-Batina 2016: mixed add 11, add 12, double 8); an Fp2
 # product is 3 base products (Karatsuba)
 PRODUCTS = {"add_mixed_masked": 11, "add": 12, "double": 8}
+N_SKEW = 1 << 12    # points of the skewed MSM of the bucket accumulation check
 
 
 def _say(phase: str, **kv) -> None:
@@ -210,9 +221,10 @@ def phase_kernels(device, name: str, rates: dict) -> list:
     import torch
 
     from gnark_icicle_tpu_torch.ops import cuda as kc
-    from gnark_icicle_tpu_torch.ops.ec_t import TCurve, TCurve2
-    from gnark_icicle_tpu_torch.ops.field import field_for
+    from gnark_icicle_tpu_torch.ops.ec_t import TCurve, TCurve2, resident_lanes
+    from gnark_icicle_tpu_torch.ops.field import field_for, ints_to_limbs32, to_lanes
     from gnark_icicle_tpu_torch.ops.field_t import TField
+    from gnark_icicle_tpu_torch.ops.msm import MSMKernel, pick_window, segment_length
     from gnark_icicle_tpu_torch.ops.ntt import ntt_stage, ntt_stage_plain
 
     curve = _curves()[name]
@@ -328,6 +340,56 @@ def phase_kernels(device, name: str, rates: dict) -> list:
                 return tc._stack(getattr(tc.curve, op)(*map(tc._coords, args)))
             return run
 
+        kern = MSMKernel(tc, R.bit_length())
+
+        def bucket(fn):
+            def run(acc, table, order, sign, start, count):
+                fn(acc, table, order, sign, start, count)
+                return acc
+            return run
+
+        def msm_lanes(scal):
+            """The MSM's own lanes of (Wr, n) scalars: (order, sign, start,
+            count, back, nseg, runs' starts, runs' counts, seg)."""
+            n_ = scal.shape[1]
+            c_ = pick_window(n_)
+            seg = segment_length(n_, c_, R.bit_length(), resident_lanes(device))
+            order, sign, starts, counts, _, _ = kern._runs(
+                torch.zeros(n_, dtype=torch.bool, device=device), scal, c_)
+            return (order, sign) + kern._segments(starts, counts, seg) + (starts, counts, seg)
+
+        def bucket_check(table, lanes) -> int:
+            """kernel against plain on the lanes, limb for limb; then the
+            folded segments of every split run against the run unsplit, in
+            affine form"""
+            order, sign, start, count, back, nseg, starts, counts, _ = lanes
+            acc_k = tc.identity(count.shape[0], device)
+            acc_p = acc_k.clone()
+            tc.bucket_accumulate(acc_k, table, order, sign, start, count)
+            tc.bucket_accumulate_plain(acc_p, table, order, sign, start, count)
+            err = _max_abs_err(acc_k, acc_p)
+            if nseg is None:
+                raise AssertionError("the skewed check split no run")
+            folded = kern._fold_segments(acc_k[..., back], nseg)
+            whole = kern._accumulate(table, order, sign, starts, counts, 1 << 30)
+            split = torch.nonzero(nseg > 1).flatten()
+            if tc.to_affine_host(folded[..., split]) != tc.to_affine_host(whole[..., split]):
+                raise AssertionError(f"{prefix}{tag}: folded segments differ from the runs")
+            return err
+
+        def skewed_scalars(n_):
+            """mostly 0 and 1, every 8th random: window 0's digit-1 run
+            holds about 60 % of the points"""
+            vals = [rng.randrange(R) if i % 8 == 0 else rng.choice((0, 1, 1)) for i in range(n_)]
+            return to_lanes(ints_to_limbs32(vals, fr.n32), device)
+
+        # curve points: the fold regroups the sum, which only the group law
+        # on the curve leaves unchanged
+        group = curve.g1 if tag == "g1" else curve.g2
+        skew_pts, _ = _chain_points(group, rng.randrange(1, R), rng.randrange(1, R), N_SKEW, R)
+        skew_table = tc.table([pt or group.generator for pt in skew_pts], device)
+        skew_err = bucket_check(skew_table, msm_lanes(skewed_scalars(N_SKEW)))
+
         P_, Q_ = rand_points(n), rand_points(n)
         # an edge table: rows at 0, 1, p - 1 and near R
         check = [P_] + rand_wave(n, 1 << 12)
@@ -343,6 +405,7 @@ def phase_kernels(device, name: str, rates: dict) -> list:
             acc = rand_points(lanes)
             errs.append(_max_abs_err(wave(tc.add_mixed_masked, lanes)(acc.clone(), *w_ladder),
                                      wave(tc.add_mixed_masked_plain, lanes)(acc.clone(), *w_ladder)))
+            errs.append(skew_err)
             if max(errs) != 0:
                 raise AssertionError(f"{prefix}g1_* with G2's b3 differ from the plain version")
             _say("kernel_check", curve=name, group="g2 over Fp (g1 entries, G2's b3)",
@@ -363,6 +426,13 @@ def phase_kernels(device, name: str, rates: dict) -> list:
         lnb, lk = wave_bytes(ladder_lanes, w_ladder)
         l_bound, l_by = _bound(rates, lnb, lk * PRODUCTS["add_mixed_masked"] * per_product,
                                fp.n32)
+        # the reference's wave: the unmasked lanes a prefix of the lanes
+        acc_wave = rand_points(lanes)
+        w_prefix = list(w_path)
+        w_prefix[3] = (torch.arange(lanes, device=device) < k).to(torch.int32)
+        pnb, pk = wave_bytes(lanes, w_prefix)
+        p_bound, p_by = _bound(rates, pnb, pk * PRODUCTS["add_mixed_masked"] * per_product,
+                               fp.n32)
         record(f"{tag}_add_mixed_masked",
                _max_abs_err(wave(tc.add_mixed_masked, n)(*[t.clone() for t in check]),
                             wave(tc.add_mixed_masked_plain, n)(*[t.clone() for t in check])),
@@ -373,7 +443,33 @@ def phase_kernels(device, name: str, rates: dict) -> list:
                ladder={"lanes": ladder_lanes,
                        "ms": _cuda_ms(lambda: lad[0](acc_ladder, *w_ladder), REPS_KERNEL),
                        "plain_ms": _cuda_ms(lambda: lad[1](acc_ladder, *w_ladder), 2),
-                       "bound_ms": l_bound, "bound_by": l_by})
+                       "bound_ms": l_bound, "bound_by": l_by},
+               prefix_mask={"unmasked": pk,
+                            "ms": _cuda_ms(lambda: wave(tc.add_mixed_masked, lanes)(
+                                acc_wave, *w_prefix), REPS_KERNEL),
+                            "bound_ms": p_bound, "bound_by": p_by})
+        # the MSM's bucket accumulation at the path's MSM of the group (G1:
+        # the largest, h·Z; G2: B2 over the wires): random scalars through
+        # the MSM's own digits, sort and segments
+        n_msm = shapes["msm"][tag]
+        lanes_msm = msm_lanes(_rand_dev(fr, 1, n_msm, device)[0])
+        order, sign, start, count = lanes_msm[:4]
+        adds = int(count.sum().item())
+        in_run = torch.repeat_interleave(start, count.long()) + (
+            torch.arange(adds, device=device)
+            - torch.repeat_interleave(torch.cumsum(count.long(), 0) - count.long(),
+                                      count.long()))
+        rows = int(torch.unique(order[in_run]).numel())
+        record(f"{tag}_bucket_accumulate", skew_err,
+               f"{count.shape[0]} lanes, {adds} points, {n_msm} table rows",
+               [tc.identity(count.shape[0], device),
+                _rand_dev(fp, 2 * tc.NP, n_msm, device).reshape(-1, n_msm).T.contiguous(),
+                order, sign, start, count],
+               bucket(tc.bucket_accumulate), bucket(tc.bucket_accumulate_plain),
+               adds * 8 + rows * 2 * coord + count.shape[0] * (12 + 3 * coord),
+               adds * PRODUCTS["add_mixed_masked"] * per_product, fp.n32,
+               longest=int(count[0].item()), segment=lanes_msm[8],
+               split_runs=0 if lanes_msm[5] is None else int((lanes_msm[5] > 1).sum().item()))
         for op, width in (("add", shapes["reduce"]), ("double", shapes["double"])):
             args = [P_, Q_] if op == "add" else [P_]
             record(f"{tag}_{op}", _max_abs_err(getattr(tc, op)(*args), plain(op)(*args)),
@@ -403,17 +499,30 @@ def _chain_points(group, k0: int, dk: int, n: int, q: int):
 
 def phase_msm(ctx, name: str) -> None:
     """G1 and G2 MSMs (N_MSM points) against the host oracle:
-    Σ s_i·(k_i·G) = (Σ s_i·k_i)·G, one scalar product on curves/."""
-    from gnark_icicle_tpu_torch.ops.msm import msm_host
+    Σ s_i·(k_i·G) = (Σ s_i·k_i)·G, one scalar product on curves/; then a
+    skewed G1 MSM: scalars mostly 0 and 1, every 8th random, so that window
+    0's digit-1 run outgrows a lane (segment_length) and is split."""
+    from gnark_icicle_tpu_torch.ops.ec_t import resident_lanes
+    from gnark_icicle_tpu_torch.ops.msm import msm_host, pick_window, segment_length
 
     curve = ctx.curve
     rng = random.Random(11)
     q = curve.fr.modulus
-    for tag, group, tc in (("g1", curve.g1, ctx.g1), ("g2", curve.g2, ctx.g2)):
+    cases = [("g1", curve.g1, ctx.g1, False), ("g2", curve.g2, ctx.g2, False),
+             ("g1", curve.g1, ctx.g1, True)]
+    for tag, group, tc, skewed in cases:
         n = N_MSM[name][tag]
         pts, logs = _chain_points(group, rng.randrange(1, q), rng.randrange(1, q), n, q)
         scal = [rng.randrange(q) for _ in range(n)]
         scal[:3] = [0, 1, q - 1]
+        extra = {}
+        if skewed:
+            scal = [s if i % 8 == 0 else rng.choice((0, 1, 1)) for i, s in enumerate(scal)]
+            ones = sum(1 for s, p in zip(scal, pts) if s == 1 and p is not None)
+            seg = segment_length(n, pick_window(n), q.bit_length(), resident_lanes(ctx.device))
+            if ones <= seg:
+                raise AssertionError("the skewed MSM has no run longer than a lane")
+            extra = {"skewed": True, "digit_1_run": ones, "segment": seg}
         t0 = time.perf_counter()
         got = msm_host(tc, curve.fr, pts, scal, ctx.device)
         seconds = time.perf_counter() - t0
@@ -424,7 +533,8 @@ def phase_msm(ctx, name: str) -> None:
         if got != want:
             raise AssertionError(f"{curve.name} {tag} MSM at {n} points differs "
                                  "from the host oracle")
-        _say("msm", curve=curve.name, group=tag, points=n, equal=True, seconds=seconds)
+        _say("msm", curve=curve.name, group=tag, points=n, equal=True, seconds=seconds,
+             **extra)
 
 
 def _profiled(run) -> dict:

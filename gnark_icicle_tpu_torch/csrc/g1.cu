@@ -1,36 +1,55 @@
-// G1 (over Fp) group-law kernels: the MSM wave step, the complete add and
-// the double. Built once per curve (field.cuh, CurveFp): BN254 at 8 words,
-// BLS12-381 and BLS12-377 at 12, BW6-761 at 24. BW6-761's G2 lies over Fp too
-// (the sextic twist y^2 = x^3 + 4): it runs these entries with its own b3 row.
+// G1 (over Fp) group-law kernels: the MSM's bucket accumulation, the masked
+// wave step, the complete add and the double. Built once per curve (field.cuh,
+// CurveFp): BN254 at 8 words, BLS12-381 and BLS12-377 at 12, BW6-761 at 24.
+// BW6-761's G2 lies over Fp too (the sextic twist y^2 = x^3 + 4): it runs
+// these entries with its own b3 (TwistB3).
 //
 // Replaces TPU kernels K2 (gnark_icicle_tpu/ops/ec_t.py:266 TCurve._mul, the
 // Fp product called 11 times per wave step), K4 (ops/ec_t.py:529
-// TCurve.add_mixed_masked_fused, the whole masked, signed mixed add) and, in
-// setup, K6 (gnark_icicle_tpu/ops/ec_pallas.py:440 PallasEC._build, the
-// fixed-base ladder's mixed adds through ops/ec.py DevCurve).
+// TCurve.add_mixed_masked_fused, the whole masked, signed mixed add, which
+// the reference launches once per wave of the MSM) and, in setup, K6
+// (gnark_icicle_tpu/ops/ec_pallas.py:440 PallasEC._build, the fixed-base
+// ladder's mixed adds through ops/ec.py DevCurve).
 //
 // Bound on the card: integer multiply rate. A mixed add is 11 Fp products
 // (11 * 2N^2 multiply-adds: 1,408 at N = 8, 3,168 at N = 12, 12,672 at
-// N = 24) against 8N bytes gathered and 24N bytes of accumulator read and
-// written, so it sits far above the memory roofline; registers come next
-// (three accumulator coordinates, the gathered point and about six
-// temporaries of N words each: about 240 registers at N = 24, so BW6-761
-// spills). The design fuses the whole RCB16 schedule, the table gather (by
-// index, inside the kernel), the sign and the mask into one kernel, one lane
-// per thread, so nothing between the 11 products touches device memory;
-// masked-off lanes return before loading.
+// N = 24; b3 is an integer on every curve's G1, so its products are add
+// chains) against 8N bytes gathered, so it sits far above the memory
+// roofline. g1_bucket_accumulate runs a whole MSM's bucket sums in one
+// launch, each lane's run of points in a loop with the accumulator held
+// through it (field.cuh, "the staged mixed-add kernel");
+// g1_add_mixed_masked is the one-step form for setup's ladders. The
+// mixed-add entries take g2 = 0 for G1's b3 and g2 = 1 for G2's, which only
+// BW6-761's build has on these entries, and refuse any other.
 #include "field.cuh"
 
 using G1E = Elt<CurveFp>;
 
+// k_mixed_accumulate with the b3 form of group g2 (0: G1, 1: G2)
+static int mixed_accumulate(void* acc, long long ld, long long L, const void* table,
+                            const void* order, const void* sign, const void* start,
+                            const void* count, const void* b3, int g2, void* stream) {
+  if (g2 == 0)
+    return launch_mixed_accumulate<G1E, G1B3>(acc, ld, L, table, order, sign, start, count,
+                                              b3, stream);
+#if defined(CURVE_BW6_761)
+  if (g2 == 1)
+    return launch_mixed_accumulate<G1E, TwistB3>(acc, ld, L, table, order, sign, start, count,
+                                                 b3, stream);
+#endif
+  return (int)cudaErrorInvalidValue;
+}
+
 extern "C" int ENTRY(g1_add_mixed_masked)(void* acc, long long ld, long long S, const void* table,
                                    const void* idx, const void* sign, const void* mask,
-                                   const void* b3, void* stream) {
-  if (S > 0)
-    k_add_mixed_masked<G1E><<<n_blocks(S, 256), 256, 0, (cudaStream_t)stream>>>(
-        (uint32_t*)acc, ld, S, (const uint32_t*)table, (const int32_t*)idx,
-        (const int32_t*)sign, (const int32_t*)mask, (const uint32_t*)b3);
-  return (int)cudaGetLastError();
+                                   const void* b3, int g2, void* stream) {
+  return mixed_accumulate(acc, ld, S, table, idx, sign, nullptr, mask, b3, g2, stream);
+}
+
+extern "C" int ENTRY(g1_bucket_accumulate)(void* acc, long long L, const void* table,
+                                    const void* order, const void* sign, const void* start,
+                                    const void* count, const void* b3, int g2, void* stream) {
+  return mixed_accumulate(acc, L, L, table, order, sign, start, count, b3, g2, stream);
 }
 
 extern "C" int ENTRY(g1_add)(const void* p, long long ldp, const void* q, long long ldq, void* o,

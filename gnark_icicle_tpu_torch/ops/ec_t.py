@@ -16,10 +16,20 @@ Affine point tables, the MSM's gather source, are row-major: one row of
 
 Kernels (``csrc/g1.cu``, ``csrc/g2.cu``):
 
-* ``add_mixed_masked`` — K4/K5 (ops/ec_t.py:529, :896): acc += (±)table[idx]
-  where mask, in place, with the gather, sign and mask inside the kernel;
+* ``bucket_accumulate`` — K4/K5 (ops/ec_t.py:529, :896) in their MSM role,
+  redesigned for the card: one launch per MSM, each lane adding its whole
+  run of sorted points (gathered by index, signed) in a loop, where the
+  reference launches one wave step per point of the longest run;
+* ``add_mixed_masked`` — K4/K5 as one wave step: acc += (±)table[idx] where
+  mask, in place, with the gather, sign and mask inside the kernel (setup's
+  fixed-base ladders, K6's role);
 * ``add`` and ``double`` — the complete RCB16 add and double, the products
   of K2/K3 (ops/ec_t.py:266, :649) fused per call.
+
+The mixed-add entries are built for the b3 of their curve's groups, each in
+its own form (``csrc/field.cuh``: an add chain where b3 is a small integer);
+the wrapper passes which group its b3 is (``group_flag``: 0 G1, 1 G2) and
+launches nothing for a b3 of neither.
 
 For CPU tensors each method runs the plain version, ``ops/ec.py``
 ``DevCurve``; for CUDA tensors it launches the kernel or raises.
@@ -36,10 +46,12 @@ from .field import Field, ints_to_limbs32, to16, to32
 
 
 def _group_kernels(curve: str, g: str, k_mixed: str, k_mul: str):
-    """(add_mixed_masked, add, double) entries of one group of one curve."""
+    """(add_mixed_masked, add, double, bucket_accumulate) entries of one
+    group of one curve."""
     return (Kernel(g, curve, f"{g}_add_mixed_masked", k_mixed),
             Kernel(g, curve, f"{g}_add", k_mul),
-            Kernel(g, curve, f"{g}_double", k_mul))
+            Kernel(g, curve, f"{g}_double", k_mul),
+            Kernel(g, curve, f"{g}_bucket_accumulate", k_mixed))
 
 
 # base-field modulus -> {"g1": kernels, "g2": kernels} of its curve; the
@@ -55,6 +67,39 @@ EC_KERNELS = {
 }
 
 
+def _b3_ints(c) -> list:
+    """3b of a group as base-field ints: [b3] over Fp, [c0, c1] over Fp2."""
+    b3 = c.b * 3
+    return [b3.c0, b3.c1] if hasattr(b3, "c0") else [b3]
+
+
+# base-field modulus -> (G1's b3, G2's b3) of its curve, reduced mod p
+_GROUP_B3 = {c.fp.modulus: tuple([v % c.fp.modulus for v in _b3_ints(g)] for g in (c.g1, c.g2))
+             for c in (bn254.BN254, bls12_381.BLS12_381, bls12_377.BLS12_377, bw6_761.BW6_761)}
+
+# the launch of k_mixed_accumulate (csrc/field.cuh Stage<E>): T threads a
+# block, at least MIN_BLOCKS blocks an SM (its shared memory and at most 255
+# registers a thread allow that many)
+MIXED_THREADS = 128
+MIXED_MIN_BLOCKS = 2
+H100_SMS = 132
+
+
+def resident_lanes(device) -> int:
+    """Lanes of the bucket accumulation the card runs at once, at least: its
+    SMs × MIXED_MIN_BLOCKS × MIXED_THREADS (an 8-word G1 lane, at fewer
+    registers, may get more blocks). The CPU, which runs the plain version,
+    counts the H100's 132 SMs, so that it splits runs as the card does."""
+    device = torch.device(device)
+    sms = (torch.cuda.get_device_properties(device).multi_processor_count
+           if device.type == "cuda" else H100_SMS)
+    return sms * MIXED_MIN_BLOCKS * MIXED_THREADS
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 class _TCurveBase:
     NP = 1     # planes per coordinate
     GROUP = ""  # "g1" or "g2": the kernel family
@@ -65,6 +110,10 @@ class _TCurveBase:
         self.curve = curve                      # the plain version
         # Montgomery b3, NP*W words
         self._b3_words = [w for c in b3_host for w in self._words(c)]
+        # which of its curve's groups b3 is 3b of (None: neither)
+        b3 = [c % F.modulus for c in b3_host]
+        g1_b3, g2_b3 = _GROUP_B3.get(F.modulus, (None, None))
+        self.group_flag = 0 if b3 == g1_b3 else 1 if b3 == g2_b3 else None
         self._b3: dict = {}
         self._kernels = EC_KERNELS.get(F.modulus, {}).get(self.GROUP)
         self.planes = 3 * self.NP
@@ -127,13 +176,25 @@ class _TCurveBase:
         ok = P.stride(2) == 1 and P.stride(0) == P.shape[1] * P.stride(1)
         return P if ok else P.contiguous()
 
+    def _check_table(self, table) -> None:
+        """The kernels copy a table row in 16-byte chunks (cp.async)."""
+        require(table.dtype == torch.int32 and table.is_contiguous()
+                and table.dim() == 2 and table.shape[1] == self.row
+                and table.data_ptr() % 16 == 0,
+                f"table must be contiguous, 16-byte aligned (M, {self.row}) int32 rows")
+
     def _kernel(self, i: int) -> Kernel:
-        """Entry i of (add_mixed_masked, add, double); raises for a curve
-        whose kernels are not built."""
+        """Entry i of (add_mixed_masked, add, double, bucket_accumulate);
+        raises for a curve whose kernels are not built, and for a mixed add
+        (0, 3) whose b3 is neither of its curve's groups'."""
         if self._kernels is None:
             raise NotImplementedError(
                 f"no {self.GROUP} kernels are built for the base field "
                 f"{self.F.modulus:#x}")
+        if i in (0, 3) and self.group_flag is None:
+            raise NotImplementedError(
+                "the mixed-add kernels are built for their curve's G1 and G2 b3 "
+                "(csrc/field.cuh); this b3 is neither")
         return self._kernels[i]
 
     # -- the MSM wave step ---------------------------------------------------
@@ -165,17 +226,58 @@ class _TCurveBase:
         self._check_points(acc)
         require(acc.is_contiguous() and S <= acc.shape[2],
                 "acc must be a contiguous (planes, W, L) tensor with L >= S")
-        require(table.dtype == torch.int32 and table.is_contiguous()
-                and table.dim() == 2 and table.shape[1] == self.row,
-                f"table must be contiguous (M, {self.row}) int32 rows")
+        self._check_table(table)
         for t in (idx, sign, mask):
             require(t is None or (t.dtype == torch.int32 and t.is_contiguous()
                                   and t.shape == (S,)),
                     "idx, sign and mask must be contiguous (S,) int32")
-        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
         kernel.launch(acc.data_ptr(), acc.stride(1), S, table.data_ptr(),
-                      idx.data_ptr(), ptr(sign), ptr(mask),
-                      self.b3_row(acc.device).data_ptr(), stream(acc))
+                      idx.data_ptr(), _ptr(sign), _ptr(mask),
+                      self.b3_row(acc.device).data_ptr(), self.group_flag, stream(acc))
+
+    # -- the MSM's bucket accumulation ---------------------------------------
+    def bucket_accumulate_plain(self, acc, table, order, sign, start, count):
+        """The plain version of ``bucket_accumulate``: the reference's wave
+        schedule (gnark_icicle_tpu/ops/msm.py:187), wave t adding point
+        start[l] + t of every lane that still has one."""
+        L = acc.shape[2]
+        count = count.long()
+        top = int(count.max().item()) if L else 0
+        last = max(order.shape[0] - 1, 0)
+        for t in range(top):
+            pos = torch.clamp(start + t, max=last)
+            self.add_mixed_masked_plain(
+                acc, L, table, order[pos],
+                None if sign is None else sign[pos], (count > t).to(torch.int32))
+
+    def bucket_accumulate(self, acc, table, order, sign, start, count):
+        """acc[..., l] += Σ_{t < count[l]} (−1)^sign[s] · table[order[s]] with
+        s = start[l] + t, in place: every lane's run of sorted points at once.
+
+        acc: contiguous (planes, W, L) projective accumulators; table: (M, row)
+        affine rows; order, sign: (n,) int32 point index and sign by sorted
+        position (sign may be None: all positive); start: (L,) int64 and
+        count: (L,) int32, each lane's run. The kernel adds a lane's points in
+        their order, so the result equals the plain version's limb for limb;
+        lanes sorted by count, descending, keep a warp's loops even."""
+        if not is_cuda(acc, table, order, sign, start, count):
+            return self.bucket_accumulate_plain(acc, table, order, sign, start, count)
+        kernel = self._kernel(3)
+        self._check_points(acc)
+        L = acc.shape[2]
+        require(acc.is_contiguous(), "acc must be a contiguous (planes, W, L) tensor")
+        self._check_table(table)
+        for t in (order, sign):
+            require(t is None or (t.dtype == torch.int32 and t.is_contiguous()
+                                  and t.dim() == 1),
+                    "order and sign must be contiguous (n,) int32")
+        require(start.dtype == torch.int64 and count.dtype == torch.int32
+                and start.shape == (L,) and count.shape == (L,)
+                and start.is_contiguous() and count.is_contiguous(),
+                "start must be (L,) int64 and count (L,) int32, contiguous")
+        kernel.launch(acc.data_ptr(), L, table.data_ptr(), order.data_ptr(),
+                      _ptr(sign), start.data_ptr(), count.data_ptr(),
+                      self.b3_row(acc.device).data_ptr(), self.group_flag, stream(acc))
 
     # -- complete add and double ---------------------------------------------
     def add(self, P, Q):

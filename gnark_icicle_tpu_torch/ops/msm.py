@@ -2,20 +2,28 @@
 
 Port of gnark_icicle_tpu/ops/msm.py ``MSMKernel.msm`` (:521) on its
 transposed path: signed c-bit digits (:82), one payload sort per window,
-``searchsorted`` bucket runs, the staged waves over count-sorted
-(window, bucket) lanes (:570-594, ``_wave_accumulate_t`` :187), the
-weighted bucket reduction (``_bucket_reduce_t``/``_weighted_chunked_t``
-:399-469) and Horner over the windows. ``pick_window`` (:51) is copied; the
-windows follow the scalar field's bits as in the reference (254 bits for
-BN254 r, 255 for BLS12-381 r, 253 for BLS12-377 r: 17 windows of 16 bits;
-377 for BW6-761 r: 25 windows of 16 bits, 36 of the 11 bits that about 46k
-points get).
+``searchsorted`` bucket runs, the weighted bucket reduction
+(``_bucket_reduce_t``/``_weighted_chunked_t`` :399-469) and Horner over the
+windows. ``pick_window`` (:51) is copied; the windows follow the scalar
+field's bits as in the reference (254 bits for BN254 r, 255 for BLS12-381 r,
+253 for BLS12-377 r: 17 windows of 16 bits; 377 for BW6-761 r: 25 windows of
+16 bits, 36 of the 11 bits that about 46k points get).
 
-The reference's wave schedule is kept: one launch of the group's
-``add_mixed_masked`` kernel (``ops/ec_t.py``) per wave, which gathers each
-lane's point by index and folds in the digit's sign and the lane's mask.
-The ≤128-point scan path and the affine wave are not ported: a small MSM
-takes the same Pippenger path and gives the same affine point.
+The bucket sums are redesigned for the card. The reference runs staged
+waves over count-sorted (window, bucket) lanes (:570-594,
+``_wave_accumulate_t`` :187): one launch of the group's mixed add per point
+of the longest run, driven from the host. Here one launch of the group's
+``bucket_accumulate`` kernel (``ops/ec_t.py``) per MSM walks every lane's
+run in a loop. A run longer than ``segment_length`` points (a skewed
+window: the top window of BW6-761's 377-bit scalars holds 3 bits at c = 11,
+and the 2-chain's bit-valued wires pile into digit 1) is cut into segments
+of at most that many points, one lane each, whose sums are folded pairwise
+afterwards, so that no lane's serial chain outgrows the rest. Without a
+split each bucket's points are added in the reference's order, so the
+bucket sums equal the reference's limb for limb; with one the affine result
+is the same point. The ≤128-point scan path and the affine wave are not
+ported: a small MSM takes the same Pippenger path and gives the same
+affine point.
 
 Inputs: an affine point table of rows (``TCurve.table``), an ``(N,)`` bool
 infinity mask (those lanes go to the trash bucket B, as at :540-542), and
@@ -30,7 +38,7 @@ import numpy as np
 import torch
 
 from .cuda import resolve_device
-from .ec_t import _TCurveBase
+from .ec_t import _TCurveBase, resident_lanes
 from .field import ints_to_limbs32, to_lanes, words_for
 
 
@@ -40,6 +48,29 @@ def pick_window(n: int) -> int:
         return 16
     log = max(int(n).bit_length() - 1, 1)
     return max(2, min(16, log // 2 + 4))
+
+
+def segment_length(n: int, c: int, scalar_bits: int, lanes: int) -> int:
+    """The most points one lane of the bucket accumulation adds: the
+    smallest power of two ≥ max(64, ⌈W·n / lanes⌉), with W = ⌈scalar_bits
+    / c⌉ + 1 windows and lanes the card's resident lanes
+    (``ops/ec_t.py`` ``resident_lanes``: 33,792 on an H100).
+
+    The launch adds W·n points with about `lanes` threads at once, so it
+    takes at least W·n / lanes adds in a row however the runs are cut. A
+    run much longer than that sets the launch's time alone (the top window
+    of BW6-761's 377-bit scalars holds 3 bits at c = 11: 8 buckets of about
+    4,500 points); cut at seg, it becomes lanes that run side by side, plus
+    ⌈log₂ segments⌉ fold rounds. Shorter segments would only add folds; the
+    floor of 64 keeps small MSMs unfolded. On an H100 the 2^17 Chain MSMs
+    (c = 16, 17 windows) get 128 at 2^17 points and 256 at 2^18, above
+    their fullest runs on random scalars (BLS12-377's top window reaches
+    only 4,780 of its buckets: about 28 and 55 points a bucket), so they
+    keep the reference's per-bucket order, limb for limb; BW6-761's outer
+    MSMs get 64."""
+    windows = -(-scalar_bits // c) + 1
+    work = -(-windows * n // lanes)
+    return 1 << max(6, (work - 1).bit_length())
 
 
 class MSMKernel:
@@ -133,36 +164,11 @@ class MSMKernel:
         grid = buckets.reshape(buckets.shape[0], buckets.shape[1], W, B)
         return self._weighted_chunked(grid, B)
 
-    # -- phase 2: staged waves ---------------------------------------------------
-    def _wave_accumulate(self, table, order_flat, sign_flat, starts_p,
-                         counts_p, win_of_lane, stage_sizes, n, L):
-        """Bucket sums, (planes, W, L), in count-sorted lane order. Wave t adds
-        sorted point starts[l] + t to every lane l of the stage's prefix that
-        still has points; each stage runs until every lane outside the next
-        prefix is done."""
-        tc = self.tc
-        acc = tc.identity(L, table.device)
-        stops = [stage_sizes[si + 1] for si in range(len(stage_sizes) - 1)] + [0]
-        t_stops = counts_p[torch.tensor(stops, device=counts_p.device)].tolist()
-        t = 0
-        for S, t_stop in zip(stage_sizes, t_stops):
-            starts_s, counts_s = starts_p[:S], counts_p[:S]
-            base = win_of_lane[:S] * n
-            while t < t_stop:
-                flat_idx = base + torch.clamp(starts_s + t, 0, n - 1)
-                tc.add_mixed_masked(
-                    acc, S, table,
-                    order_flat[flat_idx].to(torch.int32),
-                    sign_flat[flat_idx].to(torch.int32),
-                    (counts_s > t).to(torch.int32))
-                t += 1
-        return acc
-
-    # -- the MSM ---------------------------------------------------------------
-    def msm(self, table: torch.Tensor, inf_mask: torch.Tensor,
-            scalars: torch.Tensor, c: int) -> torch.Tensor:
-        """Σ_i s_i·P_i -> (planes, W, 1) projective."""
-        tc = self.tc
+    # -- phase 2: bucket sums -----------------------------------------------
+    def _runs(self, inf_mask: torch.Tensor, scalars: torch.Tensor, c: int):
+        """The (window, bucket) runs of an MSM: (order, sign, starts, counts,
+        W, B) with order and sign the (W·n,) int32 point index and digit sign
+        by flat sorted position, starts and counts (W·B,) int64."""
         dev = scalars.device
         n = scalars.shape[1]
         B = 1 << (c - 1)
@@ -183,28 +189,78 @@ class MSMKernel:
         bvals = torch.arange(B, device=dev).expand(W, B).contiguous()
         starts = torch.searchsorted(sorted_bid, bvals, right=False)
         counts = torch.searchsorted(sorted_bid, bvals, right=True) - starts
+        starts = starts + (torch.arange(W, device=dev) * n)[:, None]
+        return (order.reshape(-1).to(torch.int32), sorted_sign.reshape(-1).to(torch.int32),
+                starts.reshape(-1), counts.reshape(-1), W, B)
 
-        # staged waves over lanes sorted by run length, descending
-        L = W * B
-        counts_f = counts.reshape(L)
-        lane_order = torch.argsort(-counts_f, stable=True)
-        inv_order = torch.argsort(lane_order)
-        counts_p = counts_f[lane_order]
-        starts_p = starts.reshape(L)[lane_order]
-        win_of_lane = (torch.arange(L, device=dev) // B)[lane_order]
+    @staticmethod
+    def _segments(starts: torch.Tensor, counts: torch.Tensor, seg: int):
+        """Runs -> lanes of at most seg points: (start (int64), count
+        (int32)) sorted by count descending, the permutation that puts the
+        lanes back in segment order, and the segments per run (None when no
+        run is longer than seg: then a lane is a run)."""
+        dev = counts.device
+        L = counts.shape[0]
+        nseg = torch.clamp((counts + seg - 1) // seg, min=1)   # empty: 1
+        total = int(nseg.sum().item())
+        if total == L:
+            seg_start, seg_count, nseg = starts, counts, None
+        else:
+            run = torch.repeat_interleave(torch.arange(L, device=dev), nseg)
+            first = torch.cumsum(nseg, 0) - nseg
+            j = torch.arange(total, device=dev) - first[run]
+            seg_start = starts[run] + j * seg
+            seg_count = torch.clamp(counts[run] - j * seg, max=seg)
+        lane_order = torch.argsort(-seg_count, stable=True)
+        return (seg_start[lane_order].contiguous(),
+                seg_count[lane_order].to(torch.int32).contiguous(),
+                torch.argsort(lane_order), nseg)
 
-        stage_sizes = []
-        s = L
-        while s >= 1024 and len(stage_sizes) < 4:
-            stage_sizes.append(s)
-            s //= 4
-        if not stage_sizes:
-            stage_sizes = [L]
+    def _accumulate(self, table, order, sign, starts, counts, seg: int):
+        """Bucket sums, (planes, K, L), of the L = W·B runs: runs longer
+        than seg points cut into segments (the last shorter), one lane
+        each; all lanes through one bucket_accumulate launch; then each
+        run's segment sums folded pairwise in segment order."""
+        start, count, back, nseg = self._segments(starts, counts, seg)
+        acc = self.tc.identity(count.shape[0], table.device)
+        self.tc.bucket_accumulate(acc, table, order, sign, start, count)
+        acc = acc[..., back]                                      # segment order
+        return acc if nseg is None else self._fold_segments(acc, nseg)
 
-        acc = self._wave_accumulate(table, order.reshape(-1),
-                                    sorted_sign.reshape(-1), starts_p, counts_p,
-                                    win_of_lane, stage_sizes, n, L)
-        per_window = self._bucket_reduce(acc[..., inv_order], W, B)  # (pl, K, W)
+    def _fold_segments(self, P: torch.Tensor, nseg: torch.Tensor) -> torch.Tensor:
+        """(planes, K, Σ nseg) segment sums, each bucket's nseg[b] in a row
+        -> (planes, K, len(nseg)) bucket sums: rounds of pairwise adds
+        (segments 2i and 2i + 1 of a bucket), an odd last segment carried,
+        until one sum is left per bucket."""
+        tc = self.tc
+        dev = P.device
+        while int(nseg.max().item()) > 1:
+            half = (nseg + 1) // 2
+            first = torch.cumsum(nseg, 0) - nseg
+            new_first = torch.cumsum(half, 0) - half
+            bucket = torch.repeat_interleave(torch.arange(nseg.shape[0], device=dev), half)
+            j = torch.arange(bucket.shape[0], device=dev) - new_first[bucket]
+            left = first[bucket] + 2 * j
+            pair = torch.nonzero(2 * j + 1 < nseg[bucket]).flatten()
+            out = P[..., left]
+            out[..., pair] = tc.add(P[..., left[pair]], P[..., left[pair] + 1])
+            P, nseg = out, half
+        return P
+
+    # -- the MSM ---------------------------------------------------------------
+    def msm(self, table: torch.Tensor, inf_mask: torch.Tensor,
+            scalars: torch.Tensor, c: int) -> torch.Tensor:
+        """Σ_i s_i·P_i -> (planes, W, 1) projective."""
+        return self._msm(table, inf_mask, scalars, c,
+                         segment_length(scalars.shape[1], c, self.scalar_bits,
+                                        resident_lanes(table.device)))
+
+    def _msm(self, table, inf_mask, scalars, c: int, seg: int) -> torch.Tensor:
+        """msm with lanes of at most seg points (tests split small MSMs)."""
+        tc = self.tc
+        order, sign, starts, counts, W, B = self._runs(inf_mask, scalars, c)
+        buckets = self._accumulate(table, order, sign, starts, counts, seg)
+        per_window = self._bucket_reduce(buckets, W, B)           # (pl, K, W)
 
         # Horner over windows, top-down: acc = acc·2^c + S_w
         res = per_window[..., W - 1:W]

@@ -165,6 +165,24 @@ def test_msm_matches_host(curve, group, n):
     assert msm_host(tc, CURVES[curve].fr, pts, scal, "cpu") == _host(tc, want)
 
 
+def test_skewed_msm_splits_and_matches_host():
+    """BW6-761 G1 at 32 points, scalars mostly 0 and 1 with a few random:
+    runs split into segments of 4 points and folded (the 2-chain's
+    bit-valued wires do this at scale), against the JAX package's host MSM."""
+    tc, _ = _group("bw6_761", "g1")
+    ref_grp = ref_curve("bw6_761").g1
+    r = CURVES["bw6_761"].fr.modulus
+    pts = [ref_grp.scalar_mul(ref_grp.generator, k) for k in rand_ints(620, r, 32, edge=False)]
+    pts[5] = None
+    scal = [v if i % 8 == 0 else i % 3 % 2 for i, v in enumerate(rand_ints(621, r, 32))]
+    kern = MSMKernel(tc, r.bit_length())
+    table = tc.table([p or ref_grp.generator for p in pts], "cpu")
+    inf = torch.tensor([p is None for p in pts])
+    scalars = pf.to_lanes(pf.ints_to_limbs32(scal, 12), "cpu")
+    got = tc.to_affine_host(kern._msm(table, inf, scalars, 3, 4))[0]
+    assert got == host_msm(ref_grp, pts, scal)
+
+
 def test_g2_kernels_take_both_betas():
     """TCurve2 takes u² = −1 and u² = −5 and refuses any other β."""
     F = pf.field_for(CURVES["bls12_377"].fp.modulus)

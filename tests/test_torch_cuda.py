@@ -117,7 +117,43 @@ def test_group_kernels_match_plain(cuda_device, name, group):
 
 @pytest.mark.parametrize("name", NAMES)
 @pytest.mark.parametrize("group", ["g1", "g2"])
-def test_msm_matches_host_oracle(cuda_device, name, group):
+def test_bucket_accumulate_matches_plain(cuda_device, name, group):
+    """One launch over lanes sorted by run length (runs of 0 to 150 points,
+    signed, gathered from a 256-row table) against the reference's wave
+    schedule, limb for limb; accumulators start at the identity and at
+    random points."""
+    P = CURVES[name].fp.modulus
+    tc = _group(CURVES[name], group)
+    F = tc.F
+    L, M = 2048, 256
+    table = torch.stack([F.encode(rand_ints(300 + i, P, M), cuda_device)
+                         for i in range(2 * tc.NP)]).reshape(-1, M).T.contiguous()
+    gen = torch.Generator(device="cpu").manual_seed(310)
+    counts = torch.randint(0, 9, (L,), generator=gen)
+    counts[:4] = torch.tensor([150, 64, 63, 1])
+    counts = torch.sort(counts, descending=True).values
+    starts = torch.cumsum(counts, 0) - counts
+    n = int(counts.sum())
+    order = torch.randint(0, M, (n,), generator=gen, dtype=torch.int32)
+    sign = torch.randint(0, 2, (n,), generator=gen, dtype=torch.int32)
+    acc = tc.identity(L, cuda_device)
+    acc[..., L // 2:] = torch.stack([F.encode(rand_ints(320 + i, P, L // 2), cuda_device)
+                                     for i in range(tc.planes)])
+    args = [t.to(cuda_device) for t in (order, sign, starts, counts.to(torch.int32))]
+    acc_k, acc_p = acc.clone(), acc.clone()
+    tc.bucket_accumulate(acc_k, table, *args)
+    tc.bucket_accumulate_plain(acc_p, table, *args)
+    assert torch.equal(acc_k, acc_p)
+
+
+@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("group", ["g1", "g2"])
+@pytest.mark.parametrize("scalars", ["random", "skewed"])
+def test_msm_matches_host_oracle(cuda_device, name, group, scalars):
+    """300 points, every 7th at infinity. Random scalars lead with 0, 1 and
+    r − 1; skewed ones are mostly 1 and r − 1, so that window 0's digit-1
+    bucket and every window's bucket of r − 1 hold runs longer than the
+    segment length (64 here): the MSM splits them and folds the segments."""
     curve = CURVES[name]
     R = curve.fr.modulus
     grp = curve.g1 if group == "g1" else curve.g2
@@ -130,6 +166,8 @@ def test_msm_matches_host_oracle(cuda_device, name, group):
         pts.append(None if i % 7 == 3 else cur)
         cur = grp.add(cur, step)
     scal = rand_ints(201, R, n)  # leads with 0, 1, r − 1
+    if scalars == "skewed":
+        scal = [s if i % 10 == 0 else (1, 1, 0, R - 1)[i % 4] for i, s in enumerate(scal)]
     want = grp.msm(scal, pts)
     if isinstance(tc, TCurve2) and want is not None:
         want = ((want[0].c0, want[0].c1), (want[1].c0, want[1].c1))

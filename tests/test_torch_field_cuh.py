@@ -8,18 +8,22 @@ operands on stdin and prints results, once per curve (-DCURVE_BN254,
 -DCURVE_BLS12_381, -DCURVE_BLS12_377, -DCURVE_BW6_761). The operands include
 0, 1, p − 1, p − 2, R − 1 and R mod p, where the CIOS top-word carries and the
 final subtraction matter (BLS12-381 r has 255 bits in 8 words). Results must
-be equal and canonical. The fields are 8 words (BN254, the BLS12 r), 12
+be equal and canonical (the lazy arithmetic of the mixed add: below 2p
+with the right residue, canonical once stored). The fields are 8 words (BN254, the BLS12 r), 12
 (BLS12-381 and BLS12-377 p, BW6-761 r) and 24 (BW6-761 p); BLS12-377's Fp2
 has u² = −5, and BW6-761's G2 lies over Fp, so it runs the G1 law with G2's b.
 """
 
+import os
 import random
+import re
 import shutil
 import subprocess
 
 import pytest
 
 from gnark_icicle_tpu_torch.ops.cuda import CSRC
+from gnark_icicle_tpu_torch.ops.ec_t import MIXED_MIN_BLOCKS, MIXED_THREADS
 from gnark_icicle_tpu_torch.ops.field import words_for
 
 from test_torch_common import CURVES, g2_over_fp2, ref_curve
@@ -54,6 +58,10 @@ template <class P> void field_ops() {
     if (op == "mul") wr(fmul(a, b));
     else if (op == "add") wr(fadd(a, b));
     else if (op == "sub") wr(fsub(a, b));
+    else if (op == "lmul") wr(lmul(a, b));
+    else if (op == "ladd") wr(ladd(a, b));
+    else if (op == "lsub") wr(lsub(a, b));
+    else if (op == "canon") wr(lcanon(a));
     else wr(fneg(a));
     printf("\n");
   }
@@ -63,20 +71,38 @@ template <class P> void f2_ops() {
   std::string op;
   while (std::cin >> op && op != "end") {
     Elt2<P> a = rd2<P>(), b = rd2<P>();
-    wr2(fmul(a, b));
+    wr2(op == "lmul" ? lmul(a, b) : fmul(a, b));
     printf("\n");
   }
 }
 
-template <class E, class RD, class WR> void group_ops(RD rd, WR wr) {
+// "b3 <b3 row> <x>": the b3 form B3 of this build applied to x (lazy, then canonical)
+template <class E, class B3, class RD, class WR> void b3_ops(RD rd, WR wr) {
+  std::string op;
+  while (std::cin >> op && op != "end") {
+    E row = rd(), x = rd();
+    const B3 b3(reinterpret_cast<const uint32_t*>(&row));
+    wr(lcanon(b3(x)));
+    printf("\n");
+  }
+}
+
+template <class E, class B3, class RD, class WR> void group_ops(RD rd, WR wr) {
   std::string op;
   while (std::cin >> op && op != "end") {
     E b3 = rd();
     E X1 = rd(), Y1 = rd(), Z1 = rd(), X2 = rd(), Y2 = rd(), Z2 = rd();
     E X3, Y3, Z3;
-    if (op == "mixed") ec_add_mixed(X1, Y1, Z1, X2, Y2, b3, X3, Y3, Z3);
-    else if (op == "add") ec_add(X1, Y1, Z1, X2, Y2, Z2, b3, X3, Y3, Z3);
-    else ec_double(X1, Y1, Z1, b3, X3, Y3, Z3);
+    if (op == "mixed") {  // the lazy mixed add of the MSM kernels, with this build's b3 form
+      RegAcc<E> acc{X1, Y1, Z1};
+      const RegPoint<E> q{X2, Y2};
+      ec_add_mixed_lazy<E>(acc, q, B3(reinterpret_cast<const uint32_t*>(&b3)), [] {});
+      X3 = lcanon(acc.X); Y3 = lcanon(acc.Y); Z3 = lcanon(acc.Z);
+    } else if (op == "add") {
+      ec_add(X1, Y1, Z1, X2, Y2, Z2, b3, X3, Y3, Z3);
+    } else {
+      ec_double(X1, Y1, Z1, b3, X3, Y3, Z3);
+    }
     wr(X3); wr(Y3); wr(Z3); printf("\n");
   }
 }
@@ -86,10 +112,15 @@ int main() {
   while (std::cin >> which) {
     if (which == "fp") field_ops<CurveFp>();
     else if (which == "fr") field_ops<CurveFr>();
-    else if (which == "g1") group_ops<Elt<CurveFp>>(rd<CurveFp>, wr<CurveFp>);
-#if !defined(CURVE_BW6_761)  // BW6-761 has no Fp2
+    else if (which == "g1") group_ops<Elt<CurveFp>, G1B3>(rd<CurveFp>, wr<CurveFp>);
+    else if (which == "b3g1") b3_ops<Elt<CurveFp>, G1B3>(rd<CurveFp>, wr<CurveFp>);
+#if defined(CURVE_BW6_761)  // BW6-761 has no Fp2; its G2 over Fp runs the g1 law
+    else if (which == "g2") group_ops<Elt<CurveFp>, TwistB3>(rd<CurveFp>, wr<CurveFp>);
+    else if (which == "b3g2") b3_ops<Elt<CurveFp>, TwistB3>(rd<CurveFp>, wr<CurveFp>);
+#else
     else if (which == "f2") f2_ops<CurveFp>();
-    else group_ops<Elt2<CurveFp>>(rd2<CurveFp>, wr2<CurveFp>);
+    else if (which == "g2") group_ops<Elt2<CurveFp>, G2B3>(rd2<CurveFp>, wr2<CurveFp>);
+    else if (which == "b3g2") b3_ops<Elt2<CurveFp>, G2B3>(rd2<CurveFp>, wr2<CurveFp>);
 #endif
     fflush(stdout);
   }
@@ -159,8 +190,9 @@ def test_field_arithmetic_matches_python_ints(host_build, name, fld):
 def test_group_law_matches_host_curve(host_build, name, group):
     """Projective RCB add, mixed add and double against the affine group law
     of gnark_icicle_tpu.curves, on points with a random Z; every output word
-    canonical.
-    BW6-761's G2 (over Fp) runs the G1 law with G2's b."""
+    canonical. The mixed add is the kernels' lazy one with the build's b3
+    form (an add chain, c·u or the row product).
+    BW6-761's G2 (over Fp) runs the G1 law with G2's b3 form (12)."""
     curve = ref_curve(name)  # the JAX package's host curve
     p = curve.fp.modulus
     n = words_for(p)
@@ -177,7 +209,7 @@ def test_group_law_matches_host_curve(host_build, name, group):
     b3 = G.b * 3 if fp2 else 3 * G.b % p
     one = F2(curve.tower, 1, 0) if fp2 else 1
     rng = random.Random(9)
-    lines, want = ["g2" if fp2 else "g1"], []
+    lines, want = [group], []
     for k in range(8):
         P1 = G.scalar_mul(G.generator, rng.randrange(1, curve.fr.modulus))
         P2 = P1 if k % 4 == 0 else G.scalar_mul(G.generator, rng.randrange(1, curve.fr.modulus))
@@ -208,7 +240,8 @@ def test_group_law_matches_host_curve(host_build, name, group):
 def test_fp2_product_matches_host_tower(host_build, name):
     """The Fp2 Karatsuba product against the host tower's, u² = β: −1 for
     BN254 and BLS12-381, −5 for BLS12-377, whose c0 = m0 − 5·m1 is formed by
-    an add chain; operands at p − 1 and near R."""
+    an add chain; operands at p − 1 and near R. Both the canonical product
+    and the lazy one of the mixed add (below 2p, same residue)."""
     curve = ref_curve(name)  # the JAX package's host tower
     p = curve.fp.modulus
     n = words_for(p)
@@ -221,13 +254,14 @@ def test_fp2_product_matches_host_tower(host_build, name):
     lines, want = ["f2"], []
     for x in vals:
         y = vals[rng.randrange(len(vals))]
-        lines.append("mul " + " ".join(_words(c * R % p, n) for c in x + y))
-        want.append(F2(curve.tower, *x) * F2(curve.tower, *y))
+        for op in ("mul", "lmul"):
+            lines.append(f"{op} " + " ".join(_words(c * R % p, n) for c in x + y))
+            want.append((op, F2(curve.tower, *x) * F2(curve.tower, *y)))
     lines.append("end")
     rinv = pow(R, -1, p)
-    for line, w in zip(_run(host_build[name], lines), want, strict=True):
+    for line, (op, w) in zip(_run(host_build[name], lines), want, strict=True):
         c0, c1 = _ints(line, n)
-        assert c0 < p and c1 < p
+        assert c0 < (p if op == "mul" else 2 * p) and c1 < (p if op == "mul" else 2 * p)
         assert (c0 * rinv % p, c1 * rinv % p) == (w.c0, w.c1)
 
 
@@ -235,7 +269,87 @@ def test_fp2_product_matches_host_tower(host_build, name):
 def test_cios_bound_holds(name):
     """2p < R = 2^(32N) for both fields of every curve: the CIOS product's
     running value stays below 2p and fits N words plus one carry word that
-    ends at 0, which the kernels' final conditional subtraction assumes."""
+    ends at 0, which the kernels' final conditional subtraction assumes.
+    For the base field 4p < R too: the mixed add's lazy values stay in
+    [0, 2p), a lazy product of two of them is below 4p²/R + p < 2p, and a
+    lazy sum below 4p fits N words (BLS12-381's 255-bit r in 8 words has no
+    such room, and no lazy arithmetic)."""
     for q in (CURVES[name].fp.modulus, CURVES[name].fr.modulus):
         n = words_for(q)
         assert 2 * q < 1 << (32 * n) and q >= 1 << (32 * (n - 1))
+    p = CURVES[name].fp.modulus
+    assert 4 * p < 1 << (32 * words_for(p))
+
+
+@pytest.mark.parametrize("name", sorted(CURVES))
+def test_lazy_arithmetic_stays_below_2p(host_build, name):
+    """The mixed add's lazy product (the PTX carry-chain CIOS, here its C++
+    twin), sum and difference on operands anywhere in [0, 2p), edges 0, p − 1,
+    p, p + 1, 2p − 1 and near R included: results below 2p with the right
+    residue, and the canonicalisation before a store gives x mod p."""
+    q = CURVES[name].fp.modulus
+    n = words_for(q)
+    R = 1 << (32 * n)
+    rng = random.Random(17)
+    vals = [0, 1, q - 1, q, q + 1, 2 * q - 1, 2 * q - 2, (R - 1) % q, (R - 1) % q + q]
+    vals += [rng.randrange(2 * q) for _ in range(60)]
+    rinv = pow(R, -1, q)
+    lines, want = ["fp"], []
+    for a in vals:
+        for op in ("lmul", "ladd", "lsub", "canon"):
+            b = rng.choice(vals)
+            lines.append(f"{op} {_words(a, n)} {_words(b, n)}")
+            want.append((op, {"lmul": a * b * rinv, "ladd": a + b, "lsub": a - b,
+                              "canon": a}[op] % q))
+    lines.append("end")
+    for line, (op, w) in zip(_run(host_build[name], lines), want, strict=True):
+        got = _ints(line, n)[0]
+        assert got < (q if op == "canon" else 2 * q) and got % q == w, op
+
+
+@pytest.mark.parametrize("name", sorted(CURVES))
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_b3_forms_match_python_ints(host_build, name, group):
+    """Each build's b3 form against b3·x: the add chains of G1 (9, 12, 3, −3)
+    and of BW6-761's G2 over Fp (12), BLS12-381's 12(1 + u), BLS12-377's
+    c·u (two base products) and BN254's general row product over Fp2."""
+    curve = ref_curve(name)
+    p = curve.fp.modulus
+    n = words_for(p)
+    R = 1 << (32 * n)
+    G = curve.g1 if group == "g1" else curve.g2
+    fp2 = group == "g2" and g2_over_fp2(curve)
+    F2 = type(curve.g2.generator[0])
+    b3 = G.b * 3 if fp2 else 3 * G.b % p
+    rng = random.Random(19)
+    edge = [0, 1, p - 1, (R - 1) % p]
+    xs = ([F2(curve.tower, a, b) for a in edge for b in edge] if fp2 else edge)
+    xs += [F2(curve.tower, rng.randrange(p), rng.randrange(p)) if fp2 else rng.randrange(p)
+           for _ in range(30)]
+
+    def enc(c):
+        if fp2:
+            return _words(c.c0 * R % p, n) + " " + _words(c.c1 * R % p, n)
+        return _words(c * R % p, n)
+
+    lines = ["b3" + group] + [f"b3 {enc(b3)} {enc(x)}" for x in xs] + ["end"]
+    rinv = pow(R, -1, p)
+    for line, x in zip(_run(host_build[name], lines), xs, strict=True):
+        words = _ints(line, n)
+        assert all(v < p for v in words)
+        if fp2:
+            assert F2(curve.tower, *(v * rinv % p for v in words)) == b3 * x
+        else:
+            assert words[0] * rinv % p == b3 * x % p
+
+
+def test_mixed_kernel_launch_matches_resident_lanes():
+    """ops/ec_t.py counts k_mixed_accumulate's resident lanes from its launch
+    (threads a block, the blocks an SM that its shared memory and at most
+    255 registers a thread allow); the numbers are the header's."""
+    src = open(os.path.join(CSRC, "field.cuh")).read()
+    stage = src[src.index("struct Stage {"):]
+    assert int(re.search(r"int T = (\d+);", stage).group(1)) == MIXED_THREADS
+    assert int(re.search(r"int MIN_BLOCKS = (\d+);", stage).group(1)) == MIXED_MIN_BLOCKS
+    assert "__launch_bounds__(Stage<E>::T)" in src
+    assert "static_assert(MIN_BLOCKS * (bytes() + 1024) <= 228 * 1024" in stage
