@@ -9,16 +9,22 @@ at 12, G2 over Fp), phases print one JSON line each on stdout:
   1. build: compile every (CUDA source, curve) pair in
      gnark_icicle_tpu_torch/csrc/ (BW6-761 builds no g2.cu), all nvcc
      processes at once, and report each one's seconds and ptxas's registers
-     and spills;
+     and spills; phase 4's Chain circuits are compiled (host Python) while
+     nvcc runs;
   2. kernels: each kernel entry against its plain PyTorch version on the
      card, bit-equal (Fr product, subtraction and NTT stage at 2^16 lanes;
      G1 and G2 masked signed mixed add, add and double at 2^14 lanes, with
      operands at 0, 1, p - 1, p - 2 and near R; the bucket accumulation on
      the lanes of a skewed 2^12-point MSM, whose long runs are split, the
-     folded segments held to the unsplit runs in affine form), then again
-     at the shapes its curve's path gives it (the 2^17 Chain prove; for
-     BW6-761 the outer proof of the 2-chain), with CUDA-event times of both
-     there and the least time the card could take (bound_ms); the mixed
+     folded segments held to the unsplit runs in affine form; the bucket
+     reduction's running sums and combine and Horner with edge
+     coordinates, identity buckets and a window with one bucket used), then
+     again at the shapes its curve's path gives it (the 2^17 Chain prove,
+     the reduction at W = 17, B = 2^15; for BW6-761 the outer proof of the
+     2-chain, W = 33, B = 2^11 and W = 36, B = 2^10), with CUDA-event times
+     of both there and the least time the card could take (bound_ms), and
+     Horner's time per double; *_add is timed at the fold's
+     width and *_double at one lane; the mixed
      adds are also timed at setup's fixed-base ladder widths (one table row,
      mask = a bit) and with the mask a prefix of the lanes, as the
      reference's waves run. BW6-761's G2 runs its G1 entries with G2's b3
@@ -33,13 +39,16 @@ at 12, G2 over Fp), phases print one JSON line each on stdout:
      computeH / MSM phase times, one prove under torch.profiler (device busy
      share, device time by kernel); the port's verifier accepts the proof
      and rejects a tampered public input. The kernels' launch counts are set
-     to 0 just before setup and read just after the last prove, and every
-     kernel of the curve must have run;
+     to 0 just before setup and read just after the last prove: every entry
+     of the curve ran but *_double (no caller on the path) and *_add (the
+     fold of split buckets, which the Chain has not),
+     and each MSM took at most three reduction and Horner launches;
   2chain: the BW6-761 outer proof that phase 4's BLS12-377 proof verifies
      (gnark's native 2-chain): the in-circuit Groth16 verifier of std/
      compiled over BW6-761's r (BLS12-377's p), then setup, a first prove,
      two timed proves and a profiled one on the card, verify, and the inner
-     public input + 1 rejected; launch counts as in phase 4;
+     public input + 1 rejected; launch counts as in phase 4, *_add included
+     (its MSMs split the top windows' buckets);
   5. the JSON line of all kernels (the counts of their own curve's path);
   6. the card's name and power limit from nvidia-smi.
 The last line is {"ok": true, "device": {...}}. Any failure raises: the
@@ -55,6 +64,7 @@ import os
 import random
 import subprocess
 import sys
+import threading
 import time
 
 CURVE_NAMES = ("bn254", "bls12_381", "bls12_377", "bw6_761")
@@ -73,33 +83,36 @@ def _path_shapes(log_n: int, msm_points: int, table_rows: int, fr_bits: int,
                  ladder: dict, g2_msm: int) -> dict:
     """The kernel shapes of a Groth16 prove on a 2^log_n domain: the largest
     MSM (the h·Z one, msm_points scalars, pick_window's c) sets the first wave
-    stage (windows·2^(c-1) lanes) and the bucket reduction's widths; the G2
-    MSM (B2 over the wires, g2_msm points and rows) the G2 bucket
-    accumulation's."""
+    stage (windows·2^(c-1) lanes); the G2 MSM (B2 over the wires, g2_msm
+    points and rows) the G2 bucket accumulation's; each window size c of the
+    path's MSMs (the largest one's and the wires') a bucket reduction and
+    Horner of W = ⌈bits / c⌉ + 1 windows of B = 2^(c-1) buckets."""
     from gnark_icicle_tpu_torch.ops.msm import pick_window
 
     c = pick_window(msm_points)
     windows = -(-fr_bits // c) + 1
     B = 1 << (c - 1)
-    V = 2048 if B > 2048 else 1 << -(-(B.bit_length() - 1) // 2)
+    cs = sorted({c, pick_window(g2_msm)}, reverse=True)
     return {"fr": 1 << log_n,                  # computeH pointwise, Montgomery
             "ntt": (1 << log_n, 1 << (log_n - 6)),  # (n, m) of one radix-2 stage
             "points": table_rows,              # MSM point table rows
             "msm": {"g1": msm_points, "g2": g2_msm},  # the bucket accumulation's MSMs
             "wave": windows * B,               # one wave of the reference
-            "reduce": windows * V,             # chunked bucket reduction
-            "double": windows,                 # the reduction's doublings
+            # (W, B, c) of the bucket reduction and Horner
+            "reduce": [(-(-fr_bits // k) + 1, 1 << (k - 1), k) for k in cs],
             "ladder": ladder}                  # setup's fixed-base ladders
 
 
 def slice_shapes(name: str) -> dict:
     """The kernel shapes of a curve's main path: the 2^17 Chain (2^18
-    domain, c = 16: 17 windows, 557,056 wave lanes) for the first three
-    curves; for BW6-761 the 2-chain's outer proof (35,871 constraints,
-    35,856 wires, a 2^16 domain; the h·Z MSM of 65,536 points at c = 12: 33
-    windows, 67,584 wave lanes; setup's G1 ladder over 3·35,856 − 2 + 65,535
-    scalars, its G2 ladder over 35,856). The G2 MSM is B2 over the wires:
-    131,512 points on the Chain, 35,856 on BW6-761."""
+    domain, c = 16: 17 windows, 557,056 wave lanes; the reduction at W = 17,
+    B = 2^15) for the first three curves; for BW6-761 the 2-chain's outer
+    proof (35,871 constraints, 35,856 wires, a 2^16 domain; the h·Z MSM of
+    65,536 points at c = 12: 33 windows, 67,584 wave lanes, the reduction at
+    W = 33, B = 2^11; the wires' MSMs at c = 11: W = 36, B = 2^10; setup's
+    G1 ladder over 3·35,856 − 2 + 65,535 scalars, its G2 ladder over
+    35,856). The G2 MSM is B2 over the wires: 131,512 points on the Chain,
+    35,856 on BW6-761."""
     if name == "bw6_761":
         return _path_shapes(16, 1 << 16, 35856, 377,
                             {"g1": 3 * 35856 - 2 + 65535, "g2": 35856}, 35856)
@@ -116,6 +129,28 @@ IMAD_PER_SM_CLOCK = 64
 # (Renes-Costello-Batina 2016: mixed add 11, add 12, double 8); an Fp2
 # product is 3 base products (Karatsuba)
 PRODUCTS = {"add_mixed_masked": 11, "add": 12, "double": 8}
+
+
+def combine_counts(V: int, M: int) -> tuple:
+    """(adds, doubles) of one window of the combine (csrc/field.cuh
+    k_reduce, reduce_combine_stage): ct = min(V, COMBINE_THREADS) threads
+    of r = V / ct chunks, their serial runs (T, G, A), the suffix scan of T
+    over the threads, each thread's Y = A + M·(G + r·U) (no U for thread 0,
+    no G when r = 1) and the tree over the Y."""
+    from gnark_icicle_tpu_torch.ops.ec_t import COMBINE_THREADS
+
+    ct = min(V, COMBINE_THREADS)
+    r = V // ct
+    log_r, log_m = r.bit_length() - 1, M.bit_length() - 1
+    adds, doubles = ct * (2 * (r - 1) + max(r - 2, 0)), 0
+    h = 1
+    while h < ct:
+        adds += ct - h
+        h *= 2
+    doubles += (ct - 1) * log_r
+    adds += (ct - 1) if r > 1 else 0
+    with_g = ct if r > 1 else ct - 1
+    return adds + with_g + ct - 1, doubles + with_g * log_m
 N_SKEW = 1 << 12    # points of the skewed MSM of the bucket accumulation check
 
 
@@ -176,10 +211,11 @@ def _bound(rates: dict, nbytes: float, products: float, words: int) -> tuple:
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def phase_build() -> None:
+def phase_build(seconds: float) -> None:
+    """Report the build (`seconds`: its wall time) and load the libraries."""
     from gnark_icicle_tpu_torch.ops import cuda as kc
 
-    seconds = kc.load_all()
+    kc.load_all()
     regs, each = {}, {}
     out_dir = os.path.join(kc.BUILD_ROOT, kc._source_hash())
     for src, curve in kc.libraries():
@@ -224,7 +260,9 @@ def phase_kernels(device, name: str, rates: dict) -> list:
     from gnark_icicle_tpu_torch.ops.ec_t import TCurve, TCurve2, resident_lanes
     from gnark_icicle_tpu_torch.ops.field import field_for, ints_to_limbs32, to_lanes
     from gnark_icicle_tpu_torch.ops.field_t import TField
-    from gnark_icicle_tpu_torch.ops.msm import MSMKernel, pick_window, segment_length
+    from gnark_icicle_tpu_torch.ops.msm import (
+        MSMKernel, pick_window, reduce_chunks, segment_length,
+    )
     from gnark_icicle_tpu_torch.ops.ntt import ntt_stage, ntt_stage_plain
 
     curve = _curves()[name]
@@ -237,25 +275,41 @@ def phase_kernels(device, name: str, rates: dict) -> list:
     shapes = slice_shapes(name)
 
     def record(kname, check_err, shape, args, run, run_plain, nbytes, products,
-               words, **extra):
+               words, plain_once=False, **extra):
         """args: inputs at the main path's shape; run/run_plain(*args) return
         the result (an in-place kernel returns its updated input). Both run
-        once on copies of args and must agree; then each is timed on args."""
+        once on copies of args and must agree; then each is timed on args
+        (plain_once: the plain version's time is that one run's, for the
+        long loops of 1-lane steps). A second shape of the same entry goes
+        into its row's other_shapes. Returns the row."""
         def fresh():
             return [a.clone() for a in args]
 
-        err = max(check_err, _max_abs_err(run(*fresh()), run_plain(*fresh())))
+        t_plain = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        want = fresh()
+        t_plain[0].record()
+        want = run_plain(*want)
+        t_plain[1].record()
+        torch.cuda.synchronize()
+        plain_ms = t_plain[0].elapsed_time(t_plain[1]) if plain_once else None
+        err = max(check_err, _max_abs_err(run(*fresh()), want))
         if err != 0:
             raise AssertionError(f"{prefix}{kname}: kernel differs from its plain version")
         k = kc.KERNELS[prefix + kname]
         bound_ms, bound_by = _bound(rates, nbytes, products, words)
+        row = {"shape": shape, "max_abs_err": err,
+               "ms": _cuda_ms(lambda: run(*args), REPS_KERNEL),
+               "plain_ms": (plain_ms if plain_ms is not None
+                            else _cuda_ms(lambda: run_plain(*args), 2)),
+               "bound_ms": bound_ms, "bound_by": bound_by, **extra}
+        first = next((r for r in results if r["name"] == k.name), None)
+        if first is not None:
+            first["max_abs_err"] = max(first["max_abs_err"], err)
+            first.setdefault("other_shapes", []).append(row)
+            return row
         results.append({"name": k.name, "route": "cuda", "source": k.source,
-                        "replaces": k.replaces, "curve": name, "max_abs_err": err,
-                        "shape": shape,
-                        "ms": _cuda_ms(lambda: run(*args), REPS_KERNEL),
-                        "plain_ms": _cuda_ms(lambda: run_plain(*args), 2),
-                        "bound_ms": bound_ms, "bound_by": bound_by,
-                        "library_ms": None, **extra})
+                        "replaces": k.replaces, "curve": name, **row, "library_ms": None})
+        return results[-1]
 
     # Fr: field elements at N_FR lanes, then the computeH width
     n = N_FR
@@ -383,6 +437,88 @@ def phase_kernels(device, name: str, rates: dict) -> list:
             vals = [rng.randrange(R) if i % 8 == 0 else rng.choice((0, 1, 1)) for i in range(n_)]
             return to_lanes(ints_to_limbs32(vals, fr.n32), device)
 
+        def reduction_check() -> int:
+            """The running sums, the combine and Horner against their
+            plain versions at the check sizes: coordinates at 0, 1,
+            p − 1, p − 2 and near R, identity buckets (every 5th and the
+            first 16), a window with one bucket used; (M, V) = (16, 1), (8,
+            8) and (1, 512: four chunks a combine thread); Horner at W = 5
+            (one window sum the identity) and W = 1, c = 4."""
+            errs = []
+            edge = fp.encode(_rand_fe(rng, P, 32), device)
+            for W_, B_, V in ((3, 16, 1), (3, 64, 8), (2, 512, 512)):
+                S = rand_points(W_ * B_)
+                S[:, :, 16:48] = edge
+                S[..., ::5] = tc.identity(S[..., ::5].shape[2], device)
+                S[..., B_:2 * B_] = tc.identity(B_, device)
+                S[..., B_ + 3] = rand_points(17)[..., 16]
+                M = B_ // V
+                T = A = S
+                if M > 1:
+                    TA = tc.reduce_runs(S, M)
+                    errs.append(_max_abs_err(TA, tc.reduce_runs_plain(S, M)))
+                    T, A = TA[:tc.planes], TA[tc.planes:]
+                want = tc.reduce_combine_plain(T, A, W_, V, M)
+                errs += [_max_abs_err(tc.reduce_combine(T, A, W_, V, M), want),
+                         _max_abs_err(tc.bucket_reduce(S, W_, V), want)]
+            for W_ in (5, 1):
+                S = _rand_dev(fp, tc.planes, W_, device)
+                S[..., W_ // 2:W_ // 2 + 1] = tc.identity(1, device)
+                want = tc.horner_plain(S, 4)
+                errs.append(_max_abs_err(tc.horner(S, 4), want))
+            return max(errs)
+
+        def reduction_path(check_err: int, timed: bool) -> None:
+            """The reduction and Horner at each (W, B, c) of the path's
+            MSMs, V from reduce_chunks: kernels against plain versions on
+            random coordinates (every 97th bucket the identity); timed with
+            the bound where timed, else checked only."""
+            pt = 3 * coord                  # bytes of one projective point
+            for W_, B_, c_ in shapes["reduce"]:
+                V = reduce_chunks(W_, B_, resident_lanes(device))
+                M = B_ // V
+                S = rand_points(W_ * B_)
+                S[..., ::97] = tc.identity(S[..., ::97].shape[2], device)
+                info = f"W={W_}, B={B_}, V={V}, M={M}"
+                if M > 1:
+                    adds = W_ * V * 2 * (M - 1)
+                    if timed:
+                        record(f"{tag}_bucket_reduce", check_err, info, [S],
+                               lambda S: tc.reduce_runs(S, M),
+                               lambda S: tc.reduce_runs_plain(S, M),
+                               W_ * B_ * pt + 2 * W_ * V * pt,
+                               adds * PRODUCTS["add"] * per_product, fp.n32,
+                               plain_once=True, adds=adds)
+                    elif _max_abs_err(tc.reduce_runs(S, M), tc.reduce_runs_plain(S, M)):
+                        raise AssertionError(f"{prefix}{tag}_bucket_reduce differs ({info})")
+                    TA = tc.reduce_runs(S, M)
+                    T, A = TA[:tc.planes], TA[tc.planes:]
+                else:
+                    T = A = S
+                ca, cd = combine_counts(V, M)
+                combine = (lambda T, A: tc.reduce_combine(T, A, W_, V, M),
+                           lambda T, A: tc.reduce_combine_plain(T, A, W_, V, M))
+                if timed:
+                    record(f"{tag}_reduce_combine", check_err, info, [T, A], *combine,
+                           (2 if M > 1 else 1) * W_ * V * pt + W_ * pt,
+                           W_ * (ca * PRODUCTS["add"] + cd * PRODUCTS["double"]) * per_product,
+                           fp.n32, plain_once=True, adds=W_ * ca, doubles=W_ * cd)
+                elif _max_abs_err(combine[0](T, A), combine[1](T, A)):
+                    raise AssertionError(f"{prefix}{tag}_reduce_combine differs ({info})")
+                Sw = tc.reduce_combine(T, A, W_, V, M)
+                rounds = c_ * (W_ - 1)
+                h_products = ((W_ - 1) * PRODUCTS["add"] + rounds * PRODUCTS["double"]) * per_product
+                run = (lambda S: tc.horner(S, c_))
+                if not timed:
+                    if _max_abs_err(run(Sw), tc.horner_plain(Sw, c_)):
+                        raise AssertionError(f"{prefix}{tag}_horner differs ({info})")
+                    continue
+                row = record(f"{tag}_horner", check_err, f"W={W_}, c={c_}", [Sw],
+                             run, lambda S: tc.horner_plain(S, c_), (W_ + 1) * pt,
+                             h_products, fp.n32, plain_once=True, doubles=rounds,
+                             adds=W_ - 1)
+                row["per_double_us"] = row["ms"] * 1e3 / max(rounds, 1)
+
         # curve points: the fold regroups the sum, which only the group law
         # on the curve leaves unchanged
         group = curve.g1 if tag == "g1" else curve.g2
@@ -406,6 +542,8 @@ def phase_kernels(device, name: str, rates: dict) -> list:
             errs.append(_max_abs_err(wave(tc.add_mixed_masked, lanes)(acc.clone(), *w_ladder),
                                      wave(tc.add_mixed_masked_plain, lanes)(acc.clone(), *w_ladder)))
             errs.append(skew_err)
+            errs.append(reduction_check())
+            reduction_path(0, timed=False)
             if max(errs) != 0:
                 raise AssertionError(f"{prefix}g1_* with G2's b3 differ from the plain version")
             _say("kernel_check", curve=name, group="g2 over Fp (g1 entries, G2's b3)",
@@ -470,13 +608,21 @@ def phase_kernels(device, name: str, rates: dict) -> list:
                adds * PRODUCTS["add_mixed_masked"] * per_product, fp.n32,
                longest=int(count[0].item()), segment=lanes_msm[8],
                split_runs=0 if lanes_msm[5] is None else int((lanes_msm[5] > 1).sum().item()))
-        for op, width in (("add", shapes["reduce"]), ("double", shapes["double"])):
+        # add: the fold's first round on this MSM (a pair of segments of a
+        # split run a lane), one lane where no run is split; double: one
+        # lane, Horner's shape, which now runs in *_horner
+        nseg = lanes_msm[5]
+        fold = 0 if nseg is None else int((nseg // 2).sum().item())
+        for op, width, role in (("add", max(fold, 1), "the fold's first round" if fold
+                                 else "off this path (no run split)"),
+                                ("double", 1, "Horner's shape, off the path")):
             args = [P_, Q_] if op == "add" else [P_]
             record(f"{tag}_{op}", _max_abs_err(getattr(tc, op)(*args), plain(op)(*args)),
-                   f"{width} lanes", [rand_points(width) for _ in args],
+                   f"{width} lanes: {role}", [rand_points(width) for _ in args],
                    getattr(tc, op), plain(op),
                    (len(args) + 1) * 3 * coord * width,
                    width * PRODUCTS[op] * per_product, fp.n32)
+        reduction_path(reduction_check(), timed=True)
     torch.cuda.synchronize()
     for r in results:
         _say("kernel", **r)
@@ -569,13 +715,14 @@ def _profiled(run) -> dict:
             "top": [{"kernel": k, "device_ms": ms, "launches": c} for k, (ms, c) in top]}
 
 
-def _prove_path(device, name: str, cs, pub, sec, bad_pub, phase: str,
+def _prove_path(device, name: str, cs, pub, sec, bad_pub, phase: str, split: bool,
                 **report) -> tuple:
     """Setup, a first prove, two timed proves and one under torch.profiler
     for one compiled circuit on one curve, then verify and a tampered public
     input. The curve's launch counts are set to 0 just before setup and read
-    just after the last prove; every kernel of the curve must have run.
-    Returns (launches, vk, proof)."""
+    just after the last prove, and must be the path's expected ones
+    (_check_launches; split: the path's MSMs split buckets). Returns
+    (launches, vk, proof)."""
     import torch
 
     from gnark_icicle_tpu_torch.backend import groth16
@@ -634,16 +781,41 @@ def _prove_path(device, name: str, cs, pub, sec, bad_pub, phase: str,
          setup_split=setup_split, first_prove_s=t_first, proves=timed,
          profiled_prove=profiled, peak_device_bytes=peak, verify_s=t_verify,
          verified=True, tampered_rejected=True)
-    missing = [k for k, c in launches.items() if c <= 0]
-    if missing:
-        raise AssertionError(f"kernels the {name} path never launched: {missing}")
+    _check_launches(name, launches, split)
     _say("launches", curve=curve.name, **launches)
     return launches, vk, proof
 
 
-def phase_groth16(device, name: str) -> tuple:
-    """The 2^17-step Chain on one curve: compile, then _prove_path.
-    Returns (launches, vk, proof, public inputs)."""
+def _check_launches(name: str, launches: dict, split: bool) -> None:
+    """Each path's expected kernels: every entry of the curve ran but
+    *_double (no caller) and *_add, which runs only where the path splits
+    buckets (the fold); per MSM (one
+    *_bucket_accumulate each) one combine, one Horner and at most one
+    running-sums launch, so at most three."""
+    from gnark_icicle_tpu_torch.ops import cuda as kc
+
+    def off(entry: str) -> bool:
+        return entry == "double" or (entry == "add" and not split)
+
+    bad = []
+    for g in ("g1", "g2"):
+        stem = f"{kc.CURVES[name]}{g}_"
+        mine = {k[len(stem):]: c for k, c in launches.items() if k.startswith(stem)}
+        if not mine:
+            continue
+        bad += [stem + e for e, c in mine.items() if (c == 0) != off(e)]
+        msms = mine["bucket_accumulate"]
+        if not (mine["reduce_combine"] == mine["horner"] == msms
+                and mine["bucket_reduce"] <= msms):
+            bad.append(f"{stem}reduction: {mine['bucket_reduce']} + {mine['reduce_combine']} "
+                       f"+ {mine['horner']} launches for {msms} MSMs")
+    if bad:
+        raise AssertionError(f"the {name} path's launches are not the expected ones: {bad}")
+
+
+def chain_circuit(name: str) -> tuple:
+    """The 2^17-step Chain compiled for one curve: (cs, compile seconds,
+    public output)."""
     from gnark_icicle_tpu_torch.frontend import Circuit, Public, Secret, compile_circuit
 
     q = _curves()[name].fr.modulus
@@ -665,8 +837,16 @@ def phase_groth16(device, name: str) -> tuple:
     v = 3
     for i in range(steps):
         v = (v * v + v + i) % q
+    return cs, t_compile, v
+
+
+def phase_groth16(device, name: str, compiled: tuple) -> tuple:
+    """_prove_path on one curve's compiled Chain (chain_circuit). Returns
+    (launches, vk, proof, public inputs)."""
+    cs, t_compile, v = compiled
+    q = _curves()[name].fr.modulus
     launches, vk, proof = _prove_path(device, name, cs, [v], [3], [(v + 1) % q],
-                                      "groth16", compile_s=t_compile)
+                                      "groth16", False, compile_s=t_compile)
     return launches, vk, proof, [v]
 
 
@@ -701,7 +881,7 @@ def phase_2chain(device, inner_vk, inner_proof, inner_pub) -> dict:
                      pr.bs[1].c1, pr.krs[0], pr.krs[1]])
     opub, osec = w.witness_values(bls12_377.P)
     bad = [(inner_pub[0] + 1) % bls12_377.R]
-    launches, _, _ = _prove_path(device, "bw6_761", cs, opub, osec, bad, "2chain",
+    launches, _, _ = _prove_path(device, "bw6_761", cs, opub, osec, bad, "2chain", True,
                                  compile_s=t_compile)
     return launches
 
@@ -714,9 +894,28 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from gnark_icicle_tpu_torch.device import DeviceCtx
 
+    from gnark_icicle_tpu_torch.ops import cuda as kc
+
     t_start = time.perf_counter()
     device = torch.device("cuda", 0)
-    phase_build()
+    # nvcc runs in processes of its own: compile the Chain circuits (host
+    # Python) meanwhile, and re-raise a failed build after
+    build = {}
+
+    def run_build():
+        try:
+            build["dir"] = kc.build()
+        except BaseException as e:     # noqa: BLE001 (re-raised below)
+            build["error"] = e
+        build["seconds"] = time.perf_counter() - t_start
+
+    builder = threading.Thread(target=run_build)
+    builder.start()
+    compiled = {name: chain_circuit(name) for name in CHAIN_CURVES}
+    builder.join()
+    if "error" in build:
+        raise build["error"]
+    phase_build(build["seconds"])
     rates = card_rates()
     kernels = []
     for name in CURVE_NAMES:
@@ -725,7 +924,7 @@ def main() -> int:
         phase_msm(DeviceCtx(_curves()[name], device), name)
     launches, inner = {}, None
     for name in CHAIN_CURVES:
-        counts, vk, proof, pub = phase_groth16(device, name)
+        counts, vk, proof, pub = phase_groth16(device, name, compiled[name])
         launches.update(counts)
         if name == "bls12_377":
             inner = (vk, proof, pub)

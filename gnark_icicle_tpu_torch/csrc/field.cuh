@@ -819,91 +819,361 @@ struct RegPoint {
   __device__ __forceinline__ E y() const { return Y; }
 };
 
-template <class E>
-__device__ __forceinline__ void ec_add(const E& X1, const E& Y1, const E& Z1,
-                                       const E& X2, const E& Y2, const E& Z2, const E& b3,
-                                       E& X3, E& Y3, E& Z3) {
-  E t0 = fmul(X1, X2);
-  E t1 = fmul(Y1, Y2);
-  E t2 = fmul(Z1, Z2);
-  E t3 = fmul(fadd(X1, Y1), fadd(X2, Y2));
-  t3 = fsub(t3, fadd(t0, t1));
-  E t4 = fmul(fadd(Y1, Z1), fadd(Y2, Z2));
-  t4 = fsub(t4, fadd(t1, t2));
-  E y3 = fmul(fadd(X1, Z1), fadd(X2, Z2));
-  y3 = fsub(y3, fadd(t0, t2));
-  t0 = fadd(fadd(t0, t0), t0);
-  t2 = fmul(b3, t2);
-  E z3 = fadd(t1, t2);
-  t1 = fsub(t1, t2);
-  y3 = fmul(b3, y3);
-  X3 = fsub(fmul(t3, t1), fmul(t4, y3));
-  Y3 = fadd(fmul(y3, t0), fmul(t1, z3));
-  Z3 = fadd(fmul(z3, t4), fmul(t0, t3));
-}
-
-template <class E>
-__device__ __forceinline__ void ec_double(const E& X, const E& Y, const E& Z, const E& b3,
-                                          E& X3, E& Y3, E& Z3) {
-  E t0 = fmul(Y, Y);
-  E z3 = fadd(t0, t0);
-  z3 = fadd(z3, z3);
-  z3 = fadd(z3, z3);
-  E t1 = fmul(Y, Z);
-  E t2 = fmul(b3, fmul(Z, Z));
-  E x3 = fmul(t2, z3);
-  E y3 = fadd(t0, t2);
-  z3 = fmul(t1, z3);
-  t1 = fadd(t2, t2);
-  t2 = fadd(t1, t2);
-  t0 = fsub(t0, t2);
-  y3 = fadd(fmul(t0, y3), x3);
-  t1 = fmul(X, Y);
-  x3 = fmul(t0, t1);
-  X3 = fadd(x3, x3);
-  Y3 = y3;
-  Z3 = z3;
+static inline unsigned int n_blocks(long long n, int threads) {
+  return (unsigned int)((n + threads - 1) / threads);
 }
 
 // ---------------------------------------------------------------------------
-// group-law kernels over a coordinate type E (instantiated by g1.cu / g2.cu)
+// the MSM's bucket reduction and Horner (K2/K3 in their MSM role): stages as
+// per-thread functions over accessors, plain C++ (tests/test_torch_field_cuh.py
+// builds them for the host), and the kernels further below.
+//
+// Every value is canonical (fmul, fadd, fsub; b3 through the build's form,
+// made canonical), so a stage's limbs are fixed by the order of its group
+// operations alone: the plain versions (ops/ec_t.py) repeat that order with
+// DevCurve and are equal limb for limb, whichever thread or lane computed
+// which product.
+//
+// For one window's buckets S_b, b < B = V·M, cut into V chunks of M:
+//   running sums: chunk v gives T_v = sum_j S_{vM+j} and
+//     A_v = sum_j (j+1) S_{vM+j} (running += S_j; acc += running, j down);
+//   combine: S_w = sum_v A_v + M sum_v v T_v (ops/msm.py, the identity of
+//     the reference's _weighted_chunked_t), one block per window: thread t
+//     of ct takes r = V / ct chunks serially (T_t, A_t and the 0-based
+//     weighted G_t = sum_i i T_{tr+i}); then sum_v v T_v = sum_t G_t +
+//     r sum_{t>=1} U_t with U_t = sum_{u>=t} T_u, the suffix sums of the
+//     threads' T (a Hillis-Steele scan, log2 ct rounds of one add), so each
+//     thread forms Y_t = A_t + M (G_t + r U_t) (U_0 left out; log2 r +
+//     log2 M doublings, all threads at once) and a tree in shared memory
+//     sums the Y_t (log2 ct rounds of one add): no doubling per level;
+//   Horner: sum_w 2^(cw) S_w, c doublings and one add per window, top down.
+// ---------------------------------------------------------------------------
+
+// threads of a combine block (at most; V when V is smaller)
+constexpr int COMBINE_T = 128;
+
+static __device__ __forceinline__ int log2_pow2(long long x) {
+  int k = 0;
+  while ((1LL << k) < x) ++k;
+  return k;
+}
+
+// b3 * x, canonical, by the build's b3 form (add chains made canonical; the
+// row products on the canonical product)
+template <int K, class E>
+__device__ __forceinline__ E b3_canon(const B3Int<K>& b3, const E& x) {
+  return lcanon(b3(x));
+}
+
+template <class P>
+__device__ __forceinline__ Elt2<P> b3_canon(const B3Imag& b3, const Elt2<P>& x) {
+  const Elt<P> c = fload<P>(b3.row + P::N, 1, 0);
+  return Elt2<P>{lcanon(mul_small<P::BETA>(fmul(x.c1, c))), fmul(x.c0, c)};
+}
+
+template <class P>
+__device__ __forceinline__ Elt<P> b3_canon(const B3Row& b3, const Elt<P>& x) {
+  return fmul(fload<P>(b3.row, 1, 0), x);
+}
+
+template <class P>
+__device__ __forceinline__ Elt2<P> b3_canon(const B3Row& b3, const Elt2<P>& x) {
+  return fmul(Elt2<P>{fload<P>(b3.row, 1, 0), fload<P>(b3.row + P::N, 1, 0)}, x);
+}
+
+template <class B3>
+struct CanonB3 {
+  B3 b3;
+  template <class E>
+  __device__ __forceinline__ E operator()(const E& x) const { return b3_canon(b3, x); }
+};
+
+// a projective point in registers
+template <class E>
+struct RegPt {
+  E X, Y, Z;
+  __device__ __forceinline__ E x() const { return X; }
+  __device__ __forceinline__ E y() const { return Y; }
+  __device__ __forceinline__ E z() const { return Z; }
+  __device__ __forceinline__ void set_x(const E& v) { X = v; }
+  __device__ __forceinline__ void set_y(const E& v) { Y = v; }
+  __device__ __forceinline__ void set_z(const E& v) { Z = v; }
+};
+
+// the complete add's t3, t4 (held) and t0, z3 (parked), in registers
+template <class E>
+struct RegScratch {
+  E H[2], K[2];
+  __device__ __forceinline__ void hold(int k, const E& v) { H[k] = v; }
+  __device__ __forceinline__ E held(int k) const { return H[k]; }
+  __device__ __forceinline__ void park(int k, const E& v) { K[k] = v; }
+  __device__ __forceinline__ E parked(int k) const { return K[k]; }
+};
+
+// a point of coordinate planes (row stride ld) at one lane, read where used
+template <class E>
+struct PlanePt {
+  const uint32_t* p;
+  long long ld, lane;
+  __device__ __forceinline__ long long plane() const { return (long long)E::N * ld * Coord<E>::NP; }
+  __device__ __forceinline__ E x() const { return Coord<E>::load(p, ld, lane); }
+  __device__ __forceinline__ E y() const { return Coord<E>::load(p + plane(), ld, lane); }
+  __device__ __forceinline__ E z() const { return Coord<E>::load(p + 2 * plane(), ld, lane); }
+};
+
+template <class E, class A, class Q>
+__device__ __forceinline__ void set_point(A& a, const Q& q) {
+  a.set_x(q.x());
+  a.set_y(q.y());
+  a.set_z(q.z());
+}
+
+template <class E, class Q>
+__device__ __forceinline__ void store_point(uint32_t* base, long long ld, long long lane, const Q& q) {
+  const long long plane = (long long)E::N * ld * Coord<E>::NP;
+  Coord<E>::store(base, ld, lane, q.x());
+  Coord<E>::store(base + plane, ld, lane, q.y());
+  Coord<E>::store(base + 2 * plane, ld, lane, q.z());
+}
+
+// p += q, the complete RCB add (Renes-Costello-Batina 2016, algorithm 7;
+// DevCurve.add's values), p's coordinates read only before its first write, q's where used; t3, t4 held and t0, z3 parked in s
+template <class E, class A, class Q, class S, class B3C>
+__device__ __forceinline__ void ec_add_to(A& p, const Q& q, S& s, const B3C& b3) {
+  E t0 = fmul(p.x(), q.x());
+  E t1 = fmul(p.y(), q.y());
+  E t2 = fmul(p.z(), q.z());
+  s.hold(0, fsub(fmul(fadd(p.x(), p.y()), fadd(q.x(), q.y())), fadd(t0, t1)));  // t3
+  s.hold(1, fsub(fmul(fadd(p.y(), p.z()), fadd(q.y(), q.z())), fadd(t1, t2)));  // t4
+  E y3 = fsub(fmul(fadd(p.x(), p.z()), fadd(q.x(), q.z())), fadd(t0, t2));
+  t0 = fadd(fadd(t0, t0), t0);
+  t2 = b3(t2);
+  s.park(1, fadd(t1, t2));  // z3
+  t1 = fsub(t1, t2);
+  y3 = b3(y3);
+  s.park(0, t0);
+  p.set_x(fsub(fmul(s.held(0), t1), fmul(s.held(1), y3)));
+  p.set_y(fadd(fmul(y3, s.parked(0)), fmul(t1, s.parked(1))));
+  p.set_z(fadd(fmul(s.parked(1), s.held(1)), fmul(s.parked(0), s.held(0))));
+}
+
+// p = 2p, the RCB double (algorithm 9; DevCurve.double's values), x3 held
+// and Z3 parked in s
+template <class E, class A, class S, class B3C>
+__device__ __forceinline__ void ec_double_in(A& p, S& s, const B3C& b3) {
+  E t0 = fmul(p.y(), p.y());
+  E z3 = fadd(t0, t0);
+  z3 = fadd(z3, z3);
+  z3 = fadd(z3, z3);
+  const E t2 = b3(fmul(p.z(), p.z()));
+  s.hold(0, fmul(t2, z3));                // x3
+  s.park(1, fmul(fmul(p.y(), p.z()), z3));  // Z3
+  E y3 = fadd(t0, t2);
+  const E t2x2 = fadd(t2, t2);
+  t0 = fsub(t0, fadd(t2x2, t2));
+  y3 = fadd(fmul(t0, y3), s.held(0));
+  const E x3 = fmul(t0, fmul(p.x(), p.y()));
+  p.set_x(fadd(x3, x3));
+  p.set_y(y3);
+  p.set_z(s.parked(1));
+}
+
+// The stages below take their group law as `ops`: ops.add(p, q) is p += q,
+// ops.dbl(p) is p = 2p. InlineOps inlines ec_add_to / ec_double_in at each
+// call; the combine kernel passes ops that call one out-of-line add and one
+// double over shared memory instead, so that its many call sites do not
+// each carry a dozen unrolled products.
+template <class E, class S, class B3C>
+struct InlineOps {
+  S& s;
+  B3C b3;
+  template <class A, class Q>
+  __device__ __forceinline__ void add(A& p, const Q& q) { ec_add_to<E>(p, q, s, b3); }
+  template <class A>
+  __device__ __forceinline__ void dbl(A& p) { ec_double_in<E>(p, s, b3); }
+};
+
+// running sums of one chunk: run = T = sum_j S_j, acc = A = sum_j (j+1) S_j
+// over the M points src(j), j from M - 1 down
+template <class E, class A, class Ops, class Src>
+__device__ __forceinline__ void reduce_run(A& run, A& acc, Ops& ops, int M, Src src) {
+  set_point<E>(run, src(M - 1));
+  set_point<E>(acc, run);
+  for (int j = M - 2; j >= 0; --j) {
+    ops.add(run, src(j));
+    ops.add(acc, run);
+  }
+}
+
+// a combine thread's r chunks (tsrc(i), asrc(i), i < r): T, A and, for
+// r > 1, G = sum_i i T_i (the suffix sums from i = r - 1 down to 1)
+template <class E, class A, class Ops, class SrcT, class SrcA>
+__device__ __forceinline__ void combine_run(A& T, A& G, A& Acc, Ops& ops, int r, SrcT tsrc,
+                                            SrcA asrc) {
+  set_point<E>(T, tsrc(r - 1));
+  set_point<E>(Acc, asrc(r - 1));
+  if (r > 1) set_point<E>(G, T);
+  for (int i = r - 2; i >= 1; --i) {
+    ops.add(T, tsrc(i));
+    ops.add(G, T);
+  }
+  for (int i = r - 2; i >= 0; --i) ops.add(Acc, asrc(i));
+  if (r > 1) ops.add(T, tsrc(0));
+}
+
+// a combine thread's Y = A + 2^log_m (G + 2^log_r U) once U (its suffix
+// sum, in T; none for thread 0: has_u false) is known; Y in Acc, T and G
+// overwritten. Without G (has_g false: r = 1) G is 0.
+template <class E, class A, class Ops>
+__device__ __forceinline__ void combine_weight(A& T, A& G, A& Acc, Ops& ops, bool has_g,
+                                               bool has_u, int log_r, int log_m) {
+  if (has_u) {
+    for (int i = 0; i < log_r; ++i) ops.dbl(T);
+    if (has_g) ops.add(G, T);
+    else set_point<E>(G, T);
+    has_g = true;
+  }
+  if (has_g) {
+    for (int i = 0; i < log_m; ++i) ops.dbl(G);
+    ops.add(Acc, G);
+  }
+}
+
+// Horner's group law spread over a warp: the independent products of each
+// round on lanes of their own, exchanged through res[3] (X, Y, Z) and
+// bank[12] in shared memory, each phase followed by __syncwarp. The add's 12
+// products run as 6 + 6 (b3 recomputed by every lane that needs it), the
+// double's 8 as 4 + 4: a round costs one product's latency, not its count.
+
+// add, phase 1 (lanes 0-5): bank[l] = X1X2, Y1Y2, Z1Z2, (X1+Y1)(X2+Y2),
+// (Y1+Z1)(Y2+Z2), (X1+Z1)(X2+Z2)
+template <class E, class Q>
+__device__ __forceinline__ void hadd_products(const E* res, const Q& q, E* bank, int lane) {
+  E a, b;
+  switch (lane) {
+    case 0: a = res[0]; b = q.x(); break;
+    case 1: a = res[1]; b = q.y(); break;
+    case 2: a = res[2]; b = q.z(); break;
+    case 3: a = fadd(res[0], res[1]); b = fadd(q.x(), q.y()); break;
+    case 4: a = fadd(res[1], res[2]); b = fadd(q.y(), q.z()); break;
+    case 5: a = fadd(res[0], res[2]); b = fadd(q.x(), q.z()); break;
+    default: return;
+  }
+  bank[lane] = fmul(a, b);
+}
+
+// add, phase 2 (lanes 0-5): bank[6 + l] = t3 t1, t4 y3, y3 t0, t1 z3, z3 t4,
+// t0 t3 with t3 = m3 - (m0 + m1), t4 = m4 - (m1 + m2), y3 = b3 (m5 - (m0 +
+// m2)), t0 = 3 m0, z3 = m1 + b3 m2, t1 = m1 - b3 m2. The two b3 terms are
+// formed by every lane before the lanes part (a product inside a divergent
+// branch would run once per branch); only additions depend on the lane.
+template <class E, class B3C>
+__device__ __forceinline__ void hadd_second(E* bank, const B3C& b3, int lane) {
+  if (lane >= 6) return;
+  const E t2 = b3(bank[2]);
+  const E y3 = b3(fsub(bank[5], fadd(bank[0], bank[2])));
+  auto t3 = [&] { return fsub(bank[3], fadd(bank[0], bank[1])); };
+  auto t4 = [&] { return fsub(bank[4], fadd(bank[1], bank[2])); };
+  auto t0 = [&] { const E m = bank[0]; return fadd(fadd(m, m), m); };
+  auto z3 = [&] { return fadd(bank[1], t2); };
+  auto t1 = [&] { return fsub(bank[1], t2); };
+  E a, b;
+  switch (lane) {
+    case 0: a = t3(); b = t1(); break;
+    case 1: a = t4(); b = y3; break;
+    case 2: a = y3; b = t0(); break;
+    case 3: a = t1(); b = z3(); break;
+    case 4: a = z3(); b = t4(); break;
+    default: a = t0(); b = t3(); break;
+  }
+  bank[6 + lane] = fmul(a, b);
+}
+
+// add, phase 3 (lanes 0-2): X3 = m6 - m7, Y3 = m8 + m9, Z3 = m10 + m11
+template <class E>
+__device__ __forceinline__ void hadd_finish(E* res, const E* bank, int lane) {
+  if (lane == 0) res[0] = fsub(bank[6], bank[7]);
+  else if (lane == 1) res[1] = fadd(bank[8], bank[9]);
+  else if (lane == 2) res[2] = fadd(bank[10], bank[11]);
+}
+
+// double, phase 1 (lanes 0-3): bank[l] = YY, YZ, ZZ, XY
+template <class E>
+__device__ __forceinline__ void hdbl_products(const E* res, E* bank, int lane) {
+  E a, b;
+  switch (lane) {
+    case 0: a = res[1]; b = res[1]; break;
+    case 1: a = res[1]; b = res[2]; break;
+    case 2: a = res[2]; b = res[2]; break;
+    case 3: a = res[0]; b = res[1]; break;
+    default: return;
+  }
+  bank[lane] = fmul(a, b);
+}
+
+// double, phase 2 (lanes 0-3): bank[6 + l] = t2 z3, YZ z3, t0' (t0 + t2),
+// t0' XY with t0 = YY, t2 = b3 ZZ, z3 = 8 t0, t0' = t0 - 3 t2
+template <class E, class B3C>
+__device__ __forceinline__ void hdbl_second(E* bank, const B3C& b3, int lane) {
+  if (lane >= 4) return;
+  const E t0 = bank[0];
+  const E t2 = b3(bank[2]);
+  E a, b;
+  if (lane < 2) {
+    E z3 = fadd(t0, t0);
+    z3 = fadd(z3, z3);
+    a = lane == 0 ? t2 : bank[1];
+    b = fadd(z3, z3);
+  } else {
+    a = fsub(t0, fadd(fadd(t2, t2), t2));
+    b = lane == 2 ? fadd(t0, t2) : bank[3];
+  }
+  bank[6 + lane] = fmul(a, b);
+}
+
+// double, phase 3 (lanes 0-2): X3 = 2 m9, Y3 = m8 + m6, Z3 = m7
+template <class E>
+__device__ __forceinline__ void hdbl_finish(E* res, const E* bank, int lane) {
+  if (lane == 0) res[0] = fadd(bank[9], bank[9]);
+  else if (lane == 1) res[1] = fadd(bank[8], bank[6]);
+  else if (lane == 2) res[2] = bank[7];
+}
+
+// b3 * x by the canonical product with a b3 row (the add and double kernels,
+// which take any b3)
+template <class E>
+struct RowB3 {
+  E b3;
+  __device__ __forceinline__ E operator()(const E& x) const { return fmul(b3, x); }
+};
+
+// ---------------------------------------------------------------------------
+// the complete add and double kernels over a coordinate type E
+// (instantiated by g1.cu / g2.cu): one lane a thread, in registers
 // ---------------------------------------------------------------------------
 
 template <class E>
 __global__ void k_add(const uint32_t* p, long long ldp, const uint32_t* q, long long ldq,
                       uint32_t* o, long long ldo, long long n, const uint32_t* b3_row) {
-  using C = Coord<E>;
   const long long l = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (l >= n) return;
-  const long long pp = E::N * ldp * C::NP, pq = E::N * ldq * C::NP, po = E::N * ldo * C::NP;
-  const E X1 = C::load(p, ldp, l), Y1 = C::load(p + pp, ldp, l), Z1 = C::load(p + 2 * pp, ldp, l);
-  const E X2 = C::load(q, ldq, l), Y2 = C::load(q + pq, ldq, l), Z2 = C::load(q + 2 * pq, ldq, l);
-  const E b3 = C::row(b3_row);
-  E X3, Y3, Z3;
-  ec_add(X1, Y1, Z1, X2, Y2, Z2, b3, X3, Y3, Z3);
-  C::store(o, ldo, l, X3);
-  C::store(o + po, ldo, l, Y3);
-  C::store(o + 2 * po, ldo, l, Z3);
+  const PlanePt<E> P{p, ldp, l};
+  RegPt<E> R{P.x(), P.y(), P.z()};
+  RegScratch<E> s;
+  ec_add_to<E>(R, PlanePt<E>{q, ldq, l}, s, RowB3<E>{Coord<E>::row(b3_row)});
+  store_point<E>(o, ldo, l, R);
 }
 
 template <class E>
 __global__ void k_double(const uint32_t* p, long long ldp, uint32_t* o, long long ldo,
                          long long n, const uint32_t* b3_row) {
-  using C = Coord<E>;
   const long long l = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (l >= n) return;
-  const long long pp = E::N * ldp * C::NP, po = E::N * ldo * C::NP;
-  const E X = C::load(p, ldp, l), Y = C::load(p + pp, ldp, l), Z = C::load(p + 2 * pp, ldp, l);
-  const E b3 = C::row(b3_row);
-  E X3, Y3, Z3;
-  ec_double(X, Y, Z, b3, X3, Y3, Z3);
-  C::store(o, ldo, l, X3);
-  C::store(o + po, ldo, l, Y3);
-  C::store(o + 2 * po, ldo, l, Z3);
-}
-
-static inline unsigned int n_blocks(long long n, int threads) {
-  return (unsigned int)((n + threads - 1) / threads);
+  const PlanePt<E> P{p, ldp, l};
+  RegPt<E> R{P.x(), P.y(), P.z()};
+  RegScratch<E> s;
+  ec_double_in<E>(R, s, RowB3<E>{Coord<E>::row(b3_row)});
+  store_point<E>(o, ldo, l, R);
 }
 
 #if defined(__CUDACC__)
@@ -1141,6 +1411,302 @@ static int launch_mixed_accumulate(void* acc, long long ld, long long L, const v
         (uint32_t*)acc, ld, L, (const uint32_t*)table, (const int32_t*)order,
         (const int32_t*)sign, (const long long*)start, (const int32_t*)count,
         (const uint32_t*)b3);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// the reduction and Horner kernels (stages above): at most three launches
+// per MSM, in place of one k_add / k_double launch per round of the
+// reference's scans and Horner loop
+//
+// What bounds them. The running sums are 2 W B complete adds (12 products
+// each, on the integer-multiply rate) spread over W V threads, V chosen so
+// that W V fills the card (ops/msm.py reduce_chunks); the combine adds about
+// 3 V + ct log2 ct adds and ct (log2 r + log2 M) doublings per window, and
+// its depth is about 3 r + 2 log2 ct adds and log2 r + log2 M doublings;
+// Horner is one chain of c (W - 1) doublings and W - 1 adds that no
+// reordering shortens, so its bound is that chain at the latency of one
+// double. The warp form brings the chain to its depth in products (two
+// rounds a double or an add) instead of their count: on an H100 it ran
+// 2.7-6.4x faster than the same chain on one thread (PERF.md).
+//
+// Registers and build time: where a coordinate is 16 words or more
+// (Stage<E>::ACC_SMEM) the running sums hold their points and the add's
+// t3, t4, t0, z3 in shared memory and run the group law through one
+// out-of-line add and double (smem_add, smem_double), so that 12-word G2
+// and 24-word G1 neither spill much (k_add spilled up to
+// 1,176 bytes there) nor build for minutes. The combine keeps T, G, A, D
+// and the scratch of each thread in shared memory at every width (16
+// coordinates, 196,608 bytes a block at 24 words), through the same two
+// functions: the scan and the tree read the other threads'.
+// ---------------------------------------------------------------------------
+
+// one coordinate at p, chunks `stride` apart, and a point / the add's
+// scratch of one thread in shared memory with that stride (the threads of
+// a block side by side: stride = threads, chunk k of thread i at k stride + i)
+template <class E>
+__device__ __forceinline__ E sld(const uint4* p, int stride) {
+  E e;
+#pragma unroll
+  for (int k = 0; k < Stage<E>::EC; ++k) {
+    const uint4 v = lds16(p + k * stride);
+    word(e, 4 * k) = v.x;
+    word(e, 4 * k + 1) = v.y;
+    word(e, 4 * k + 2) = v.z;
+    word(e, 4 * k + 3) = v.w;
+  }
+  return e;
+}
+
+template <class E>
+__device__ __forceinline__ void sst(uint4* p, int stride, E e) {
+#pragma unroll
+  for (int k = 0; k < Stage<E>::EC; ++k)
+    sts16(p + k * stride, make_uint4(word(e, 4 * k), word(e, 4 * k + 1), word(e, 4 * k + 2),
+                                     word(e, 4 * k + 3)));
+}
+
+template <class E>
+struct SmemPt {
+  uint4* p;
+  int stride;
+  __device__ __forceinline__ int C() const { return Stage<E>::EC * stride; }  // one coordinate
+  __device__ __forceinline__ E x() const { return sld<E>(p, stride); }
+  __device__ __forceinline__ E y() const { return sld<E>(p + C(), stride); }
+  __device__ __forceinline__ E z() const { return sld<E>(p + 2 * C(), stride); }
+  __device__ __forceinline__ void set_x(const E& v) { sst<E>(p, stride, v); }
+  __device__ __forceinline__ void set_y(const E& v) { sst<E>(p + C(), stride, v); }
+  __device__ __forceinline__ void set_z(const E& v) { sst<E>(p + 2 * C(), stride, v); }
+};
+
+template <class E>
+struct SmemScratch {
+  uint4* p;
+  int stride;
+  __device__ __forceinline__ int C() const { return Stage<E>::EC * stride; }
+  __device__ __forceinline__ void hold(int k, const E& v) { sst<E>(p + k * C(), stride, v); }
+  __device__ __forceinline__ E held(int k) const { return sld<E>(p + k * C(), stride); }
+  __device__ __forceinline__ void park(int k, const E& v) { sst<E>(p + (2 + k) * C(), stride, v); }
+  __device__ __forceinline__ E parked(int k) const { return sld<E>(p + (2 + k) * C(), stride); }
+};
+
+// The group law on points in shared memory, out of line: one add and one
+// double per (coordinate type, b3 form) serve every call site of the
+// combine and the running sums, where inlined the dozen unrolled products
+// of each site made ptxas take minutes and spill.
+template <class E, class B3>
+__device__ __noinline__ void smem_add(uint4* p, uint4* q, uint4* scratch, int stride,
+                                      const uint32_t* b3_row) {
+  SmemPt<E> P{p, stride}, Q{q, stride};
+  SmemScratch<E> s{scratch, stride};
+  ec_add_to<E>(P, Q, s, CanonB3<B3>{B3(b3_row)});
+}
+
+template <class E, class B3>
+__device__ __noinline__ void smem_double(uint4* p, uint4* scratch, int stride,
+                                         const uint32_t* b3_row) {
+  SmemPt<E> P{p, stride};
+  SmemScratch<E> s{scratch, stride};
+  ec_double_in<E>(P, s, CanonB3<B3>{B3(b3_row)});
+}
+
+// ops over smem_add / smem_double: a point of the planes is first copied
+// into the thread's staging slot
+template <class E, class B3>
+struct SmemOps {
+  using SP = SmemPt<E>;
+  uint4* scratch;
+  uint4* stage;
+  int stride;
+  const uint32_t* b3_row;
+  __device__ __forceinline__ void add(SP& p, const SP& q) {
+    smem_add<E, B3>(p.p, q.p, scratch, stride, b3_row);
+  }
+  __device__ __forceinline__ void add(SP& p, const PlanePt<E>& q) {
+    SP st{stage, stride};
+    set_point<E>(st, q);
+    smem_add<E, B3>(p.p, stage, scratch, stride, b3_row);
+  }
+  __device__ __forceinline__ void dbl(SP& p) { smem_double<E, B3>(p.p, scratch, stride, b3_row); }
+};
+
+constexpr int REDUCE_T = 32;  // threads a block of the running sums
+
+// shared memory of the running sums: where ACC_SMEM, run, acc, a staging
+// slot and the scratch, 13 coordinates a thread (39,936 bytes a block at 24
+// words: five blocks an SM)
+template <class E>
+constexpr size_t reduce_bytes() {
+  return Stage<E>::ACC_SMEM ? (size_t)16 * Stage<E>::EC * 13 * REDUCE_T : 0;
+}
+
+// of the combine: T, G, A, D and the scratch, 16 coordinates a thread
+template <class E>
+constexpr size_t combine_bytes() {
+  return (size_t)16 * Stage<E>::EC * 16 * COMBINE_T;
+}
+
+static_assert(combine_bytes<Elt<Bw6Fp>>() <= 232448, "a combine block's shared memory fits");
+
+// The running sums and the combine are two stages of one kernel, k_reduce,
+// so that ptxas compiles smem_add and smem_double once per (coordinate
+// type, b3 form) and not once per kernel that calls them: as separate
+// kernels, the 12-word G2 library took about 300 s to build.
+struct ReduceArgs {
+  int stage;               // 0 running sums, 1 combine
+  const uint32_t* in;      // S (stage 0) or T (stage 1)
+  const uint32_t* in2;     // A (stage 1)
+  uint32_t* out;
+  long long L, ld, W;      // lanes (0), stride of T and A (1), windows (1)
+  int M, V, log_m;
+  const uint32_t* b3_row;
+};
+
+// Running sums: lane l < L (one (window, chunk)) reads buckets l M .. l M +
+// M - 1 of S (stride L M) and writes T_l to planes 0-2 and A_l to planes 3-5
+// (coordinates) of TA (stride L).
+template <class E, class B3>
+__device__ __forceinline__ void reduce_runs_stage(const ReduceArgs& a, uint4* smem) {
+  const long long L = a.L;
+  const int M = a.M;
+  const long long l = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (l >= L) return;
+  auto src = [&](int j) { return PlanePt<E>{a.in, L * M, l * M + j}; };
+  const long long point = 3LL * E::N * L * Coord<E>::NP;
+  if constexpr (Stage<E>::ACC_SMEM) {
+    constexpr int C = Stage<E>::EC * REDUCE_T;
+    uint4* base = smem + threadIdx.x;
+    SmemPt<E> run{base, REDUCE_T}, acc{base + 3 * C, REDUCE_T};
+    SmemOps<E, B3> ops{base + 9 * C, base + 6 * C, REDUCE_T, a.b3_row};
+    reduce_run<E>(run, acc, ops, M, src);
+    store_point<E>(a.out, L, l, run);
+    store_point<E>(a.out + point, L, l, acc);
+  } else {
+    RegPt<E> run, acc;
+    RegScratch<E> s;
+    InlineOps<E, RegScratch<E>, CanonB3<B3>> ops{s, CanonB3<B3>{B3(a.b3_row)}};
+    reduce_run<E>(run, acc, ops, M, src);
+    store_point<E>(a.out, L, l, run);
+    store_point<E>(a.out + point, L, l, acc);
+  }
+}
+
+// Combine: block w of ct threads turns chunks w V .. w V + V - 1 of T and A
+// (stride ld) into S_w = sum_v A_v + 2^log_m sum_v v T_v at lane w of out
+// (stride W).
+template <class E, class B3>
+__device__ __forceinline__ void reduce_combine_stage(const ReduceArgs& a, uint4* smem) {
+  using SP = SmemPt<E>;
+  constexpr int C = Stage<E>::EC * COMBINE_T;
+  const int ct = blockDim.x, t = threadIdx.x, r = a.V / ct;
+  // point k of thread u: 0 T, 1 G, 2 A, 3 D (the staging slot of the serial
+  // runs, then the scan's copy of a neighbour's sum); then the add's scratch
+  auto pt = [&](int u, int k) { return SP{smem + u + 3 * k * C, COMBINE_T}; };
+  SP Tt = pt(t, 0), G = pt(t, 1), Acc = pt(t, 2), D = pt(t, 3);
+  SmemOps<E, B3> ops{smem + t + 12 * C, D.p, COMBINE_T, a.b3_row};
+  const long long first = (long long)blockIdx.x * a.V + (long long)t * r;
+  combine_run<E>(Tt, G, Acc, ops, r, [&](int i) { return PlanePt<E>{a.in, a.ld, first + i}; },
+                 [&](int i) { return PlanePt<E>{a.in2, a.ld, first + i}; });
+  // the suffix sums U_t of the threads' T, in place: round h adds thread
+  // t + h's value from before the round (copied into D first)
+  for (int h = 1; h < ct; h <<= 1) {
+    __syncthreads();
+    if (t + h < ct) set_point<E>(D, pt(t + h, 0));
+    __syncthreads();
+    if (t + h < ct) ops.add(Tt, D);
+  }
+  combine_weight<E>(Tt, G, Acc, ops, r > 1, t > 0, log2_pow2(r), a.log_m);
+  // the tree: thread t adds thread t + h's Y where t is a multiple of 2h
+  for (int h = 1; h < ct; h <<= 1) {
+    __syncthreads();
+    if (t % (2 * h) == 0) ops.add(Acc, pt(t + h, 2));
+  }
+  if (t == 0) store_point<E>(a.out, a.W, blockIdx.x, Acc);
+}
+
+template <class E, class B3>
+__global__ void __launch_bounds__(COMBINE_T) k_reduce(const ReduceArgs a) {
+  extern __shared__ uint4 smem[];
+  if (a.stage == 0) reduce_runs_stage<E, B3>(a, smem);
+  else reduce_combine_stage<E, B3>(a, smem);
+}
+
+// Horner, one warp: sum_w 2^(cw) S_w over the W lanes of S (stride W) into
+// out (stride 1)
+template <class E, class B3>
+__global__ void __launch_bounds__(32)
+k_horner(const uint32_t* S, long long W, int c, uint32_t* out, const uint32_t* b3_row) {
+  __shared__ E res[3];
+  __shared__ E bank[12];
+  const CanonB3<B3> b3{B3(b3_row)};
+  const int lane = threadIdx.x;
+  auto src = [&](long long w) { return PlanePt<E>{S, W, w}; };
+  if (lane < 3) res[lane] = lane == 0 ? src(W - 1).x() : lane == 1 ? src(W - 1).y() : src(W - 1).z();
+  __syncwarp();
+  for (long long w = W - 2; w >= 0; --w) {
+    for (int i = 0; i < c; ++i) {
+      hdbl_products<E>(res, bank, lane);
+      __syncwarp();
+      hdbl_second<E>(bank, b3, lane);
+      __syncwarp();
+      hdbl_finish<E>(res, bank, lane);
+      __syncwarp();
+    }
+    hadd_products<E>(res, src(w), bank, lane);
+    __syncwarp();
+    hadd_second<E>(bank, b3, lane);
+    __syncwarp();
+    hadd_finish<E>(res, bank, lane);
+    __syncwarp();
+  }
+  if (lane < 3) Coord<E>::store(out + (long long)lane * E::N * Coord<E>::NP, 1, 0, res[lane]);
+}
+
+// one stage of k_reduce; its largest stage's shared memory allowed first
+template <class E, class B3>
+static int launch_reduce(const ReduceArgs& a, unsigned int blocks, int threads, size_t bytes,
+                         void* stream) {
+  auto kernel = k_reduce<E, B3>;
+  constexpr size_t most = combine_bytes<E>() > reduce_bytes<E>() ? combine_bytes<E>()
+                                                                 : reduce_bytes<E>();
+  if (most > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)most);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kernel<<<blocks, threads, bytes, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// the running sums over L = W V lanes of M buckets each
+template <class E, class B3>
+static int launch_reduce_runs(const void* S, long long L, int M, void* TA, const void* b3,
+                              void* stream) {
+  if (L <= 0) return (int)cudaGetLastError();
+  ReduceArgs a{0, (const uint32_t*)S, nullptr, (uint32_t*)TA, L, 0, 0, M, 0, 0,
+               (const uint32_t*)b3};
+  return launch_reduce<E, B3>(a, n_blocks(L, REDUCE_T), REDUCE_T, reduce_bytes<E>(), stream);
+}
+
+// the combine of W windows of V chunks (V a power of two)
+template <class E, class B3>
+static int launch_reduce_combine(const void* T, const void* A, long long ld, long long W, int V,
+                                 int log_m, void* out, const void* b3, void* stream) {
+  if (V <= 0 || (V & (V - 1)) != 0) return (int)cudaErrorInvalidValue;
+  if (W <= 0) return (int)cudaGetLastError();
+  ReduceArgs a{1, (const uint32_t*)T, (const uint32_t*)A, (uint32_t*)out, 0, ld, W, 0, V, log_m,
+               (const uint32_t*)b3};
+  return launch_reduce<E, B3>(a, (unsigned int)W, V < COMBINE_T ? V : COMBINE_T,
+                              combine_bytes<E>(), stream);
+}
+
+// Horner over W windows, one warp
+template <class E, class B3>
+static int launch_horner(const void* S, long long W, int c, void* out, const void* b3,
+                         void* stream) {
+  if (W <= 0) return (int)cudaErrorInvalidValue;
+  k_horner<E, B3><<<1, 32, 0, (cudaStream_t)stream>>>((const uint32_t*)S, W, c, (uint32_t*)out,
+                                                      (const uint32_t*)b3);
   return (int)cudaGetLastError();
 }
 #endif  // __CUDACC__

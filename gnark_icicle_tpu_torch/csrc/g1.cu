@@ -1,11 +1,14 @@
 // G1 (over Fp) group-law kernels: the MSM's bucket accumulation, the masked
-// wave step, the complete add and the double. Built once per curve (field.cuh,
-// CurveFp): BN254 at 8 words, BLS12-381 and BLS12-377 at 12, BW6-761 at 24.
-// BW6-761's G2 lies over Fp too (the sextic twist y^2 = x^3 + 4): it runs
-// these entries with its own b3 (TwistB3).
+// wave step, the complete add and the double (the bucket reduction and
+// Horner are in g1_reduce.cu). Built once per curve (field.cuh, CurveFp): BN254 at 8 words,
+// BLS12-381 and BLS12-377 at 12, BW6-761 at 24. BW6-761's G2 lies over Fp
+// too (the sextic twist y^2 = x^3 + 4): it runs these entries with its own
+// b3 (TwistB3).
 //
 // Replaces TPU kernels K2 (gnark_icicle_tpu/ops/ec_t.py:266 TCurve._mul, the
-// Fp product called 11 times per wave step), K4 (ops/ec_t.py:529
+// Fp product of _add_impl :340 and _double_impl :365, which the reference's
+// bucket reduction, ops/msm.py:399-469, and its scanned Horner, :637-642,
+// launch once per round), K4 (ops/ec_t.py:529
 // TCurve.add_mixed_masked_fused, the whole masked, signed mixed add, which
 // the reference launches once per wave of the MSM) and, in setup, K6
 // (gnark_icicle_tpu/ops/ec_pallas.py:440 PallasEC._build, the fixed-base
@@ -18,9 +21,10 @@
 // roofline. g1_bucket_accumulate runs a whole MSM's bucket sums in one
 // launch, each lane's run of points in a loop with the accumulator held
 // through it (field.cuh, "the staged mixed-add kernel");
-// g1_add_mixed_masked is the one-step form for setup's ladders. The
-// mixed-add entries take g2 = 0 for G1's b3 and g2 = 1 for G2's, which only
-// BW6-761's build has on these entries, and refuse any other.
+// g1_add_mixed_masked is the one-step form for setup's ladders. g1_add
+// stays for the MSM's fold of split buckets, g1_double has no caller on the
+// path. The mixed-add entries take g2 = 0 for G1's b3 and g2 = 1 for G2's,
+// which only BW6-761's build has on these entries, and refuse any other.
 #include "field.cuh"
 
 using G1E = Elt<CurveFp>;

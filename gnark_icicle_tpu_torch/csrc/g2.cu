@@ -1,22 +1,26 @@
 // G2 (over Fp2 = Fp[u]/(u^2 - beta)) group-law kernels: the MSM's bucket
-// accumulation, the masked wave step, the complete add and the double. Built
-// once per curve with an Fp2 (field.cuh, CurveFp): BN254 at 8 words and
-// beta = -1, BLS12-381 at 12 and beta = -1, BLS12-377 at 12 and beta = -5.
-// BW6-761 has no Fp2 and no build of this file.
+// accumulation, the masked wave step, the complete add and the double (the
+// bucket reduction and Horner are in g2_reduce.cu). Built once per curve with an Fp2 (field.cuh,
+// CurveFp): BN254 at 8 words and beta = -1, BLS12-381 at 12 and beta = -1,
+// BLS12-377 at 12 and beta = -5. BW6-761 has no Fp2 and no build of this
+// file.
 //
 // Replaces TPU kernels K3 (gnark_icicle_tpu/ops/ec_t.py:649 TCurve2._mul,
-// the Fp2 Karatsuba product of the G2 wave) and K5 (ops/ec_t.py:896
-// TCurve2.add_mixed_masked_fused, the whole masked, signed Fp2 mixed add,
-// which the reference launches once per wave of the MSM).
+// the Fp2 Karatsuba product of _add_impl :736 and _double_impl :761, which
+// the reference's G2 bucket reduction and Horner launch once per round) and
+// K5 (ops/ec_t.py:896 TCurve2.add_mixed_masked_fused, the whole masked,
+// signed Fp2 mixed add, which the reference launches once per wave of the
+// MSM).
 //
 // Bound on the card: integer multiply rate first (a mixed add is 11 Fp2
 // products, 33 Fp products, plus the products by b3: none for BLS12-381's
 // 12 (1 + u), an add chain; 2 for BLS12-377's c u; 3 for BN254's general
 // b3), registers second: an Fp2 element is 2N words and the add keeps about
 // eight of them live, so at N = 12 the accumulator is staged in shared
-// memory (field.cuh, "the staged mixed-add kernel"). The mixed-add
-// entries take g2 = 1 (G2's b3, the only group here) and refuse any other.
-// Splitting a lane across two threads is later work.
+// memory (field.cuh, "the staged mixed-add kernel"). g2_add and g2_double
+// stay (the fold of split buckets, which no G2 path has yet; no caller).
+// The mixed-add entries take g2 = 1 (G2's b3, the only group here) and
+// refuse any other. Splitting a lane across two threads is later work.
 #include "field.cuh"
 
 using G2E = Elt2<CurveFp>;

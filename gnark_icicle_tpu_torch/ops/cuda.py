@@ -31,15 +31,20 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG_DIR, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG_DIR), "build",
                           "gnark_icicle_tpu_torch")
-SOURCES = ("fr.cu", "g1.cu", "g2.cu")
+SOURCES = ("fr.cu", "g1.cu", "g2.cu", "g1_reduce.cu", "g2_reduce.cu")
 HEADER = "field.cuh"
 # curve -> prefix of its C entry names (field.cuh ENTRY)
 CURVES = {"bn254": "", "bls12_381": "bls12_381_", "bls12_377": "bls12_377_",
           "bw6_761": "bw6_761_"}
 # curve -> the sources built for it; BW6-761's G2 lies over Fp and runs the
-# g1.cu entries with its own b3 row
-CURVE_SOURCES = {"bn254": ("fr", "g1", "g2"), "bls12_381": ("fr", "g1", "g2"),
-                 "bls12_377": ("fr", "g1", "g2"), "bw6_761": ("fr", "g1")}
+# g1 entries with its own b3 row. The reduction and Horner entries have
+# sources of their own (g1_reduce, g2_reduce), so that nvcc builds them in
+# processes beside the group's: the 12-word g2.cu alone was the build's
+# longest process.
+CURVE_SOURCES = {"bn254": ("fr", "g1", "g2", "g1_reduce", "g2_reduce"),
+                 "bls12_381": ("fr", "g1", "g2", "g1_reduce", "g2_reduce"),
+                 "bls12_377": ("fr", "g1", "g2", "g1_reduce", "g2_reduce"),
+                 "bw6_761": ("fr", "g1", "g1_reduce")}
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
@@ -63,6 +68,11 @@ SIGNATURES = {
         "g2_add": [_P, _I64, _P, _I64, _P, _I64, _I64, _P, _P],
         "g2_double": [_P, _I64, _P, _I64, _I64, _P, _P],
     },
+    **{f"{g}_reduce": {
+        f"{g}_bucket_reduce": [_P, _I64, _I32, _P, _P, _I32, _P],
+        f"{g}_reduce_combine": [_P, _P, _I64, _I64, _I32, _I32, _P, _P, _I32, _P],
+        f"{g}_horner": [_P, _I64, _I32, _P, _P, _I32, _P],
+    } for g in ("g1", "g2")},
 }
 
 _libs: dict = {}

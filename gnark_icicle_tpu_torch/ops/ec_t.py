@@ -14,7 +14,8 @@ take the row stride ``ld``.
 Affine point tables, the MSM's gather source, are row-major: one row of
 2W words (G1: x, y) or 4W words (G2: x0, x1, y0, y1) per point.
 
-Kernels (``csrc/g1.cu``, ``csrc/g2.cu``):
+Kernels (``csrc/g1.cu``, ``csrc/g2.cu``; the reduction and Horner in
+``csrc/g1_reduce.cu``, ``csrc/g2_reduce.cu``):
 
 * ``bucket_accumulate`` — K4/K5 (ops/ec_t.py:529, :896) in their MSM role,
   redesigned for the card: one launch per MSM, each lane adding its whole
@@ -23,13 +24,21 @@ Kernels (``csrc/g1.cu``, ``csrc/g2.cu``):
 * ``add_mixed_masked`` — K4/K5 as one wave step: acc += (±)table[idx] where
   mask, in place, with the gather, sign and mask inside the kernel (setup's
   fixed-base ladders, K6's role);
+* ``bucket_reduce`` and ``horner`` — K2/K3 (ops/ec_t.py:266, :649) in their
+  MSM role, redesigned for the card: the weighted bucket reduction
+  Σ_b (b+1)·S_{w,b} per window in two launches (``reduce_runs``, the running
+  sums over chunks of M buckets; ``reduce_combine``, one block a window) and
+  Horner Σ_w 2^(c·w)·S_w in one (a warp's lanes take each round's
+  independent products), where the reference launches one add or double
+  per round of its scans and Horner loop;
 * ``add`` and ``double`` — the complete RCB16 add and double, the products
-  of K2/K3 (ops/ec_t.py:266, :649) fused per call.
+  of K2/K3 fused per call (the MSM's fold of split buckets; the double has
+  no caller on the path).
 
-The mixed-add entries are built for the b3 of their curve's groups, each in
-its own form (``csrc/field.cuh``: an add chain where b3 is a small integer);
-the wrapper passes which group its b3 is (``group_flag``: 0 G1, 1 G2) and
-launches nothing for a b3 of neither.
+The mixed-add, reduction and Horner entries are built for the b3 of their
+curve's groups, each in its own form (``csrc/field.cuh``: an add chain where
+b3 is a small integer); the wrapper passes which group its b3 is
+(``group_flag``: 0 G1, 1 G2) and launches nothing for a b3 of neither.
 
 For CPU tensors each method runs the plain version, ``ops/ec.py``
 ``DevCurve``; for CUDA tensors it launches the kernel or raises.
@@ -45,13 +54,22 @@ from .ec import DevCurve, DevField, DevField2
 from .field import Field, ints_to_limbs32, to16, to32
 
 
+# entries of one group, in the order of _group_kernels; those from
+# B3_ENTRIES on, and 0, use the b3 form of a group (group_flag)
+ENTRIES = ("add_mixed_masked", "add", "double", "bucket_accumulate", "bucket_reduce",
+           "reduce_combine", "horner")
+B3_ENTRIES = 3
+MIXED = ("add_mixed_masked", "bucket_accumulate")               # K4/K5's roles
+REDUCTION = ("bucket_reduce", "reduce_combine", "horner")
+
+
 def _group_kernels(curve: str, g: str, k_mixed: str, k_mul: str):
-    """(add_mixed_masked, add, double, bucket_accumulate) entries of one
-    group of one curve."""
-    return (Kernel(g, curve, f"{g}_add_mixed_masked", k_mixed),
-            Kernel(g, curve, f"{g}_add", k_mul),
-            Kernel(g, curve, f"{g}_double", k_mul),
-            Kernel(g, curve, f"{g}_bucket_accumulate", k_mixed))
+    """The ENTRIES of one group of one curve: the mixed adds replace
+    k_mixed, the others (the complete add and double, and the reduction
+    and Horner that run them) k_mul; the reduction and Horner entries are
+    built from ``<g>_reduce.cu``, the others from ``<g>.cu``."""
+    return tuple(Kernel(f"{g}_reduce" if e in REDUCTION else g, curve, f"{g}_{e}",
+                        k_mixed if e in MIXED else k_mul) for e in ENTRIES)
 
 
 # base-field modulus -> {"g1": kernels, "g2": kernels} of its curve; the
@@ -76,6 +94,9 @@ def _b3_ints(c) -> list:
 # base-field modulus -> (G1's b3, G2's b3) of its curve, reduced mod p
 _GROUP_B3 = {c.fp.modulus: tuple([v % c.fp.modulus for v in _b3_ints(g)] for g in (c.g1, c.g2))
              for c in (bn254.BN254, bls12_381.BLS12_381, bls12_377.BLS12_377, bw6_761.BW6_761)}
+
+# threads of a combine block at most (csrc/field.cuh COMBINE_T)
+COMBINE_THREADS = 128
 
 # the launch of k_mixed_accumulate (csrc/field.cuh Stage<E>): T threads a
 # block, at least MIN_BLOCKS blocks an SM (its shared memory and at most 255
@@ -184,17 +205,17 @@ class _TCurveBase:
                 f"table must be contiguous, 16-byte aligned (M, {self.row}) int32 rows")
 
     def _kernel(self, i: int) -> Kernel:
-        """Entry i of (add_mixed_masked, add, double, bucket_accumulate);
-        raises for a curve whose kernels are not built, and for a mixed add
-        (0, 3) whose b3 is neither of its curve's groups'."""
+        """Entry i of ENTRIES; raises for a curve whose kernels are not
+        built, and for an entry with a b3 form (0 and from B3_ENTRIES on)
+        whose b3 is neither of its curve's groups'."""
         if self._kernels is None:
             raise NotImplementedError(
                 f"no {self.GROUP} kernels are built for the base field "
                 f"{self.F.modulus:#x}")
-        if i in (0, 3) and self.group_flag is None:
+        if (i == 0 or i >= B3_ENTRIES) and self.group_flag is None:
             raise NotImplementedError(
-                "the mixed-add kernels are built for their curve's G1 and G2 b3 "
-                "(csrc/field.cuh); this b3 is neither")
+                "the mixed-add, reduction and Horner kernels are built for their "
+                "curve's G1 and G2 b3 (csrc/field.cuh); this b3 is neither")
         return self._kernels[i]
 
     # -- the MSM wave step ---------------------------------------------------
@@ -279,10 +300,149 @@ class _TCurveBase:
                       _ptr(sign), start.data_ptr(), count.data_ptr(),
                       self.b3_row(acc.device).data_ptr(), self.group_flag, stream(acc))
 
+    # -- the MSM's bucket reduction and Horner ------------------------------
+    def _padd(self, P, Q):
+        """DevCurve's add of two (planes, W, ...) batches."""
+        shape = P.shape
+        flat = (self.planes, self.W, -1)
+        return self._stack(self.curve.add(self._coords(P.reshape(flat)),
+                                          self._coords(Q.reshape(flat)))).reshape(shape)
+
+    def _pdouble(self, P):
+        shape = P.shape
+        return self._stack(self.curve.double(
+            self._coords(P.reshape(self.planes, self.W, -1)))).reshape(shape)
+
+    def _check_lanes(self, *Ps):
+        self._check_points(*Ps)
+        for P in Ps:
+            require(P.stride(2) == 1 and P.stride(1) == P.shape[2]
+                    and P.stride(0) == P.shape[1] * P.shape[2],
+                    "point planes must be contiguous (planes, W, n)")
+
+    def reduce_runs_plain(self, S, M: int):
+        """The plain version of ``reduce_runs``: lane l's chunk S_{lM+j},
+        j < M, from j = M − 1 down: running += S_j, acc += running."""
+        g = S.reshape(self.planes, self.W, -1, M)
+        run = acc = g[..., M - 1]
+        for j in range(M - 2, -1, -1):
+            run = self._padd(run, g[..., j])
+            acc = self._padd(acc, run)
+        return torch.cat([run, acc]).contiguous()
+
+    def reduce_runs(self, S, M: int):
+        """Running sums of L = n / M chunks of M points: S (planes, W, n)
+        -> (2·planes, W, L), the planes of T_l = Σ_j S_{lM+j} followed by
+        those of A_l = Σ_j (j+1)·S_{lM+j}."""
+        if not is_cuda(S):
+            return self.reduce_runs_plain(S, M)
+        kernel = self._kernel(4)
+        self._check_lanes(S)
+        require(M >= 1 and S.shape[2] % M == 0, "the points must be whole chunks of M")
+        L = S.shape[2] // M
+        out = torch.empty((2 * self.planes, self.W, L), dtype=torch.int32, device=S.device)
+        kernel.launch(S.data_ptr(), L, M, out.data_ptr(), self.b3_row(S.device).data_ptr(),
+                      self.group_flag, stream(S))
+        return out
+
+    def reduce_combine_plain(self, T, A, W: int, V: int, M: int):
+        """The plain version of ``reduce_combine``: the kernel's threads
+        (ct = min(V, COMBINE_THREADS) a window, r = V / ct chunks each) as
+        lanes, in its order: the serial runs (T_t, A_t and G_t =
+        Σ_i i·T_{tr+i}), the suffix scan U_t = Σ_{u≥t} T_u over the threads,
+        Y_t = A_t + M·(G_t + r·U_t) (no U_0) and the tree Σ_t Y_t."""
+        pl, K = self.planes, self.W
+        ct = min(V, COMBINE_THREADS)
+        r = V // ct
+        t = T.reshape(pl, K, W, ct, r)
+        a = A.reshape(pl, K, W, ct, r)
+        Tt, At = t[..., r - 1], a[..., r - 1]
+        G = Tt if r > 1 else None
+        for i in range(r - 2, 0, -1):
+            Tt = self._padd(Tt, t[..., i])
+            G = self._padd(G, Tt)
+        for i in range(r - 2, -1, -1):
+            At = self._padd(At, a[..., i])
+        if r > 1:
+            Tt = self._padd(Tt, t[..., 0])
+        h = 1
+        while h < ct:               # thread t += thread t + h, from before the round
+            Tt = torch.cat([self._padd(Tt[..., :ct - h], Tt[..., h:]), Tt[..., ct - h:]], -1)
+            h *= 2
+        first = 0                   # the first thread with a G term
+        if ct > 1:
+            U = Tt[..., 1:]         # threads 1 .. ct − 1
+            for _ in range(r.bit_length() - 1):
+                U = self._pdouble(U)
+            first = 0 if G is not None else 1
+            G = U if G is None else torch.cat([G[..., :1], self._padd(G[..., 1:], U)], -1)
+        if G is not None:
+            for _ in range(M.bit_length() - 1):
+                G = self._pdouble(G)
+            At = torch.cat([At[..., :first], self._padd(At[..., first:], G)], -1)
+        while At.shape[-1] > 1:     # the tree: pairs 2i, 2i + 1
+            At = self._padd(At[..., 0::2], At[..., 1::2])
+        return At.reshape(pl, K, W).contiguous()
+
+    def reduce_combine(self, T, A, W: int, V: int, M: int):
+        """S_w = Σ_v A_v + M·Σ_v v·T_v per window: T, A (planes, W, W·V),
+        window w's chunks at lanes wV .. wV + V − 1 (V and M powers of two)
+        -> (planes, W, W)."""
+        require(V >= 1 and V & (V - 1) == 0 and M >= 1 and M & (M - 1) == 0,
+                "V and M must be powers of two")
+        if not is_cuda(T, A):
+            return self.reduce_combine_plain(T, A, W, V, M)
+        kernel = self._kernel(5)
+        for X in (T, A):
+            self._check_points(X)
+            require(X.shape[2] == W * V and X.stride(2) == 1
+                    and X.stride(0) == X.shape[1] * X.stride(1) and X.stride(1) == W * V,
+                    "T and A must be (planes, W, W·V) with unit lane stride")
+        out = torch.empty((self.planes, self.W, W), dtype=torch.int32, device=T.device)
+        kernel.launch(T.data_ptr(), A.data_ptr(), W * V, W, V, M.bit_length() - 1,
+                      out.data_ptr(), self.b3_row(T.device).data_ptr(), self.group_flag,
+                      stream(T))
+        return out
+
+    def bucket_reduce(self, buckets, W: int, V: int):
+        """Σ_b (b+1)·S_{w,b} per window: buckets (planes, W, W·B) -> (planes,
+        W, W), the B = V·M buckets of each window in V chunks of M. With M =
+        1 the chunks are the buckets (T = A = S) and only the combine runs."""
+        M = buckets.shape[2] // (W * V)
+        if M == 1:
+            return self.reduce_combine(buckets, buckets, W, V, 1)
+        TA = self.reduce_runs(buckets, M)
+        return self.reduce_combine(TA[:self.planes], TA[self.planes:], W, V, M)
+
+    def horner_plain(self, S, c: int):
+        """The plain version of ``horner``: res = S_{W−1}; per window from
+        W − 2 down, c doubles and res += S_w."""
+        W = S.shape[2]
+        res = S[..., W - 1:W]
+        for w in range(W - 2, -1, -1):
+            for _ in range(c):
+                res = self._pdouble(res)
+            res = self._padd(res, S[..., w:w + 1])
+        return res.contiguous()
+
+    def horner(self, S, c: int):
+        """Σ_w 2^(c·w)·S_w of the window sums S (planes, W, W) -> (planes,
+        W, 1): one warp, each round's independent products on lanes of
+        their own."""
+        if not is_cuda(S):
+            return self.horner_plain(S, c)
+        kernel = self._kernel(6)
+        self._check_lanes(S)
+        require(S.shape[2] >= 1, "Horner takes at least one window")
+        out = torch.empty((self.planes, self.W, 1), dtype=torch.int32, device=S.device)
+        kernel.launch(S.data_ptr(), S.shape[2], c, out.data_ptr(),
+                      self.b3_row(S.device).data_ptr(), self.group_flag, stream(S))
+        return out
+
     # -- complete add and double ---------------------------------------------
     def add(self, P, Q):
         if not is_cuda(P, Q):
-            return self._stack(self.curve.add(self._coords(P), self._coords(Q)))
+            return self._padd(P, Q)
         kernel = self._kernel(1)
         self._check_points(P, Q)
         P, Q = self._lanes(P), self._lanes(Q)
@@ -297,7 +457,7 @@ class _TCurveBase:
 
     def double(self, P):
         if not is_cuda(P):
-            return self._stack(self.curve.double(self._coords(P)))
+            return self._pdouble(P)
         kernel = self._kernel(2)
         self._check_points(P)
         P = self._lanes(P)

@@ -4,7 +4,7 @@ Port of gnark_icicle_tpu/ops/msm.py ``MSMKernel.msm`` (:521) on its
 transposed path: signed c-bit digits (:82), one payload sort per window,
 ``searchsorted`` bucket runs, the weighted bucket reduction
 (``_bucket_reduce_t``/``_weighted_chunked_t`` :399-469) and Horner over the
-windows. ``pick_window`` (:51) is copied; the windows follow the scalar
+windows (:637-642). ``pick_window`` (:51) is copied; the windows follow the scalar
 field's bits as in the reference (254 bits for BN254 r, 255 for BLS12-381 r,
 253 for BLS12-377 r: 17 windows of 16 bits; 377 for BW6-761 r: 25 windows of
 16 bits, 36 of the 11 bits that about 46k points get).
@@ -25,6 +25,17 @@ is the same point. The ≤128-point scan path and the affine wave are not
 ported: a small MSM takes the same Pippenger path and gives the same
 affine point.
 
+The reduction and Horner are redesigned too. The reference runs the
+running sums over V = 2,048 chunks as one scan step per bucket of a chunk,
+three log-depth suffix scans over the chunks and Horner's doublings, each
+round a launch of the group's add or double (342 launches per Chain MSM).
+Here ``bucket_reduce`` (``ops/ec_t.py``) takes two launches: the running
+sums, one thread per (window, chunk), V from ``reduce_chunks`` so that the
+W·V threads fill the card, and the combine Σ_v A_v + M·Σ_v v·T_v (the
+reference's identity, :410) in one block per window with O(V) adds; then
+``horner`` is one launch. The order of the adds differs from the
+reference's, so the projective limbs do too; the affine point is the same.
+
 Inputs: an affine point table of rows (``TCurve.table``), an ``(N,)`` bool
 infinity mask (those lanes go to the trash bucket B, as at :540-542), and
 the scalars as plain-form ``(Wr, N)`` int32 32-bit limbs (Wr words of the
@@ -34,7 +45,6 @@ scalar field: 8, or 12 for BW6-761 r). The result is one projective point,
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from .cuda import resolve_device
@@ -48,6 +58,17 @@ def pick_window(n: int) -> int:
         return 16
     log = max(int(n).bit_length() - 1, 1)
     return max(2, min(16, log // 2 + 4))
+
+
+def reduce_chunks(W: int, B: int, lanes: int) -> int:
+    """Chunks V per window of the bucket reduction's running sums: the
+    smallest power of two with W·V ≥ lanes (the card's resident lanes,
+    ``ops/ec_t.py`` ``resident_lanes``), at most B. On an H100 (33,792
+    lanes) the Chain's 17 windows of 2^15 buckets get V = 2,048 (M = 16
+    buckets a chunk), BW6-761's 33 windows of 2^11 get 1,024 (M = 2) and its
+    36 windows of 2^10 get 1,024 (M = 1: the chunks are the buckets)."""
+    need = -(-lanes // W)
+    return min(B, 1 << (need - 1).bit_length())
 
 
 def segment_length(n: int, c: int, scalar_bits: int, lanes: int) -> int:
@@ -104,65 +125,6 @@ class MSMKernel:
             carry = wrap.to(torch.int64)
             digits.append(torch.where(wrap, d - (1 << c), d))
         return torch.stack(digits)
-
-    # -- phase 3 primitives: scans along the last axis -----------------------
-    def _suffix_scan(self, P: torch.Tensor, m: int) -> torch.Tensor:
-        """Inclusive suffix sums out_i = Σ_{j≥i} P_j along the last axis of
-        (planes, W, ..., m), as log₂(m) rounds of roll + add + select."""
-        if m == 1:
-            return P
-        tc = self.tc
-        shape = P.shape
-        lane = torch.arange(m, device=P.device)
-        for k in range(int(np.ceil(np.log2(m)))):
-            shift = 1 << k
-            rolled = torch.roll(P, -shift, dims=-1)
-            added = tc.add(P.reshape(shape[0], shape[1], -1),
-                           rolled.reshape(shape[0], shape[1], -1)).reshape(shape)
-            P = torch.where((lane + shift) < m, added, P)
-        return P
-
-    def _weighted_chunked(self, P: torch.Tensor, m: int,
-                          chunk: int = 2048) -> torch.Tensor:
-        """Σ_{i<m} (i+1)·P_i along the last axis (m ≥ 2, a power of two),
-        work-efficient: i = v·M + j with V lanes and M serial steps of the
-        running/acc recurrence, then Σ (vM+j+1)·P = Σ_v acc_v + M·Σ_v v·T_v.
-
-        V is ``chunk`` for m above it, as in the reference; for m ≤ chunk the
-        split is square (V = 2^⌈log₂m/2⌉) where the reference runs a double
-        suffix scan over all m lanes (ops/msm.py:421), which costs
-        2·m·log₂m lane-adds against about 5·m here. Σ_v v·T_v is read at
-        lane 1 of the second suffix scan (Σ_{v≥1} of the suffix sums); the
-        reference forms it as Σ_v (v+1)·T_v − Σ_v T_v (ops/msm.py:450-454).
-        Same point either way, no negation and one add fewer."""
-        V = chunk if m > chunk else 1 << -(-(m.bit_length() - 1) // 2)
-        M = m // V
-        assert V * M == m and M & (M - 1) == 0 and V >= 2, \
-            "m, chunk must be powers of 2"
-        tc = self.tc
-        planes, W, lead = P.shape[0], P.shape[1], P.shape[2:-1]
-        g = P.reshape((planes, W) + lead + (V, M))
-        width = g[..., 0].numel() // (planes * W)
-        running = tc.identity(width, P.device)
-        acc = tc.identity(width, P.device)
-        for j in range(M - 1, -1, -1):  # running_v = T_v, acc_v = Σ_j (j+1)·P_vj
-            running = tc.add(running, g[..., j].reshape(planes, W, width))
-            acc = tc.add(acc, running)
-        shp = (planes, W) + lead + (V,)
-        sum_a = self._suffix_scan(acc.reshape(shp), V)[..., 0]
-        s1 = self._suffix_scan(running.reshape(shp), V)
-        hi = self._suffix_scan(s1, V)[..., 1]
-        hi = hi.reshape(planes, W, -1)
-        for _ in range(M.bit_length() - 1):
-            hi = tc.double(hi)
-        out = tc.add(hi, sum_a.reshape(planes, W, -1))
-        return out.reshape((planes, W) + lead)
-
-    def _bucket_reduce(self, buckets: torch.Tensor, W: int, B: int):
-        """Σ_b (b+1)·bucket[w, b] per window: (planes, K, W·B) -> (planes, K, W)
-        (K words per coordinate plane)."""
-        grid = buckets.reshape(buckets.shape[0], buckets.shape[1], W, B)
-        return self._weighted_chunked(grid, B)
 
     # -- phase 2: bucket sums -----------------------------------------------
     def _runs(self, inf_mask: torch.Tensor, scalars: torch.Tensor, c: int):
@@ -256,19 +218,15 @@ class MSMKernel:
                                         resident_lanes(table.device)))
 
     def _msm(self, table, inf_mask, scalars, c: int, seg: int) -> torch.Tensor:
-        """msm with lanes of at most seg points (tests split small MSMs)."""
+        """msm with lanes of at most seg points (tests split small MSMs):
+        bucket sums, then Σ_b (b+1)·S_{w,b} per window (bucket_reduce) and
+        Σ_w 2^(c·w)·S_w (horner)."""
         tc = self.tc
         order, sign, starts, counts, W, B = self._runs(inf_mask, scalars, c)
         buckets = self._accumulate(table, order, sign, starts, counts, seg)
-        per_window = self._bucket_reduce(buckets, W, B)           # (pl, K, W)
-
-        # Horner over windows, top-down: acc = acc·2^c + S_w
-        res = per_window[..., W - 1:W]
-        for w in range(W - 2, -1, -1):
-            for _ in range(c):
-                res = tc.double(res)
-            res = tc.add(res, per_window[..., w:w + 1])
-        return res
+        V = reduce_chunks(W, B, resident_lanes(table.device))
+        per_window = tc.bucket_reduce(buckets, W, V)              # (pl, K, W)
+        return tc.horner(per_window, c)
 
 
 def msm_host(tc: _TCurveBase, scalar_field, points_host, scalars_host,

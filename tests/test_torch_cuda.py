@@ -148,6 +148,43 @@ def test_bucket_accumulate_matches_plain(cuda_device, name, group):
 
 @pytest.mark.parametrize("name", NAMES)
 @pytest.mark.parametrize("group", ["g1", "g2"])
+def test_reduction_kernels_match_plain(cuda_device, name, group):
+    """The running sums, the combine and Horner against their plain
+    versions, limb for limb: random coordinates with identity lanes
+    and an identity window; M = 64, 8, 2 and 1 (the combine alone), V = 1,
+    8 (fewer chunks than combine threads) and 256, 512 (r = 2, 4 chunks a
+    thread); Horner at W = 5, c = 4 and at one window."""
+    P = CURVES[name].fp.modulus
+    tc = _group(CURVES[name], group)
+    F = tc.F
+
+    def rand_planes(seed, count):
+        S = torch.stack([F.encode(rand_ints(seed + i, P, count), cuda_device)
+                         for i in range(tc.planes)])
+        S[..., ::7] = tc.identity(S[..., ::7].shape[2], cuda_device)
+        return S
+
+    for W, B, Vs in ((3, 64, (1, 8)), (2, 512, (256, 512))):
+        S = rand_planes(400 + B, W * B)
+        S[..., :B] = tc.identity(B, cuda_device)   # window 0 empty
+        for V in Vs:
+            M = B // V
+            TA = tc.reduce_runs(S, M)
+            assert torch.equal(TA, tc.reduce_runs_plain(S, M))
+            T, A = TA[:tc.planes], TA[tc.planes:]
+            assert torch.equal(tc.reduce_combine(T, A, W, V, M),
+                               tc.reduce_combine_plain(T, A, W, V, M))
+            assert torch.equal(tc.bucket_reduce(S, W, V),
+                               tc.reduce_combine_plain(T, A, W, V, M) if M > 1
+                               else tc.reduce_combine_plain(S, S, W, V, 1))
+    for W in (5, 1):
+        S = rand_planes(450 + W, W)
+        want = tc.horner_plain(S, 4)
+        assert torch.equal(tc.horner(S, 4), want)
+
+
+@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("group", ["g1", "g2"])
 @pytest.mark.parametrize("scalars", ["random", "skewed"])
 def test_msm_matches_host_oracle(cuda_device, name, group, scalars):
     """300 points, every 7th at infinity. Random scalars lead with 0, 1 and

@@ -40,6 +40,7 @@ DRIVER = r"""
 #include <cstdio>
 #include <iostream>
 #include <string>
+#include <vector>
 #include "field.cuh"
 
 template <class P> Elt<P> rd() {
@@ -98,12 +99,82 @@ template <class E, class B3, class RD, class WR> void group_ops(RD rd, WR wr) {
       const RegPoint<E> q{X2, Y2};
       ec_add_mixed_lazy<E>(acc, q, B3(reinterpret_cast<const uint32_t*>(&b3)), [] {});
       X3 = lcanon(acc.X); Y3 = lcanon(acc.Y); Z3 = lcanon(acc.Z);
-    } else if (op == "add") {
-      ec_add(X1, Y1, Z1, X2, Y2, Z2, b3, X3, Y3, Z3);
-    } else {
-      ec_double(X1, Y1, Z1, b3, X3, Y3, Z3);
+    } else {  // the complete add and double of every kernel, b3 by the row product
+      RegPt<E> p{X1, Y1, Z1};
+      RegScratch<E> s;
+      if (op == "add") ec_add_to<E>(p, RegPt<E>{X2, Y2, Z2}, s, RowB3<E>{b3});
+      else ec_double_in<E>(p, s, RowB3<E>{b3});
+      X3 = p.X; Y3 = p.Y; Z3 = p.Z;
     }
     wr(X3); wr(Y3); wr(Z3); printf("\n");
+  }
+}
+
+// "reduce <b3 row> W B V c <W B points X Y Z>": the reduction's stages as
+// the kernels run them, threads and lanes one after another: the running
+// sums per (window, chunk) (none for M = 1), the combine per window (serial
+// runs, then the scan and the tree round by round) and Horner's warp phases
+// lane by lane. Prints the W window sums, then Horner's sum.
+template <class E, class B3, class RD, class WR> void reduce_ops(RD rd, WR wr) {
+  std::string op;
+  while (std::cin >> op && op != "end") {
+    E row = rd();
+    long long W, B, V;
+    int c;
+    std::cin >> std::dec >> W >> B >> V >> c;
+    const CanonB3<B3> b3{B3(reinterpret_cast<const uint32_t*>(&row))};
+    RegScratch<E> s;
+    InlineOps<E, RegScratch<E>, CanonB3<B3>> ops{s, b3};
+    const long long n = W * B, M = B / V, L = W * V, pw = (long long)E::N * Coord<E>::NP;
+    std::vector<uint32_t> S(3 * pw * n), TA(6 * pw * L), out(3 * pw * W);
+    for (long long i = 0; i < n; ++i)
+      for (int k = 0; k < 3; ++k) Coord<E>::store(S.data() + k * pw * n, n, i, rd());
+    const uint32_t *T = S.data(), *A = S.data();
+    long long ld = n;
+    if (M > 1) {
+      for (long long l = 0; l < L; ++l) {
+        RegPt<E> run, acc;
+        reduce_run<E>(run, acc, ops, (int)M,
+                      [&](int j) { return PlanePt<E>{S.data(), n, l * M + j}; });
+        store_point<E>(TA.data(), L, l, run);
+        store_point<E>(TA.data() + 3 * pw * L, L, l, acc);
+      }
+      T = TA.data();
+      A = TA.data() + 3 * pw * L;
+      ld = L;
+    }
+    const int ct = V < COMBINE_T ? (int)V : COMBINE_T, r = (int)V / ct;
+    for (long long w = 0; w < W; ++w) {
+      std::vector<RegPt<E>> Tt(ct), G(ct), Ac(ct), D(ct);
+      for (int t = 0; t < ct; ++t) {
+        const long long a = w * V + (long long)t * r;
+        combine_run<E>(Tt[t], G[t], Ac[t], ops, r, [&](int i) { return PlanePt<E>{T, ld, a + i}; },
+                       [&](int i) { return PlanePt<E>{A, ld, a + i}; });
+      }
+      for (int h = 1; h < ct; h <<= 1) {
+        for (int t = 0; t + h < ct; ++t) set_point<E>(D[t], Tt[t + h]);
+        for (int t = 0; t + h < ct; ++t) ops.add(Tt[t], D[t]);
+      }
+      for (int t = 0; t < ct; ++t)
+        combine_weight<E>(Tt[t], G[t], Ac[t], ops, r > 1, t > 0, log2_pow2(r), log2_pow2(M));
+      for (int h = 1; h < ct; h <<= 1)
+        for (int t = 0; t < ct; t += 2 * h) ops.add(Ac[t], Ac[t + h]);
+      store_point<E>(out.data(), W, w, Ac[0]);
+      wr(Ac[0].X); wr(Ac[0].Y); wr(Ac[0].Z); printf("\n");
+    }
+    auto win = [&](long long w) { return PlanePt<E>{out.data(), W, w}; };
+    E h[3] = {win(W - 1).x(), win(W - 1).y(), win(W - 1).z()}, bank[12];
+    for (long long w = W - 2; w >= 0; --w) {
+      for (int i = 0; i < c; ++i) {
+        for (int l = 0; l < 32; ++l) hdbl_products<E>(h, bank, l);
+        for (int l = 0; l < 32; ++l) hdbl_second<E>(bank, b3, l);
+        for (int l = 0; l < 32; ++l) hdbl_finish<E>(h, bank, l);
+      }
+      for (int l = 0; l < 32; ++l) hadd_products<E>(h, win(w), bank, l);
+      for (int l = 0; l < 32; ++l) hadd_second<E>(bank, b3, l);
+      for (int l = 0; l < 32; ++l) hadd_finish<E>(h, bank, l);
+    }
+    wr(h[0]); wr(h[1]); wr(h[2]); printf("\n");
   }
 }
 
@@ -114,13 +185,16 @@ int main() {
     else if (which == "fr") field_ops<CurveFr>();
     else if (which == "g1") group_ops<Elt<CurveFp>, G1B3>(rd<CurveFp>, wr<CurveFp>);
     else if (which == "b3g1") b3_ops<Elt<CurveFp>, G1B3>(rd<CurveFp>, wr<CurveFp>);
+    else if (which == "rg1") reduce_ops<Elt<CurveFp>, G1B3>(rd<CurveFp>, wr<CurveFp>);
 #if defined(CURVE_BW6_761)  // BW6-761 has no Fp2; its G2 over Fp runs the g1 law
     else if (which == "g2") group_ops<Elt<CurveFp>, TwistB3>(rd<CurveFp>, wr<CurveFp>);
     else if (which == "b3g2") b3_ops<Elt<CurveFp>, TwistB3>(rd<CurveFp>, wr<CurveFp>);
+    else if (which == "rg2") reduce_ops<Elt<CurveFp>, TwistB3>(rd<CurveFp>, wr<CurveFp>);
 #else
     else if (which == "f2") f2_ops<CurveFp>();
     else if (which == "g2") group_ops<Elt2<CurveFp>, G2B3>(rd2<CurveFp>, wr2<CurveFp>);
     else if (which == "b3g2") b3_ops<Elt2<CurveFp>, G2B3>(rd2<CurveFp>, wr2<CurveFp>);
+    else if (which == "rg2") reduce_ops<Elt2<CurveFp>, G2B3>(rd2<CurveFp>, wr2<CurveFp>);
 #endif
     fflush(stdout);
   }
@@ -353,3 +427,58 @@ def test_mixed_kernel_launch_matches_resident_lanes():
     assert int(re.search(r"int MIN_BLOCKS = (\d+);", stage).group(1)) == MIXED_MIN_BLOCKS
     assert "__launch_bounds__(Stage<E>::T)" in src
     assert "static_assert(MIN_BLOCKS * (bytes() + 1024) <= 228 * 1024" in stage
+
+
+@pytest.mark.parametrize("name", sorted(CURVES))
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_reduction_stages_match_plain(host_build, name, group):
+    """The reduction's running sums, combine (serial runs and tree) and
+    Horner (the warp's phases, lane by lane) with this
+    build's b3 form, against the plain versions of ops/ec_t.py, limb for
+    limb: W = 2 windows of B = 4 buckets in V = 2 chunks (M = 2), of B = 8
+    in V = 8 (M = 1, three tree levels), and one of B = 512 in V = 256 (M =
+    2, two chunks a combine thread, seven levels), c = 2; random coordinates
+    (the formulas are arithmetic, so any field elements test them) with
+    identity buckets and edge values."""
+    import torch
+
+    from gnark_icicle_tpu_torch.ops.ec_t import TCurve, TCurve2
+    from gnark_icicle_tpu_torch.ops.field import field_for
+
+    curve = CURVES[name]
+    p = curve.fp.modulus
+    n = words_for(p)
+    R = 1 << (32 * n)
+    F = field_for(p)
+    fp2 = group == "g2" and g2_over_fp2(curve)
+    G = curve.g1 if group == "g1" else curve.g2
+    tc = (TCurve2(F, curve.tower.beta, G.b * 3) if fp2 else TCurve(F, 3 * G.b % p))
+    b3 = [G.b.c0 * 3 % p, G.b.c1 * 3 % p] if fp2 else [3 * G.b % p]
+    rng = random.Random(23)
+    edge = [0, 1, p - 1, (R - 1) % p]
+    lines, want = ["r" + group], []
+    for W, B, V, c in ((2, 4, 2, 2), (2, 8, 8, 2), (1, 512, 256, 2)):
+        planes = [[rng.randrange(p) for _ in range(W * B)] for _ in range(tc.planes)]
+        planes[0][:4] = edge
+        for i in (1, W * B - 1):          # identity buckets (0 : 1 : 0)
+            for k in range(tc.planes):
+                planes[k][i] = 1 if k == tc.NP else 0
+        words = [" ".join(_words(v * R % p, n) for v in vals) for vals in zip(*planes)]
+        lines.append("reduce " + " ".join(_words(v * R % p, n) for v in b3)
+                     + f" {W} {B} {V} {c} " + " ".join(words))
+        S = torch.stack([F.encode(vals, "cpu") for vals in planes])
+        per_window = tc.bucket_reduce(S, W, V)
+        horner = tc.horner(per_window, c)
+        want += [per_window[..., w] for w in range(W)] + [horner[..., 0]]
+    lines.append("end")
+    got = _run(host_build[name], lines)
+    assert len(got) == len(want)
+    for line, w in zip(got, want):
+        assert _ints(line, n) == _words_of(w)
+
+
+def _words_of(t) -> list:
+    """(planes, n) int32 Montgomery words -> the int of each plane."""
+    return [sum((int(x) & 0xFFFFFFFF) << (32 * i) for i, x in enumerate(t[k].tolist()))
+            for k in range(t.shape[0])]
+
