@@ -9,10 +9,13 @@ at 12, G2 over Fp), phases print one JSON line each on stdout:
   1. build: compile every (CUDA source, curve) pair in
      gnark_icicle_tpu_torch/csrc/ (BW6-761 builds no g2.cu), all nvcc
      processes at once, and report each one's seconds and ptxas's registers
-     and spills; phase 4's Chain circuits are compiled (host Python) while
-     nvcc runs;
+     and spills; the Chain circuits of phases 4 and plonk are compiled
+     (host Python) while nvcc runs;
   2. kernels: each kernel entry against its plain PyTorch version on the
-     card, bit-equal (Fr product, subtraction and NTT stage at 2^16 lanes;
+     card, bit-equal (Fr product, subtraction, addition and NTT stage at
+     2^16 lanes; PLONK's quotient at 2^16 rows, every input holding 0, 1,
+     p - 1, p - 2 and values near R, and again, timed, at the 4n rows of
+     the curve's PLONK path, as fr_add and an NTT stage are;
      G1 and G2 masked signed mixed add, add and double at 2^14 lanes, with
      operands at 0, 1, p - 1, p - 2 and near R; the bucket accumulation on
      the lanes of a skewed 2^12-point MSM, whose long runs are split, the
@@ -49,7 +52,17 @@ at 12, G2 over Fp), phases print one JSON line each on stdout:
      two timed proves and a profiled one on the card, verify, and the inner
      public input + 1 rejected; launch counts as in phase 4, *_add included
      (its MSMs split the top windows' buckets);
-  5. the JSON line of all kernels (the counts of their own curve's path);
+  plonk: the port's PLONK (KZG commitments on the G1 MSM, the 4n coset
+     transforms, the fused quotient) on each curve's SCS Chain
+     (bench.py:359 bench_plonk): 2^17 gates on BN254 and BLS12-381 (a 2^19
+     coset), 2^10 on BLS12-377 and BW6-761: setup (SRS, host and commit
+     split), a first prove, two timed proves with their stage times (solve,
+     round-1 commits, Z, quotient, linearization and openings), one under
+     torch.profiler, verify and a tampered public input rejected; the
+     path's launches as above, with fr_add and plonk_quotient on it and no
+     g2_* entry;
+  5. the JSON line of all kernels (each with its launches on each of its
+     curve's paths, and their sum; every kernel but *_double ran on one);
   6. the card's name and power limit from nvidia-smi.
 The last line is {"ok": true, "device": {...}}. Any failure raises: the
 script exits non-zero and prints no such line. It needs one CUDA card and
@@ -71,6 +84,11 @@ CURVE_NAMES = ("bn254", "bls12_381", "bls12_377", "bw6_761")
 CHAIN_CURVES = ("bn254", "bls12_381", "bls12_377")   # phase 4
 # Chain(2^17 - 2): 131,510 constraints
 CHAIN_LOG = {"bn254": 17, "bls12_381": 17, "bls12_377": 17}
+# phase plonk: the domain of each curve's SCS Chain (bench.py:359
+# bench_plonk, ((2^log - 16) / 3) steps): 2^17 (131,056 gates, a 2^19 coset)
+# on BN254 and BLS12-381; a small circuit on BLS12-377 and BW6-761, so that
+# their PLONK entries have a path
+PLONK_LOG = {"bn254": 17, "bls12_381": 17, "bls12_377": 10, "bw6_761": 10}
 REPS_KERNEL = 20    # timed launches per kernel
 N_FR = 1 << 16      # lanes of the Fr kernel checks
 N_EC = 1 << 14      # lanes of the group-law kernel checks
@@ -112,12 +130,16 @@ def slice_shapes(name: str) -> dict:
     W = 33, B = 2^11; the wires' MSMs at c = 11: W = 36, B = 2^10; setup's
     G1 ladder over 3·35,856 − 2 + 65,535 scalars, its G2 ladder over
     35,856). The G2 MSM is B2 over the wires: 131,512 points on the Chain,
-    35,856 on BW6-761."""
+    35,856 on BW6-761. "plonk" is the 4n rows of the curve's PLONK
+    quotient (PLONK_LOG)."""
     if name == "bw6_761":
-        return _path_shapes(16, 1 << 16, 35856, 377,
-                            {"g1": 3 * 35856 - 2 + 65535, "g2": 35856}, 35856)
-    bits = {"bn254": 254, "bls12_381": 255, "bls12_377": 253}[name]
-    return _path_shapes(18, 1 << 18, 1 << 17, bits, {"g1": 1 << 18, "g2": 131512}, 131512)
+        shapes = _path_shapes(16, 1 << 16, 35856, 377,
+                              {"g1": 3 * 35856 - 2 + 65535, "g2": 35856}, 35856)
+    else:
+        bits = {"bn254": 254, "bls12_381": 255, "bls12_377": 253}[name]
+        shapes = _path_shapes(18, 1 << 18, 1 << 17, bits, {"g1": 1 << 18, "g2": 131512},
+                              131512)
+    return {**shapes, "plonk": 4 << PLONK_LOG[name]}
 # The card's rates for the bound (the least time the card could take): HBM
 # bandwidth from NVIDIA's H100 SXM data sheet; 32-bit integer multiply-adds
 # at 64 per SM per clock (compute capability 9.0), at the card's maximum SM
@@ -259,7 +281,9 @@ def phase_kernels(device, name: str, rates: dict) -> list:
     from gnark_icicle_tpu_torch.ops import cuda as kc
     from gnark_icicle_tpu_torch.ops.ec_t import TCurve, TCurve2, resident_lanes
     from gnark_icicle_tpu_torch.ops.field import field_for, ints_to_limbs32, to_lanes
-    from gnark_icicle_tpu_torch.ops.field_t import TField
+    from gnark_icicle_tpu_torch.ops.field_t import (
+        QUOTIENT_CONSTS, QUOTIENT_INPUTS, TField, plonk_quotient_plain,
+    )
     from gnark_icicle_tpu_torch.ops.msm import (
         MSMKernel, pick_window, reduce_chunks, segment_length,
     )
@@ -326,6 +350,34 @@ def phase_kernels(device, name: str, rates: dict) -> list:
     record("fr_sub", _max_abs_err(tf.sub(a, b), fr.sub(a, b)),
            f"({fr.n32}, {nf})", big, tf.sub, fr.sub, 3 * lane * nf, 0, fr.n32)
 
+    # PLONK: fr_add and the quotient at N_FR rows with 0, 1, p − 1, p − 2 and
+    # values near R in every input (each array's edges on rows of their
+    # own), then at the 4n rows of the curve's PLONK path
+    m4 = shapes["plonk"]
+    big4 = list(_rand_dev(fr, 2, m4, device))
+    record("fr_add", max(_max_abs_err(tf.add(a, b), fr.add(a, b)),
+                         _max_abs_err(tf.add(a, a), fr.add(a, a))),
+           f"({fr.n32}, {m4})", big4, tf.add, fr.add, 3 * lane * m4, 0, fr.n32)
+    edge_vals = _rand_fe(rng, R, n)
+    n_in = len(QUOTIENT_INPUTS) + 2
+    q_in = torch.stack([fr.encode(edge_vals[3 * i:] + edge_vals[:3 * i], device)
+                        for i in range(n_in)])
+    zh = fr.encode(_rand_fe(rng, R, 7)[2:6], device)            # p − 1, p − 2, near R
+    consts = fr.encode([rng.randrange(R) for _ in range(len(QUOTIENT_CONSTS) - 1)] + [1],
+                       device)
+
+    def quotient(fn):
+        def run(E, zh_, c):
+            return fn(list(E[:n_in - 2]), E[n_in - 2], E[n_in - 1], zh_, c)
+        return run
+
+    run_q = quotient(tf.plonk_quotient)
+    run_q_plain = quotient(lambda *args: plonk_quotient_plain(fr, *args))
+    record("plonk_quotient", _max_abs_err(run_q(q_in, zh, consts), run_q_plain(q_in, zh, consts)),
+           f"{n_in} x ({fr.n32}, {m4})", [_rand_dev(fr, n_in, m4, device), zh, consts],
+           run_q, run_q_plain, (n_in + 1) * lane * m4 + 11 * lane, 21 * m4, fr.n32,
+           products_per_row=21)
+
     def stage(fn, m, stride, dif):
         def run(x, tw):
             fn(fr, x, m, stride, tw, dif)
@@ -344,6 +396,13 @@ def phase_kernels(device, name: str, rates: dict) -> list:
            stage(ntt_stage, big_m, stride, True),
            stage(ntt_stage_plain, big_m, stride, True),
            2 * lane * big_n + lane * big_m, big_n // 2, fr.n32)
+    # the PLONK path's 4n coset transforms: a stage at m4 points
+    m_half = max(m4 >> 6, 1)
+    record("ntt_stage", err, f"n={m4}, m={m_half}",
+           [_rand_dev(fr, 1, m4, device)[0], _rand_dev(fr, 1, m4 // 2, device)[0]],
+           stage(ntt_stage, m_half, m4 // (2 * m_half), True),
+           stage(ntt_stage_plain, m_half, m4 // (2 * m_half), True),
+           2 * lane * m4 + lane * m_half, m4 // 2, fr.n32)
 
     # G1 and G2: random coordinates (the formulas are arithmetic, so any field
     # elements test them), identity lanes, random signs and masks
@@ -715,34 +774,41 @@ def _profiled(run) -> dict:
             "top": [{"kernel": k, "device_ms": ms, "launches": c} for k, (ms, c) in top]}
 
 
-def _prove_path(device, name: str, cs, pub, sec, bad_pub, phase: str, split: bool,
+def _prove_path(device, name: str, system: str, cs, pub, sec, bad_pub, phase: str,
                 **report) -> tuple:
     """Setup, a first prove, two timed proves and one under torch.profiler
-    for one compiled circuit on one curve, then verify and a tampered public
-    input. The curve's launch counts are set to 0 just before setup and read
-    just after the last prove, and must be the path's expected ones
-    (_check_launches; split: the path's MSMs split buckets). Returns
+    for one compiled circuit on one curve with one proof system ("groth16"
+    or "plonk": the port's backend of that name), then verify and a
+    tampered public input. The curve's launch counts are set to 0 just
+    before setup and read just after the last prove, and must be the path's
+    expected ones (_check_launches, by phase). Each prove's stage times and
+    setup's split come from the backend's log lines ("<system> prove:
+    <stage> took=", "<system> setup: <part> took=, ..."). Returns
     (launches, vk, proof)."""
+    import importlib
+
     import torch
 
-    from gnark_icicle_tpu_torch.backend import groth16
     from gnark_icicle_tpu_torch.ops import cuda as kc
 
+    backend = importlib.import_module(f"gnark_icicle_tpu_torch.backend.{system}")
     curve = _curves()[name]
     phases, setup_split = [], {}
 
+    def took(part: str) -> tuple:
+        """"<name> took=<seconds>s" -> (name, seconds)"""
+        key, secs = part.rsplit(" took=", 1)
+        return key.strip(), float(secs.rstrip("s"))
+
     class Grab(logging.Handler):
         def emit(self, record):
-            msg = record.msg
-            if not isinstance(msg, str):
-                return
-            if msg.startswith("groth16 setup: "):
-                setup_split.update(host_s=float(record.args[0]),
-                                   points_s=float(record.args[1]))
-            elif msg.startswith("groth16 prove: ") and "took=" in msg \
+            msg = record.getMessage()
+            if msg.startswith(f"{system} setup: "):
+                setup_split.update((k.replace(" ", "_") + "_s", v) for k, v in
+                                   map(took, msg.split(": ", 1)[1].split(", ")))
+            elif msg.startswith(f"{system} prove: ") and "took=" in msg \
                     and "curve=" not in msg:
-                phases.append((msg.split(":")[1].split("took")[0].strip(),
-                               float(record.args[0])))
+                phases.append(took(msg.split(": ", 1)[1]))
 
     log = logging.getLogger("gnark_icicle_tpu")
     grab = Grab(level=logging.INFO)
@@ -753,73 +819,103 @@ def _prove_path(device, name: str, cs, pub, sec, bad_pub, phase: str, split: boo
         k.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    pk, vk = groth16.setup(cs, curve, rng=random.Random(1), device=device)
+    pk, vk = backend.setup(cs, curve, rng=random.Random(1), device=device)
     t_setup = time.perf_counter() - t0
     rng = random.Random(2)
     t0 = time.perf_counter()
-    groth16.prove(cs, pk, pub, sec, curve, rng=rng, device=device)
+    backend.prove(cs, pk, pub, sec, curve, rng=rng, device=device)
     t_first = time.perf_counter() - t0
     timed = []
     for _ in range(2):
         phases.clear()
         t0 = time.perf_counter()
-        proof = groth16.prove(cs, pk, pub, sec, curve, rng=rng, device=device)
+        proof = backend.prove(cs, pk, pub, sec, curve, rng=rng, device=device)
         timed.append({"seconds": time.perf_counter() - t0, **dict(phases)})
-    profiled = _profiled(lambda: groth16.prove(cs, pk, pub, sec, curve, rng=rng,
+    profiled = _profiled(lambda: backend.prove(cs, pk, pub, sec, curve, rng=rng,
                                                device=device))
     launches = {k.name: k.launches for k in kc.KERNELS.values() if k.curve == name}
     peak = torch.cuda.max_memory_allocated()
     log.removeHandler(grab)
 
     t0 = time.perf_counter()
-    groth16.verify(proof, vk, pub, curve)
+    backend.verify(proof, vk, pub, curve)
     t_verify = time.perf_counter() - t0
-    if groth16.is_valid(proof, vk, bad_pub, curve):
+    if backend.is_valid(proof, vk, bad_pub, curve):
         raise AssertionError("the verifier accepted a tampered public input")
-    _say(phase, curve=curve.name, constraints=cs.nb_constraints, wires=cs.nb_wires,
-         domain_log_n=pk.domain_log_n, **report, setup_s=t_setup,
-         setup_split=setup_split, first_prove_s=t_first, proves=timed,
-         profiled_prove=profiled, peak_device_bytes=peak, verify_s=t_verify,
-         verified=True, tampered_rejected=True)
-    _check_launches(name, launches, split)
-    _say("launches", curve=curve.name, **launches)
+    domain = pk.domain_log_n if system == "groth16" else pk.log_n
+    size = ({"constraints": cs.nb_constraints} if system == "groth16"
+            else {"gates": cs.nb_gates})
+    _say(phase, curve=curve.name, **size, wires=cs.nb_wires, domain_log_n=domain,
+         **report, setup_s=t_setup, setup_split=setup_split, first_prove_s=t_first,
+         proves=timed, profiled_prove=profiled, peak_device_bytes=peak,
+         verify_s=t_verify, verified=True, tampered_rejected=True)
+    _check_launches(name, launches, phase)
+    _say("launches", curve=curve.name, path=phase, **launches)
     return launches, vk, proof
 
 
-def _check_launches(name: str, launches: dict, split: bool) -> None:
-    """Each path's expected kernels: every entry of the curve ran but
-    *_double (no caller) and *_add, which runs only where the path splits
-    buckets (the fold); per MSM (one
+def _expectations(name: str, path: str) -> dict:
+    """Each kernel entry of a curve (by C symbol) on one path: "ran" (at
+    least one launch), "zero" (none) or "any". Fr: fr_mont_mul, fr_sub and
+    ntt_stage on every path, fr_add and plonk_quotient on PLONK's only.
+    Groups: every entry ran but *_double (no caller) and *_add, the fold of
+    split buckets, which the Chain (groth16) never runs, the 2-chain always
+    and PLONK's commitments where a bucket is split; PLONK has no G2 MSM, so
+    no g2_* entry runs there; the running sums run on every path but the
+    small PLONK ones (PLONK_LOG < 17), where a window may hold one bucket
+    chunk and skip them."""
+    from gnark_icicle_tpu_torch.ops import cuda as kc
+
+    pre = kc.CURVES[name]
+    plonk = path == "plonk"
+    out = {}
+    for k in kc.KERNELS.values():
+        if k.curve != name:
+            continue
+        e = k.name[len(pre):]
+        g, _, op = e.partition("_")
+        if g not in ("g1", "g2"):
+            out[k.name] = "ran" if plonk or e not in ("fr_add", "plonk_quotient") else "zero"
+        elif op == "double" or (plonk and g == "g2"):
+            out[k.name] = "zero"
+        elif op == "add":
+            out[k.name] = {"groth16": "zero", "2chain": "ran", "plonk": "any"}[path]
+        elif op == "bucket_reduce":
+            out[k.name] = "any" if plonk and PLONK_LOG[name] < 17 else "ran"
+        else:
+            out[k.name] = "ran"
+    return out
+
+
+def _check_launches(name: str, launches: dict, path: str) -> None:
+    """The path's launches against _expectations; per MSM (one
     *_bucket_accumulate each) one combine, one Horner and at most one
     running-sums launch, so at most three."""
     from gnark_icicle_tpu_torch.ops import cuda as kc
 
-    def off(entry: str) -> bool:
-        return entry == "double" or (entry == "add" and not split)
-
-    bad = []
+    bad = [k for k, e in _expectations(name, path).items()
+           if {"zero": launches[k] != 0, "ran": launches[k] == 0, "any": False}[e]]
     for g in ("g1", "g2"):
         stem = f"{kc.CURVES[name]}{g}_"
         mine = {k[len(stem):]: c for k, c in launches.items() if k.startswith(stem)}
         if not mine:
             continue
-        bad += [stem + e for e, c in mine.items() if (c == 0) != off(e)]
         msms = mine["bucket_accumulate"]
         if not (mine["reduce_combine"] == mine["horner"] == msms
                 and mine["bucket_reduce"] <= msms):
             bad.append(f"{stem}reduction: {mine['bucket_reduce']} + {mine['reduce_combine']} "
                        f"+ {mine['horner']} launches for {msms} MSMs")
     if bad:
-        raise AssertionError(f"the {name} path's launches are not the expected ones: {bad}")
+        raise AssertionError(f"the {name} {path} path's launches are not the expected ones: {bad}")
 
 
-def chain_circuit(name: str) -> tuple:
-    """The 2^17-step Chain compiled for one curve: (cs, compile seconds,
-    public output)."""
+def _chain(name: str, steps: int, builder: str) -> tuple:
+    """x_{i+1} = x_i² + x_i + i for `steps` steps (bench.py's benchmark
+    circuit) compiled for one curve with `builder` ("r1cs" or "scs"): (cs,
+    compile seconds, public output)."""
     from gnark_icicle_tpu_torch.frontend import Circuit, Public, Secret, compile_circuit
 
     q = _curves()[name].fr.modulus
-    steps = (1 << CHAIN_LOG[name]) - 2
 
     class Chain(Circuit):
         x = Secret()
@@ -832,7 +928,7 @@ def chain_circuit(name: str) -> tuple:
             api.assert_is_equal(v, self.out)
 
     t0 = time.perf_counter()
-    cs = compile_circuit(q, Chain)
+    cs = compile_circuit(q, Chain, builder=builder)
     t_compile = time.perf_counter() - t0
     v = 3
     for i in range(steps):
@@ -840,13 +936,24 @@ def chain_circuit(name: str) -> tuple:
     return cs, t_compile, v
 
 
+def chain_circuit(name: str) -> tuple:
+    """The 2^17-step Chain (bench.py:431-439) for Groth16: _chain's tuple."""
+    return _chain(name, (1 << CHAIN_LOG[name]) - 2, "r1cs")
+
+
+def plonk_circuit(name: str) -> tuple:
+    """The SCS Chain of PLONK_LOG for PLONK (bench.py:359 bench_plonk's
+    sizing, about three gates a step): _chain's tuple."""
+    return _chain(name, ((1 << PLONK_LOG[name]) - 16) // 3, "scs")
+
+
 def phase_groth16(device, name: str, compiled: tuple) -> tuple:
     """_prove_path on one curve's compiled Chain (chain_circuit). Returns
     (launches, vk, proof, public inputs)."""
     cs, t_compile, v = compiled
     q = _curves()[name].fr.modulus
-    launches, vk, proof = _prove_path(device, name, cs, [v], [3], [(v + 1) % q],
-                                      "groth16", False, compile_s=t_compile)
+    launches, vk, proof = _prove_path(device, name, "groth16", cs, [v], [3], [(v + 1) % q],
+                                      "groth16", compile_s=t_compile)
     return launches, vk, proof, [v]
 
 
@@ -881,8 +988,18 @@ def phase_2chain(device, inner_vk, inner_proof, inner_pub) -> dict:
                      pr.bs[1].c1, pr.krs[0], pr.krs[1]])
     opub, osec = w.witness_values(bls12_377.P)
     bad = [(inner_pub[0] + 1) % bls12_377.R]
-    launches, _, _ = _prove_path(device, "bw6_761", cs, opub, osec, bad, "2chain", True,
+    launches, _, _ = _prove_path(device, "bw6_761", "groth16", cs, opub, osec, bad, "2chain",
                                  compile_s=t_compile)
+    return launches
+
+
+def phase_plonk(device, name: str, compiled: tuple) -> dict:
+    """_prove_path with the port's PLONK on one curve's compiled SCS Chain
+    (plonk_circuit). Returns the path's launches."""
+    cs, t_compile, v = compiled
+    q = _curves()[name].fr.modulus
+    launches, _, _ = _prove_path(device, name, "plonk", cs, [v], [3], [(v + 1) % q],
+                                 "plonk", compile_s=t_compile)
     return launches
 
 
@@ -912,6 +1029,7 @@ def main() -> int:
     builder = threading.Thread(target=run_build)
     builder.start()
     compiled = {name: chain_circuit(name) for name in CHAIN_CURVES}
+    compiled_scs = {name: plonk_circuit(name) for name in CURVE_NAMES}
     builder.join()
     if "error" in build:
         raise build["error"]
@@ -922,15 +1040,30 @@ def main() -> int:
         kernels += phase_kernels(device, name, rates)
     for name in CURVE_NAMES:
         phase_msm(DeviceCtx(_curves()[name], device), name)
-    launches, inner = {}, None
+    paths, inner = [], None     # (curve, path, launches)
     for name in CHAIN_CURVES:
         counts, vk, proof, pub = phase_groth16(device, name, compiled[name])
-        launches.update(counts)
+        paths.append((name, "groth16", counts))
         if name == "bls12_377":
             inner = (vk, proof, pub)
-    launches.update(phase_2chain(device, *inner))
+    paths.append(("bw6_761", "2chain", phase_2chain(device, *inner)))
+    for name in CURVE_NAMES:
+        paths.append((name, "plonk", phase_plonk(device, name, compiled_scs[name])))
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k["launches_by_path"] = {path: counts[k["name"]] for curve, path, counts in paths
+                                 if curve == k["curve"]}
+        k["launches"] = sum(k["launches_by_path"].values())
+    # every kernel ran on a path of its curve, but those that a path of the
+    # curve holds at 0 and none requires (_expectations): *_double, g2_add on
+    # the Chain curves, and g1_add where neither the Chain nor PLONK splits
+    expected = {}
+    for curve, path, _ in paths:
+        for k, e in _expectations(curve, path).items():
+            expected.setdefault(k, set()).add(e)
+    held_at_zero = {k for k, es in expected.items() if "zero" in es and "ran" not in es}
+    idle = [k["name"] for k in kernels if k["launches"] == 0 and k["name"] not in held_at_zero]
+    if idle:
+        raise AssertionError(f"kernels that no path launched: {idle}")
     _say("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(_smi("name,power.limit"), flush=True)

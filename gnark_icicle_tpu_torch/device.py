@@ -21,7 +21,8 @@ import torch
 from .curves.tower import Fp2
 from .ops.cuda import default_device, resolve_device  # noqa: F401
 from .ops.ec_t import TCurve, TCurve2
-from .ops.field import field_for, to_lanes
+from .ops.field import field_for, ints_to_limbs32, to_lanes
+from .ops.field_t import TField
 from .ops.msm import MSMKernel
 from .ops.ntt import Domain, domain_for
 
@@ -69,6 +70,18 @@ class DeviceCtx:
     def fr_scalars(self, limbs_u32: np.ndarray) -> torch.Tensor:
         """(N, Wr) uint32 plain-form limbs -> (Wr, N) device scalars."""
         return to_lanes(limbs_u32, self.device)
+
+    def fr_plain(self, values) -> torch.Tensor:
+        """Host ints -> (Wr, N) plain-form device scalars."""
+        q = self.curve.fr.modulus
+        return self.fr_scalars(ints_to_limbs32([int(v) % q for v in values], self.fr.n32))
+
+    def fr_mont(self, values) -> torch.Tensor:
+        """Host ints -> (Wr, N) Montgomery form on the device (≙
+        gnark_icicle_tpu/device.py:130 fr_mont): the plain words are copied
+        over and multiplied by R² there (one ``fr_mont_mul``), with no host
+        modular product per value."""
+        return TField(self.fr).to_mont(self.fr_plain(values))
 
     def _points(self, tc, points_host, filler):
         """Host affine points (None = infinity) -> (row table, inf mask).

@@ -54,6 +54,8 @@ SIGNATURES = {
     "fr": {
         "fr_mont_mul": [_P, _P, _I64, _I32, _P, _I64, _P],
         "fr_sub": [_P, _P, _P, _I64, _P],
+        "fr_add": [_P, _P, _P, _I64, _P],
+        "plonk_quotient": [_P, _P, _P, _P, _I64, _P],
         "ntt_stage": [_P, _I64, _I64, _I64, _P, _I64, _I32, _P],
     },
     "g1": {

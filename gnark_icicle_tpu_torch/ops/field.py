@@ -16,7 +16,9 @@ The plain arithmetic (:class:`Field` ``mont_mul``/``add``/``sub``/``neg``/
 in int64 on 16-bit limbs, ``(2W, N)``: PyTorch's uint32 arithmetic is
 incomplete on the CPU, and a 32x32-bit product does not fit int64. A 16x16
 product does, and so does a column of 48 of them (< 2^38), which float64
-holds exactly.
+holds exactly. ``mont_pow``/``mont_inv`` (square and multiply over any
+product, :func:`pow_by_squaring`), ``is_zero``, ``eq`` and ``select`` follow
+the reference's :292-347.
 """
 
 from __future__ import annotations
@@ -283,6 +285,49 @@ class Field:
 
     def from_mont(self, x):
         return self.mont_mul(x, self.plain_const(1, x.device))
+
+    # -- exponentiation, inversion, predicates (LimbField :292-347) ---------
+    def ones(self, n: int, device) -> torch.Tensor:
+        """(W, n) Montgomery ones."""
+        return self.const(1, device).expand(self.n32, n).contiguous()
+
+    def mont_pow(self, a, e: int):
+        """a^e for a fixed public exponent (Montgomery form)."""
+        return pow_by_squaring(self.mont_mul, self.ones, a, e)
+
+    def mont_inv(self, a):
+        """Inversion by Fermat, a^(p-2); 0 maps to 0."""
+        return self.mont_pow(a, self.modulus - 2)
+
+    @staticmethod
+    def is_zero(a) -> torch.Tensor:
+        return (a == 0).all(dim=0)
+
+    @staticmethod
+    def eq(a, b) -> torch.Tensor:
+        return (a == b).all(dim=0)
+
+    @staticmethod
+    def select(mask, a, b):
+        """mask ? a : b, lane by lane (mask: (N,) bool)."""
+        return torch.where(mask[None], a, b)
+
+
+def pow_by_squaring(mul, ones, a, e: int):
+    """a^e by square and multiply from the low bit, with ``mul`` the
+    Montgomery product and ``ones(n, device)`` the (W, n) ones. The
+    exponent is public, so its bits choose the products on the host
+    (the reference selects lane-wise inside a scan, LimbField.mont_pow
+    :292; the values are the same). A multiply by one is skipped: its
+    product is the other factor."""
+    result, base = None, a
+    while e:
+        if e & 1:
+            result = base if result is None else mul(result, base)
+        e >>= 1
+        if e:
+            base = mul(base, base)
+    return ones(a.shape[1], a.device) if result is None else result
 
 
 _FIELDS: dict = {}

@@ -1,13 +1,20 @@
-"""Fr Montgomery product and subtraction on the card, with their plain twins.
+"""Fr arithmetic on the card, with its plain twins: the Montgomery product,
+subtraction and addition, powers and inverses, and PLONK's fused quotient.
 
 Port of gnark_icicle_tpu/ops/field_t.py ``TField`` (:320), whose
 ``mont_mul`` (:353) is TPU kernel K1. Here it is ``csrc/fr.cu``
 ``fr_mont_mul``; ``fr_sub`` joins it because computeH's pointwise
-``(a·b − c)·den`` runs on the card too. Operands are ``(W, n)`` int32
-Montgomery tensors (``ops/field.py``); ``b`` of ``mont_mul`` may be one
-``(W, 1)`` column that broadcasts. The kernels are built for the scalar
-fields of BN254, BLS12-381 and BLS12-377 (W = 8) and BW6-761 (W = 12);
-:class:`TField` picks the entries of its modulus.
+``(a·b − c)·den`` runs on the card too, and ``fr_add`` because PLONK's
+linear combinations do (gnark_icicle_tpu/backend/plonk/prove.py:223).
+``mont_pow``/``mont_inv`` are square and multiply over ``fr_mont_mul``
+launches (LimbField.mont_pow :292, about 380 launches for an inverse).
+``plonk_quotient`` is PLONK's row function on the 4n coset
+(``_quotient_chunk_fn``, backend/plonk/prove.py:165-218), 21 products a row
+in one launch (:func:`plonk_quotient_plain` is its twin). Operands are
+``(W, n)`` int32 Montgomery tensors (``ops/field.py``); ``b`` of ``mont_mul``
+may be one ``(W, 1)`` column that broadcasts. The kernels are built for the
+scalar fields of BN254, BLS12-381 and BLS12-377 (W = 8) and BW6-761
+(W = 12); :class:`TField` picks the entries of its modulus.
 
 On a CPU tensor each method runs the plain PyTorch version; on a CUDA tensor
 it launches the kernel or raises.
@@ -15,19 +22,27 @@ it launches the kernel or raises.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from ..curves import bls12_377, bls12_381, bn254, bw6_761
 from .cuda import Kernel, is_cuda, require, stream
-from .field import Field
+from .field import Field, pow_by_squaring
 
 _K1 = "gnark_icicle_tpu/ops/field_t.py:353"
-# scalar-field modulus -> (fr_mont_mul, fr_sub) of its curve
+# scalar-field modulus -> {entry: Kernel} of its curve
 FR_KERNELS = {
-    q: (Kernel("fr", curve, "fr_mont_mul", _K1), Kernel("fr", curve, "fr_sub", _K1))
+    q: {name: Kernel("fr", curve, name, _K1)
+        for name in ("fr_mont_mul", "fr_sub", "fr_add", "plonk_quotient")}
     for q, curve in ((bn254.R, "bn254"), (bls12_381.R, "bls12_381"),
                      (bls12_377.R, "bls12_377"), (bw6_761.R, "bw6_761"))
 }
+# plonk_quotient's 4n evaluation arrays, in the kernel's order (csrc/fr.cu)
+QUOTIENT_INPUTS = ("a", "b", "c", "z", "zw", "qk", "ql", "qr", "qm", "qo",
+                   "s1", "s2", "s3")
+# the columns of its (W, 7) constant table
+QUOTIENT_CONSTS = ("beta", "gamma", "alpha", "beta_k1", "beta_k2", "alpha2", "one")
 
 
 def check_lanes(W: int, *ts):
@@ -53,7 +68,7 @@ class TField:
     def mont_mul(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         if not is_cuda(a, b):
             return self.F.mont_mul(a, b)
-        k_mul, _ = fr_kernels(self.F.modulus)
+        k_mul = fr_kernels(self.F.modulus)["fr_mont_mul"]
         check_lanes(self.F.n32, a, b)
         n = a.shape[1]
         bcast = b.shape[1] == 1 and n != 1
@@ -63,15 +78,54 @@ class TField:
                      out.data_ptr(), n, stream(a))
         return out
 
+    def _elementwise(self, name: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        check_lanes(self.F.n32, a, b)
+        require(a.shape == b.shape, f"{name} takes two (W, n) tensors")
+        out = torch.empty_like(a)
+        fr_kernels(self.F.modulus)[name].launch(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                                a.shape[1], stream(a))
+        return out
+
     def sub(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         if not is_cuda(a, b):
             return self.F.sub(a, b)
-        _, k_sub = fr_kernels(self.F.modulus)
-        check_lanes(self.F.n32, a, b)
-        require(a.shape == b.shape, "fr_sub takes two (W, n) tensors")
-        out = torch.empty_like(a)
-        k_sub.launch(a.data_ptr(), b.data_ptr(), out.data_ptr(), a.shape[1],
-                     stream(a))
+        return self._elementwise("fr_sub", a, b)
+
+    def add(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        if not is_cuda(a, b):
+            return self.F.add(a, b)
+        return self._elementwise("fr_add", a, b)
+
+    def mont_pow(self, a: torch.Tensor, e: int) -> torch.Tensor:
+        """a^e, each product one ``mont_mul`` (a launch on the card)."""
+        return pow_by_squaring(self.mont_mul, self.F.ones, a, e)
+
+    def mont_inv(self, a: torch.Tensor) -> torch.Tensor:
+        """a^(p-2): 0 maps to 0 (LimbField.mont_inv :330)."""
+        return self.mont_pow(a, self.F.modulus - 2)
+
+    def plonk_quotient(self, evals, xs, l1, zh_inv, consts) -> torch.Tensor:
+        """PLONK's quotient numerator over Z_H on the 4n coset, row by row.
+
+        evals: the 13 (W, m) arrays of QUOTIENT_INPUTS; xs, l1: (W, m) coset
+        points and L1 there; zh_inv: (W, 4) the cycle of 1/Z_H (row i takes
+        column i mod 4); consts: (W, 7), the columns of QUOTIENT_CONSTS. All
+        Montgomery; returns (W, m)."""
+        ins = list(evals) + [xs, l1]
+        if not is_cuda(*ins, zh_inv, consts):
+            return plonk_quotient_plain(self.F, evals, xs, l1, zh_inv, consts)
+        W = self.F.n32
+        check_lanes(W, *ins, zh_inv, consts)
+        m = xs.shape[1]
+        require(len(evals) == len(QUOTIENT_INPUTS)
+                and all(t.shape[1] == m for t in ins)
+                and zh_inv.shape[1] == 4 and consts.shape[1] == len(QUOTIENT_CONSTS),
+                "plonk_quotient takes 15 (W, m) arrays, a (W, 4) and a (W, 7) table")
+        out = torch.empty_like(xs)
+        ptrs = (ctypes.c_void_p * len(ins))(*[t.data_ptr() for t in ins])
+        fr_kernels(self.F.modulus)["plonk_quotient"].launch(
+            ctypes.addressof(ptrs), consts.data_ptr(), zh_inv.data_ptr(),
+            out.data_ptr(), m, stream(xs))
         return out
 
     def to_mont(self, x: torch.Tensor) -> torch.Tensor:
@@ -79,3 +133,30 @@ class TField:
 
     def from_mont(self, x: torch.Tensor) -> torch.Tensor:
         return self.mont_mul(x, self.F.plain_const(1, x.device))
+
+
+def plonk_quotient_plain(F: Field, evals, xs, l1, zh_inv, consts) -> torch.Tensor:
+    """The plain version of ``plonk_quotient``: the reference's row function
+    (gnark_icicle_tpu/backend/plonk/prove.py:186-217), op for op."""
+    A, B, C, z, zw, qk, ql, qr, qm, qo, s1, s2, s3 = evals
+    beta, gamma, alpha, bk1, bk2, alpha2, one = (consts[:, i:i + 1]
+                                                  for i in range(len(QUOTIENT_CONSTS)))
+    mul, add = F.mont_mul, F.add
+    gate = mul(ql, A)
+    gate = add(gate, mul(qr, B))
+    gate = add(gate, mul(mul(qm, A), B))
+    gate = add(gate, mul(qo, C))
+    gate = add(gate, qk)
+    lhs = add(add(A, mul(beta, xs)), gamma)
+    lhs = mul(lhs, add(add(B, mul(bk1, xs)), gamma))
+    lhs = mul(lhs, add(add(C, mul(bk2, xs)), gamma))
+    lhs = mul(lhs, z)
+    rhs = add(add(A, mul(beta, s1)), gamma)
+    rhs = mul(rhs, add(add(B, mul(beta, s2)), gamma))
+    rhs = mul(rhs, add(add(C, mul(beta, s3)), gamma))
+    rhs = mul(rhs, zw)
+    perm = F.sub(rhs, lhs)
+    start = mul(l1, F.sub(z, one))
+    num = add(gate, add(mul(alpha, perm), mul(alpha2, start)))
+    rows = torch.arange(xs.shape[1], device=xs.device) % 4
+    return mul(num, zh_inv[:, rows])

@@ -3,7 +3,9 @@
 Port of gnark_icicle_tpu/ops/ntt.py (``bitrev_indices`` :34, ``_pow_table``
 :45, ``Domain`` :58, ``domain_for`` :377): the transforms computeH uses —
 ``intt_nat_to_rev`` (:317), ``coset_ntt_rev_in`` (:351) and
-``coset_intt_nat_to_rev`` (:371) — plus ``ntt`` and ``intt``. Data is one
+``coset_intt_nat_to_rev`` (:371) —, PLONK's 4n coset forms
+``coset_ntt_nat`` (:360) and ``coset_intt_nat`` (:366), plus ``ntt`` and
+``intt``. Data is one
 ``(W, n)`` Montgomery tensor (``ops/field.py``); the reference's
 ``(n, 2W)`` arrays act along axis -2, these along the last axis.
 
@@ -26,9 +28,9 @@ from .field import Field, to16, to32
 from .field_t import FR_KERNELS, TField, check_lanes
 
 # scalar-field modulus -> its ntt_stage entry
-NTT_STAGE = {q: Kernel("fr", k_mul.curve, "ntt_stage",
+NTT_STAGE = {q: Kernel("fr", ks["fr_mont_mul"].curve, "ntt_stage",
                        "gnark_icicle_tpu/ops/field_t.py:353")
-             for q, (k_mul, _) in FR_KERNELS.items()}
+             for q, ks in FR_KERNELS.items()}
 
 
 def bitrev_indices(n: int) -> np.ndarray:
@@ -178,6 +180,17 @@ class Domain:
         """bit-reversed coefficients -> natural evals on the coset g·<omega>."""
         return self._dit(self.tf.mont_mul(coeffs_rev, self._coset_pows_rev),
                          self.tw_fwd)
+
+    def coset_ntt_nat(self, coeffs):
+        """natural coefficients -> natural evals on the coset g·<omega>."""
+        return self.bit_reverse(self._dif(self.tf.mont_mul(coeffs, self.coset_pows),
+                                          self.tw_fwd))
+
+    def coset_intt_nat(self, evals):
+        """natural coset evals -> natural coefficients (incl. 1/N, g^-i)."""
+        x = self.tf.mont_mul(self.bit_reverse(self._dif(evals, self.tw_inv)),
+                             self.coset_inv_pows)
+        return self.tf.mont_mul(x, self.n_inv)
 
     def coset_intt_nat_to_rev(self, evals):
         """natural coset evals -> bit-reversed coefficients (incl. 1/N, g^-i)."""

@@ -370,3 +370,126 @@ def test_outer_2chain_circuit_and_solve_match_reference():
         assert res.wires == want, native
         if native and res._u64:  # the C++ core ran (a host compiler exists)
             assert res._u64["wires"].shape[1] == 6
+
+
+# -- KZG and PLONK's host pieces ---------------------------------------------
+
+PLONK_CURVES = {"bn254": (bn254.BN254, ref_bn254.BN254),
+                "bls12_381": (bls12_381.BLS12_381, ref_bls381.BLS12_381),
+                "bls12_377": (bls12_377.BLS12_377, ref_bls377.BLS12_377),
+                "bw6_761": (bw6_761.BW6_761, ref_bw6.BW6_761)}
+
+
+@pytest.mark.parametrize("curve", sorted(PLONK_CURVES))
+def test_g1_to_bytes_matches(curve):
+    from gnark_icicle_tpu.io.serialize import g1_to_bytes as ref_g1_to_bytes
+    from gnark_icicle_tpu_torch.io.serialize import g1_to_bytes
+
+    c, rc = PLONK_CURVES[curve]
+    pts = [None, c.g1.generator] + [c.g1.scalar_mul(c.g1.generator, k) for k in (2, 7, 12345)]
+    pts.append(c.g1.neg(pts[-1]))        # y above (p − 1) / 2 for one of the pair
+    for pt in pts:
+        for compressed in (True, False):
+            assert g1_to_bytes(c, pt, compressed) == ref_g1_to_bytes(rc, pt, compressed)
+
+
+@pytest.mark.parametrize("curve", ["bn254", "bls12_381", "bls12_377"])
+def test_transcript_matches(curve):
+    """The same bindings give the same challenges, on every field of at
+    most 256 bits; the fold challenge too."""
+    from gnark_icicle_tpu.backend import transcript as ref_ts
+    from gnark_icicle_tpu_torch.backend import transcript as ts
+
+    c, rc = PLONK_CURVES[curve]
+    q = c.fr.modulus
+    names = [b"gamma", b"beta", b"alpha"]
+    pts = [c.g1.scalar_mul(c.g1.generator, k) for k in (3, 5)] + [None]
+    out = []
+    for mod, cv in ((ts, c), (ref_ts, rc)):
+        t = mod.make_transcript(q, names)
+        for pt in pts:
+            t.bind_point(b"gamma", cv, pt)
+        t.bind_fr(b"gamma", q - 1)
+        t.bind(b"alpha", b"raw")
+        got = [t.challenge(n) for n in names]
+        got.append(mod.kzg_fold_challenge("sha256", cv, q, 77, pts[:2], [1, q - 2], 9))
+        out.append(got)
+    assert out[0] == out[1]
+
+
+def test_transcript_binds_bw6_761_elements_in_48_bytes():
+    """gnark-crypto's fr.Bytes for BW6-761's 377-bit r (the original's 32
+    overflow above 2^256); mimc is not ported."""
+    from gnark_icicle_tpu_torch.backend import transcript as ts
+
+    q = bw6_761.R
+    t = ts.make_transcript(q, [b"x"])
+    t.bind_fr(b"x", q - 1)
+    assert bytes(t._bindings[b"x"]) == (q - 1).to_bytes(48, "big")
+    with pytest.raises(NotImplementedError):
+        ts.make_transcript(q, [b"x"], "mimc")
+
+
+def _scs_chain(fe, q, steps=6):
+    return fe.compile_circuit(q, chain_circuit(fe, steps), builder="scs")
+
+
+def test_plonk_host_stages_match():
+    """build_permutation, _mul_zh, _add_poly, _eval_poly and
+    bind_public_data of the port's plonk backend against the originals."""
+    import importlib
+
+    from gnark_icicle_tpu.backend.transcript import make_transcript as ref_make
+    from gnark_icicle_tpu_torch.backend.transcript import make_transcript
+
+    # the packages export setup() and prove() functions under the modules' names
+    port_prove, ref_prove, port_setup, ref_setup = (
+        importlib.import_module(f"{pkg}.backend.plonk.{mod}")
+        for mod in ("prove", "setup") for pkg in ("gnark_icicle_tpu_torch", "gnark_icicle_tpu"))
+    q = bn254.R
+    cs, ref_cs = _scs_chain(frontend, q), _scs_chain(ref_frontend, q)
+    for n in (32, 64):
+        assert (port_setup.build_permutation(cs, n)
+                == ref_setup.build_permutation(ref_cs, n)).all()
+    for m in (2, 3, 300, 513):
+        assert port_setup._next_pow2_log(m) == ref_setup._next_pow2_log(m)
+    a, b = [3, q - 1, 5, 7], [q - 2, 11]
+    assert port_prove._mul_zh(a, 8, q) == ref_prove._mul_zh(a, 8, q)
+    assert port_prove._add_poly(a, b, q) == ref_prove._add_poly(a, b, q)
+    assert port_prove._add_poly(b, a, q) == ref_prove._add_poly(b, a, q)
+    assert port_prove._eval_poly(a, 12345, q) == ref_prove._eval_poly(a, 12345, q)
+    assert port_prove.CHALLENGES == ref_prove.CHALLENGES
+
+    class VK:
+        commitments = {k: bn254.BN254.g1.scalar_mul(bn254.BN254.g1.generator, i + 2)
+                       for i, k in enumerate(("s1", "s2", "s3", "ql", "qr", "qm", "qo", "qk"))}
+        commitment_constraint_indexes = []
+
+    got, want = make_transcript(q, [b"gamma"]), ref_make(q, [b"gamma"])
+    port_prove.bind_public_data(got, bn254.BN254, VK, [9, q - 1])
+    ref_prove.bind_public_data(want, ref_bn254.BN254, VK, [9, q - 1])
+    assert got.challenge(b"gamma") == want.challenge(b"gamma")
+
+
+def test_plonk_verify_and_keys_copy_match():
+    """The port's verifier and key classes on a proof of the JAX package's
+    host engine: the same verdicts as the original's, valid and tampered."""
+    from gnark_icicle_tpu.backend import plonk as ref_plonk
+    from gnark_icicle_tpu_torch.backend import plonk
+
+    q = bn254.R
+    ref_cs = _scs_chain(ref_frontend, q)
+    v = 3
+    for i in range(6):
+        v = (v * v + v + i) % q
+    pk, vk = ref_plonk.setup(ref_cs, ref_bn254.BN254, rng=random.Random(5), engine="host")
+    proof = ref_plonk.prove(ref_cs, pk, [v], [3], ref_bn254.BN254, rng=random.Random(6),
+                            engine="host")
+    port_vk, port_proof = plonk.VerifyingKey.from_reference(vk), plonk.Proof.from_reference(proof)
+    bad = dataclasses.replace(port_proof, z_shifted_claimed=(proof.z_shifted_claimed + 1) % q)
+    for pub, pf, ok in (([v], port_proof, True), ([v + 1], port_proof, False),
+                        ([v], bad, False)):
+        assert plonk.is_valid(pf, port_vk, pub, bn254.BN254) is ok
+        ref_pf = ref_plonk.Proof(**{f.name: getattr(pf, f.name)
+                                    for f in dataclasses.fields(pf)})
+        assert ref_plonk.is_valid(ref_pf, vk, pub, ref_bn254.BN254) is ok

@@ -20,11 +20,11 @@ import random
 import pytest
 import torch
 
-from gnark_icicle_tpu_torch.backend import groth16
+from gnark_icicle_tpu_torch.backend import groth16, plonk
 from gnark_icicle_tpu_torch.frontend import Circuit, Public, Secret, compile_circuit
 from gnark_icicle_tpu_torch.ops.ec_t import TCurve, TCurve2
 from gnark_icicle_tpu_torch.ops.field import field_for
-from gnark_icicle_tpu_torch.ops.field_t import TField
+from gnark_icicle_tpu_torch.ops.field_t import QUOTIENT_INPUTS, TField, plonk_quotient_plain
 from gnark_icicle_tpu_torch.ops.msm import msm_host
 from gnark_icicle_tpu_torch.ops.ntt import domain_for, ntt_stage, ntt_stage_plain
 
@@ -60,6 +60,33 @@ def test_fr_kernels_match_plain(cuda_device, name):
 
 
 @pytest.mark.parametrize("name", NAMES)
+def test_fr_add_quotient_and_inverse_match_plain(cuda_device, name):
+    """fr_add, plonk_quotient (inputs led by 0, 1, p − 1 and p − 2 in every
+    array) and mont_inv on the card against their plain versions."""
+    R = CURVES[name].fr.modulus
+    F = field_for(R)
+    tf = TField(F)
+    m = 4096
+
+    def arr(seed):
+        vals = rand_ints(seed, R, m)
+        vals[3] = R - 2
+        return F.encode(vals, cuda_device)
+
+    a, b = arr(63), arr(64)
+    assert torch.equal(tf.add(a, b), F.add(a, b))
+    assert torch.equal(tf.add(a, a.flip(1)), F.add(a, a.flip(1)))
+    evals = [arr(200 + i) for i in range(len(QUOTIENT_INPUTS))]
+    xs, l1 = arr(230), arr(231)
+    zh = F.encode(rand_ints(232, R, 4, edge=False), cuda_device)
+    consts = F.encode(rand_ints(233, R, 6, edge=False) + [1], cuda_device)
+    assert torch.equal(tf.plonk_quotient(evals, xs, l1, zh, consts),
+                       plonk_quotient_plain(F, evals, xs, l1, zh, consts))
+    small = a[:, :64].contiguous()
+    assert torch.equal(tf.mont_inv(small), F.mont_inv(small))
+
+
+@pytest.mark.parametrize("name", NAMES)
 def test_ntt_stage_kernel_matches_plain(cuda_device, name):
     R = CURVES[name].fr.modulus
     F = field_for(R)
@@ -81,6 +108,19 @@ def test_domain_transforms_match_cpu(cuda_device, name, transform):
     F = field_for(curve.fr.modulus)
     log_n = 10
     x = F.encode(rand_ints(95, curve.fr.modulus, 1 << log_n), "cpu")
+    card = domain_for(F, curve.fr, log_n, cuda_device, coset=True)
+    host = domain_for(F, curve.fr, log_n, "cpu", coset=True)
+    got = getattr(card, transform)(x.to(cuda_device))
+    assert torch.equal(got.cpu(), getattr(host, transform)(x))
+
+
+@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("transform", ["coset_ntt_nat", "coset_intt_nat"])
+def test_plonk_coset_transforms_match_cpu(cuda_device, name, transform):
+    curve = CURVES[name]
+    F = field_for(curve.fr.modulus)
+    log_n = 12
+    x = F.encode(rand_ints(96, curve.fr.modulus, 1 << log_n), "cpu")
     card = domain_for(F, curve.fr, log_n, cuda_device, coset=True)
     host = domain_for(F, curve.fr, log_n, "cpu", coset=True)
     got = getattr(card, transform)(x.to(cuda_device))
@@ -226,6 +266,17 @@ class Chain(Circuit):
         api.assert_is_equal(v, self.out)
 
 
+PLONK_STEPS = 80  # about 240 gates: a 2^8 domain, whose SRS (261 powers) takes the ladder
+
+
+class PlonkChain(Chain):
+    def define(self, api):
+        v = self.x
+        for i in range(PLONK_STEPS):
+            v = api.add(api.mul(v, v), v, i)
+        api.assert_is_equal(v, self.out)
+
+
 def _fields(obj):
     return {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)
             if not f.name.startswith("_")}
@@ -271,3 +322,27 @@ def test_entry_points_default_to_the_card(cuda_device):
     proof = groth16.prove(cs, pk, [v], [3], curve, rng=random.Random(2))
     assert sum(k.launches for k in kc.KERNELS.values()) > before
     groth16.verify(proof, vk, [v], curve)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_plonk_on_card_verifies(cuda_device, name):
+    """A small PLONK circuit (a 2^8 domain, so that the SRS takes the
+    fixed-base ladder) set up and proved on the card; the proof verifies
+    and a tampered public input is rejected. On BN254 the card's keys and
+    proof equal the CPU's (plain versions) under the same rngs."""
+    curve = CURVES[name]
+    R = curve.fr.modulus
+    cs = compile_circuit(R, PlonkChain, builder="scs")
+    assert 128 < cs.nb_gates <= 251
+    v = 3
+    for i in range(PLONK_STEPS):
+        v = (v * v + v + i) % R
+    pk, vk = plonk.setup(cs, curve, rng=random.Random(1), device=cuda_device)
+    proof = plonk.prove(cs, pk, [v], [3], curve, rng=random.Random(2), device=cuda_device)
+    plonk.verify(proof, vk, [v], curve)
+    assert not plonk.is_valid(proof, vk, [(v + 1) % R], curve)
+    if name == "bn254":
+        pk_c, vk_c = plonk.setup(cs, curve, rng=random.Random(1), device="cpu")
+        assert _fields(vk_c) == _fields(vk)
+        proof_c = plonk.prove(cs, pk_c, [v], [3], curve, rng=random.Random(2), device="cpu")
+        assert _fields(proof_c) == _fields(proof)

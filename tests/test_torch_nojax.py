@@ -40,10 +40,13 @@ torch.set_num_threads(1)  # the test run shares the machine among workers
 import gnark_icicle_tpu_torch as port
 for mod in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
     importlib.import_module(mod.name)
-# the 2-chain's modules among them: its curves and the native gadgets
+# the 2-chain's modules among them: its curves and the native gadgets; and
+# KZG and PLONK with the transcript and point encoding they need
 for name in ("curves.bls12_377", "curves.bw6_761", "std.algebra_native",
              "std.algebra_towers", "std.pairing_bls12_377",
-             "std.recursion.native_groth16"):
+             "std.recursion.native_groth16", "backend.kzg", "backend.transcript",
+             "backend.plonk.keys", "backend.plonk.setup", "backend.plonk.prove",
+             "backend.plonk.verify", "io.serialize"):
     assert "gnark_icicle_tpu_torch." + name in sys.modules, name
 
 from gnark_icicle_tpu_torch.curves import bn254
@@ -119,7 +122,8 @@ def test_chip_smoke_refuses_without_gpu(tmp_path):
         assert '"ok": true' not in out.stdout
 
 
-@pytest.mark.parametrize("entry", ["setup", "prove", "DeviceCtx", "msm_host"])
+@pytest.mark.parametrize("entry", ["setup", "prove", "DeviceCtx", "msm_host", "plonk.setup",
+                                   "plonk.prove", "KZG.commit", "unsafe_srs"])
 def test_entry_points_raise_without_cuda(entry):
     """No device given and no card: every entry point raises instead of
     running the plain versions on the CPU."""
@@ -127,7 +131,8 @@ def test_entry_points_raise_without_cuda(entry):
 
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the entry points would run on it")
-    from gnark_icicle_tpu_torch.backend import groth16
+    from gnark_icicle_tpu_torch.backend import groth16, plonk
+    from gnark_icicle_tpu_torch.backend.kzg import KZG, unsafe_srs
     from gnark_icicle_tpu_torch.curves import bn254
     from gnark_icicle_tpu_torch.device import DeviceCtx
     from gnark_icicle_tpu_torch.frontend import Circuit, Public, Secret, compile_circuit
@@ -150,6 +155,13 @@ def test_entry_points_raise_without_cuda(entry):
         "DeviceCtx": lambda: DeviceCtx(curve, None),
         "msm_host": lambda: msm_host(TCurve(field_for(bn254.P), 9), curve.fr,
                                      [curve.g1.generator], [5]),
+        "plonk.setup": lambda: plonk.setup(compile_circuit(bn254.R, Square, builder="scs"),
+                                           curve),
+        "plonk.prove": lambda: plonk.prove(compile_circuit(bn254.R, Square, builder="scs"),
+                                           None, [9], [3], curve),
+        "KZG.commit": lambda: KZG(curve, unsafe_srs(curve, 4, tau=5, device="cpu"))
+                              .commit([1, 2]),
+        "unsafe_srs": lambda: unsafe_srs(curve, 4, tau=5),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
