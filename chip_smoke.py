@@ -12,10 +12,14 @@ at 12, G2 over Fp), phases print one JSON line each on stdout:
      and spills; the Chain circuits of phases 4 and plonk are compiled
      (host Python) while nvcc runs;
   2. kernels: each kernel entry against its plain PyTorch version on the
-     card, bit-equal (Fr product, subtraction, addition and NTT stage at
-     2^16 lanes; PLONK's quotient at 2^16 rows, every input holding 0, 1,
-     p - 1, p - 2 and values near R, and again, timed, at the 4n rows of
-     the curve's PLONK path, as fr_add and an NTT stage are;
+     card, bit-equal (Fr product, subtraction and addition at 2^16 lanes;
+     PLONK's quotient at 2^16 rows, every input holding 0, 1, p - 1, p - 2
+     and values near R, and again, timed, at the 4n rows of the curve's
+     PLONK path, as fr_add is; the NTT passes on the path's own domains,
+     computeH's 2^18 coset (BW6-761: 2^16) and PLONK's 4n coset (2^19 on
+     BN254 and BLS12-381, 2^12 on the others), each pass with the
+     scalings it carries there, and each whole transform, timed beside its
+     bound;
      G1 and G2 masked signed mixed add, add and double at 2^14 lanes, with
      operands at 0, 1, p - 1, p - 2 and near R; the bucket accumulation on
      the lanes of a skewed 2^12-point MSM, whose long runs are split, the
@@ -43,9 +47,13 @@ at 12, G2 over Fp), phases print one JSON line each on stdout:
      share, device time by kernel); the port's verifier accepts the proof
      and rejects a tampered public input. The kernels' launch counts are set
      to 0 just before setup and read just after the last prove: every entry
-     of the curve ran but *_double (no caller on the path) and *_add (the
-     fold of split buckets, which the Chain has not),
-     and each MSM took at most three reduction and Horner launches;
+     of the curve ran but *_double (no caller on the path), *_add (the
+     fold of split buckets, which the Chain has not) and fr_sub (computeH's
+     pointwise rides the coset INTT's first pass),
+     each MSM took at most three reduction and Horner launches, each
+     transform the passes of pass_split (at most three), and the warm
+     proves built no domain table and launched fr_mont_mul at most 6 times
+     a prove;
   2chain: the BW6-761 outer proof that phase 4's BLS12-377 proof verifies
      (gnark's native 2-chain): the in-circuit Groth16 verifier of std/
      compiled over BW6-761's r (BLS12-377's p), then setup, a first prove,
@@ -59,8 +67,8 @@ at 12, G2 over Fp), phases print one JSON line each on stdout:
      split), a first prove, two timed proves with their stage times (solve,
      round-1 commits, Z, quotient, linearization and openings), one under
      torch.profiler, verify and a tampered public input rejected; the
-     path's launches as above, with fr_add and plonk_quotient on it and no
-     g2_* entry;
+     path's launches as above, with fr_add, fr_sub and plonk_quotient on it
+     and no g2_* entry;
   5. the JSON line of all kernels (each with its launches on each of its
      curve's paths, and their sum; every kernel but *_double ran on one);
   6. the card's name and power limit from nvidia-smi.
@@ -111,8 +119,8 @@ def _path_shapes(log_n: int, msm_points: int, table_rows: int, fr_bits: int,
     windows = -(-fr_bits // c) + 1
     B = 1 << (c - 1)
     cs = sorted({c, pick_window(g2_msm)}, reverse=True)
-    return {"fr": 1 << log_n,                  # computeH pointwise, Montgomery
-            "ntt": (1 << log_n, 1 << (log_n - 6)),  # (n, m) of one radix-2 stage
+    return {"fr": 1 << log_n,                  # computeH's Montgomery conversions
+            "ntt": log_n,                      # computeH's coset domain
             "points": table_rows,              # MSM point table rows
             "msm": {"g1": msm_points, "g2": g2_msm},  # the bucket accumulation's MSMs
             "wave": windows * B,               # one wave of the reference
@@ -287,7 +295,6 @@ def phase_kernels(device, name: str, rates: dict) -> list:
     from gnark_icicle_tpu_torch.ops.msm import (
         MSMKernel, pick_window, reduce_chunks, segment_length,
     )
-    from gnark_icicle_tpu_torch.ops.ntt import ntt_stage, ntt_stage_plain
 
     curve = _curves()[name]
     prefix = kc.CURVES[name]
@@ -378,31 +385,7 @@ def phase_kernels(device, name: str, rates: dict) -> list:
            run_q, run_q_plain, (n_in + 1) * lane * m4 + 11 * lane, 21 * m4, fr.n32,
            products_per_row=21)
 
-    def stage(fn, m, stride, dif):
-        def run(x, tw):
-            fn(fr, x, m, stride, tw, dif)
-            return x
-        return run
-
-    tw = fr.encode(_rand_fe(rng, R, n // 2), device)
-    err = 0
-    for m, stride, dif in ((8, n // 16, False), (n // 64, 32, True)):
-        err = max(err, _max_abs_err(stage(ntt_stage, m, stride, dif)(a.clone(), tw),
-                                    stage(ntt_stage_plain, m, stride, dif)(a.clone(), tw)))
-    big_n, big_m = shapes["ntt"]
-    stride = big_n // (2 * big_m)
-    record("ntt_stage", err, f"n={big_n}, m={big_m}",
-           [_rand_dev(fr, 1, big_n, device)[0], _rand_dev(fr, 1, big_n // 2, device)[0]],
-           stage(ntt_stage, big_m, stride, True),
-           stage(ntt_stage_plain, big_m, stride, True),
-           2 * lane * big_n + lane * big_m, big_n // 2, fr.n32)
-    # the PLONK path's 4n coset transforms: a stage at m4 points
-    m_half = max(m4 >> 6, 1)
-    record("ntt_stage", err, f"n={m4}, m={m_half}",
-           [_rand_dev(fr, 1, m4, device)[0], _rand_dev(fr, 1, m4 // 2, device)[0]],
-           stage(ntt_stage, m_half, m4 // (2 * m_half), True),
-           stage(ntt_stage_plain, m_half, m4 // (2 * m_half), True),
-           2 * lane * m4 + lane * m_half, m4 // 2, fr.n32)
+    ntt_rows(device, name, rates, record, shapes)
 
     # G1 and G2: random coordinates (the formulas are arithmetic, so any field
     # elements test them), identity lanes, random signs and masks
@@ -688,6 +671,112 @@ def phase_kernels(device, name: str, rates: dict) -> list:
     return results
 
 
+def _plain_transform(dom, x, key: str, dif: bool, post=None, **load):
+    """A Domain transform as the plain versions of its passes (ops/ntt.py
+    Domain._transform): the load's operands on the first, post on the last."""
+    from gnark_icicle_tpu_torch.ops.ntt import ntt_pass_plain, pass_split
+
+    passes = pass_split(dom.log_n)
+    passes = passes[::-1] if dif else passes
+    for i, p in enumerate(passes):
+        x = ntt_pass_plain(dom.F, x, dom._twiddles(key), p, dif, **(load if i == 0 else {}),
+                           post=post if i == len(passes) - 1 else None)
+    return x
+
+
+def ntt_rows(device, name: str, rates: dict, record, shapes: dict) -> None:
+    """ntt_pass at the path's shapes, on the path's own domains (computeH's
+    2^log_n coset, PLONK's 4n coset): each pass that a transform there
+    launches with the operands it carries, held to ntt_pass_plain and timed
+    with its bound (record); then each whole transform, held to its passes'
+    plain versions, timed beside its bound (the row's "transforms")."""
+    import torch
+
+    from gnark_icicle_tpu_torch.ops.field import field_for
+    from gnark_icicle_tpu_torch.ops.ntt import domain_for, ntt_pass, ntt_pass_plain, pass_split
+
+    curve = _curves()[name]
+    fr = field_for(curve.fr.modulus)
+    W = fr.n32
+    lane = 4 * W
+    dom = domain_for(fr, curve.fr, shapes["ntt"], device, coset=True)
+    dom4 = domain_for(fr, curve.fr, PLONK_LOG[name] + 2, device, coset=True)
+    den = fr.const(random.Random(5).randrange(1, curve.fr.modulus), device)
+
+    def operands(d, names):
+        return {k: den if k == "scale" else
+                (d._coset_unscale_rev if k == "post" else _rand_dev(fr, 1, d.n, device)[0])
+                for k in names}
+
+    def pass_row(d, p, key, dif, names, role):
+        tws = d._twiddles(key)
+        ops = operands(d, names)
+
+        def run(x, *tabs):
+            return ntt_pass(fr, x, tws, p, dif, **dict(zip(ops, tabs)))
+
+        def run_plain(x, *tabs):
+            return ntt_pass_plain(fr, x, tws, p, dif, **dict(zip(ops, tabs)))
+        # each input once: x, the operands, the stages' 2^s twiddles; out once
+        words = 2 * d.n + sum(t.shape[1] for t in ops.values()) + (1 << (p.s_lo + p.c)) - (1 << p.s_lo)
+        products = (d.n // 2) * p.c + d.n * sum(k != "sub" for k in ops)
+        return record("ntt_pass", 0, f"n=2^{d.log_n}, stages {p.s_lo}-{p.s_lo + p.c - 1}, "
+                      f"tile {1 << p.log_g}x{1 << p.c}x{1 << p.log_t}: {role}",
+                      [_rand_dev(fr, 1, d.n, device)[0], *ops.values()], run, run_plain,
+                      lane * words, products, W)
+
+    low, *upper = pass_split(dom.log_n)
+    top = upper[-1] if upper else low
+    main = pass_row(dom, top, "i", True, ("mul", "sub", "scale"),
+                    "computeH's coset INTT, first pass: (a·b − c)·den on the load")
+    for p in upper[:-1]:
+        pass_row(dom, p, "i", True, (), "coset INTT, a middle pass")
+    pass_row(dom, low, "i", True, ("post",), "coset INTT, last pass: g^-i·n^-1 on the store")
+    pass_row(dom, low, "f", False, ("mul",), "coset NTT (bit-reversed in), first pass: g^i on the load")
+    low4, *upper4 = pass_split(dom4.log_n)
+    top4 = upper4[-1] if upper4 else low4
+    pass_row(dom4, top4, "f", True, ("mul",), "PLONK's 4n coset NTT, first pass: g^i on the load")
+    pass_row(dom4, low4, "i", True, ("post",), "PLONK's 4n coset INTT, last pass")
+
+    def rand(d):
+        return _rand_dev(fr, 1, d.n, device)[0]
+
+    x, b, c = rand(dom), rand(dom), rand(dom)
+    x4 = rand(dom4)
+    # (domain, method, its arguments, its plain version, the columns of its
+    # scaling table: n, or 1 for n^-1; products a row for the scalings)
+    cases = (
+        (dom, "intt_nat_to_rev", (x,), lambda: _plain_transform(dom, x, "i", True, post=dom.n_inv),
+         1, 1),
+        (dom, "coset_ntt_rev_in", (x,),
+         lambda: _plain_transform(dom, x, "f", False, mul=dom._coset_pows_rev), dom.n, 1),
+        (dom, "coset_intt_nat_to_rev_pointwise", (x, b, c, den),
+         lambda: _plain_transform(dom, x, "i", True, post=dom._coset_unscale_rev, mul=b, sub=c,
+                                  scale=den), dom.n, 3),
+        (dom4, "coset_ntt_nat", (x4,),
+         lambda: dom4.bit_reverse(_plain_transform(dom4, x4, "f", True, mul=dom4.coset_pows)),
+         dom4.n, 1),
+        (dom4, "coset_intt_nat", (x4,),
+         lambda: dom4.bit_reverse(_plain_transform(dom4, x4, "i", True,
+                                                   post=dom4._coset_unscale_rev)), dom4.n, 1),
+    )
+    main["transforms"] = []
+    for d, method, args, plain, table, scalings in cases:
+        run = (lambda d=d, method=method, args=args: getattr(d, method)(*args))
+        if _max_abs_err(run(), plain()) != 0:
+            raise AssertionError(f"{name} {method} at 2^{d.log_n} differs from its passes' "
+                                 "plain versions")
+        n = d.n
+        # the arguments, the stage-major twiddles and the scaling table read
+        # once, the output written once
+        nbytes = lane * (sum(t.shape[1] for t in args) + n + table + n)
+        bound_ms, bound_by = _bound(rates, nbytes, (n // 2) * d.log_n + n * scalings, W)
+        main["transforms"].append({
+            "transform": method, "n": f"2^{d.log_n}", "passes": len(pass_split(d.log_n)),
+            "ms": _cuda_ms(run, REPS_KERNEL), "bound_ms": bound_ms, "bound_by": bound_by})
+    torch.cuda.synchronize()
+
+
 def _chain_points(group, k0: int, dk: int, n: int, q: int):
     """Points (k0 + i·dk)·G by repeated host addition, every 9th at
     infinity, with their discrete logs (so the oracle is one host product)."""
@@ -790,6 +879,7 @@ def _prove_path(device, name: str, system: str, cs, pub, sec, bad_pub, phase: st
     import torch
 
     from gnark_icicle_tpu_torch.ops import cuda as kc
+    from gnark_icicle_tpu_torch.ops import ntt
 
     backend = importlib.import_module(f"gnark_icicle_tpu_torch.backend.{system}")
     curve = _curves()[name]
@@ -815,25 +905,40 @@ def _prove_path(device, name: str, system: str, cs, pub, sec, bad_pub, phase: st
     log.addHandler(grab)
     log.setLevel(logging.INFO)
 
-    for k in kc.KERNELS.values():   # count this path's launches only
-        k.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    pk, vk = backend.setup(cs, curve, rng=random.Random(1), device=device)
-    t_setup = time.perf_counter() - t0
-    rng = random.Random(2)
-    t0 = time.perf_counter()
-    backend.prove(cs, pk, pub, sec, curve, rng=rng, device=device)
-    t_first = time.perf_counter() - t0
-    timed = []
-    for _ in range(2):
-        phases.clear()
+    # every transform of the path, by its domain's log_n (Domain._transform
+    # runs each transform's passes)
+    transforms = []
+    transform = ntt.Domain._transform
+
+    def counted(dom, *args, **kw):
+        transforms.append(dom.log_n)
+        return transform(dom, *args, **kw)
+
+    ntt.Domain._transform = counted
+    try:
+        for k in kc.KERNELS.values():   # count this path's launches only
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        proof = backend.prove(cs, pk, pub, sec, curve, rng=rng, device=device)
-        timed.append({"seconds": time.perf_counter() - t0, **dict(phases)})
-    profiled = _profiled(lambda: backend.prove(cs, pk, pub, sec, curve, rng=rng,
-                                               device=device))
-    launches = {k.name: k.launches for k in kc.KERNELS.values() if k.curve == name}
+        pk, vk = backend.setup(cs, curve, rng=random.Random(1), device=device)
+        t_setup = time.perf_counter() - t0
+        rng = random.Random(2)
+        t0 = time.perf_counter()
+        backend.prove(cs, pk, pub, sec, curve, rng=rng, device=device)
+        t_first = time.perf_counter() - t0
+        warm = [_warm_state(name)]
+        timed = []
+        for _ in range(2):
+            phases.clear()
+            t0 = time.perf_counter()
+            proof = backend.prove(cs, pk, pub, sec, curve, rng=rng, device=device)
+            timed.append({"seconds": time.perf_counter() - t0, **dict(phases)})
+        profiled = _profiled(lambda: backend.prove(cs, pk, pub, sec, curve, rng=rng,
+                                                   device=device))
+        launches = {k.name: k.launches for k in kc.KERNELS.values() if k.curve == name}
+        warm.append(_warm_state(name))
+    finally:
+        ntt.Domain._transform = transform
     peak = torch.cuda.max_memory_allocated()
     log.removeHandler(grab)
 
@@ -849,16 +954,41 @@ def _prove_path(device, name: str, system: str, cs, pub, sec, bad_pub, phase: st
          **report, setup_s=t_setup, setup_split=setup_split, first_prove_s=t_first,
          proves=timed, profiled_prove=profiled, peak_device_bytes=peak,
          verify_s=t_verify, verified=True, tampered_rejected=True)
-    _check_launches(name, launches, phase)
-    _say("launches", curve=curve.name, path=phase, **launches)
+    per_transform = _check_launches(name, launches, phase, transforms, warm, WARM_PROVES)
+    _say("launches", curve=curve.name, path=phase, **launches, transforms=len(transforms),
+         passes_per_transform=per_transform,
+         warm_prove={k: (warm[1][k] - warm[0][k]) / WARM_PROVES for k in warm[0]})
     return launches, vk, proof
+
+
+# proves after the first in _prove_path: two timed, one profiled
+WARM_PROVES = 3
+
+
+def _warm_state(name: str) -> dict:
+    """What a warm prove may not add to (the domain tables: domains, their
+    twiddle tables and PLONK's quotient tables) and the Fr launches counted
+    per warm prove, for _check_launches."""
+    import importlib
+
+    from gnark_icicle_tpu_torch.ops import cuda as kc
+    from gnark_icicle_tpu_torch.ops import ntt
+
+    plonk_prove = importlib.import_module("gnark_icicle_tpu_torch.backend.plonk.prove")
+    pre = kc.CURVES[name]
+    return {"domains": len(ntt._DOMAINS),
+            "twiddle_tables": sum(len(d._tw) for d in ntt._DOMAINS.values()),
+            "quotient_tables": len(plonk_prove._DOMAIN_TABLES),
+            **{e: kc.KERNELS[pre + e].launches for e in ("fr_mont_mul", "fr_sub", "ntt_pass")}}
 
 
 def _expectations(name: str, path: str) -> dict:
     """Each kernel entry of a curve (by C symbol) on one path: "ran" (at
-    least one launch), "zero" (none) or "any". Fr: fr_mont_mul, fr_sub and
-    ntt_stage on every path, fr_add and plonk_quotient on PLONK's only.
-    Groups: every entry ran but *_double (no caller) and *_add, the fold of
+    least one launch), "zero" (none) or "any". Fr: fr_mont_mul and ntt_pass
+    on every path; fr_add and plonk_quotient on PLONK's only, and fr_sub
+    there too (PLONK's quotient tables), no more on Groth16's (computeH's
+    pointwise rides ntt_pass). Groups: every entry ran but *_double (no
+    caller) and *_add, the fold of
     split buckets, which the Chain (groth16) never runs, the 2-chain always
     and PLONK's commitments where a bucket is split; PLONK has no G2 MSM, so
     no g2_* entry runs there; the running sums run on every path but the
@@ -875,7 +1005,7 @@ def _expectations(name: str, path: str) -> dict:
         e = k.name[len(pre):]
         g, _, op = e.partition("_")
         if g not in ("g1", "g2"):
-            out[k.name] = "ran" if plonk or e not in ("fr_add", "plonk_quotient") else "zero"
+            out[k.name] = "ran" if plonk or e not in ("fr_add", "plonk_quotient", "fr_sub") else "zero"
         elif op == "double" or (plonk and g == "g2"):
             out[k.name] = "zero"
         elif op == "add":
@@ -887,11 +1017,18 @@ def _expectations(name: str, path: str) -> dict:
     return out
 
 
-def _check_launches(name: str, launches: dict, path: str) -> None:
+def _check_launches(name: str, launches: dict, path: str, transforms: list, warm: list,
+                    warm_proves: int) -> dict:
     """The path's launches against _expectations; per MSM (one
     *_bucket_accumulate each) one combine, one Horner and at most one
-    running-sums launch, so at most three."""
+    running-sums launch, so at most three; per transform (`transforms`: the
+    log_n of each) the passes of pass_split, at most three; warm proves
+    (`warm`: _warm_state after the first prove and after the last) build no
+    domain table, and on Groth16 paths launch fr_mont_mul at most 6 times a
+    prove (the three conversions of a, b, c to Montgomery form and h's back)
+    and fr_sub never. Returns {log_n: passes a transform}."""
     from gnark_icicle_tpu_torch.ops import cuda as kc
+    from gnark_icicle_tpu_torch.ops.ntt import pass_split
 
     bad = [k for k, e in _expectations(name, path).items()
            if {"zero": launches[k] != 0, "ran": launches[k] == 0, "any": False}[e]]
@@ -905,8 +1042,19 @@ def _check_launches(name: str, launches: dict, path: str) -> None:
                 and mine["bucket_reduce"] <= msms):
             bad.append(f"{stem}reduction: {mine['bucket_reduce']} + {mine['reduce_combine']} "
                        f"+ {mine['horner']} launches for {msms} MSMs")
+    per = {log_n: len(pass_split(log_n)) for log_n in sorted(set(transforms))}
+    passes = launches[kc.CURVES[name] + "ntt_pass"]
+    if not transforms or max(per.values()) > 3 or passes != sum(per[t] for t in transforms):
+        bad.append(f"ntt_pass: {passes} launches for {len(transforms)} transforms {per}")
+    delta = {k: warm[1][k] - warm[0][k] for k in warm[0]}
+    if any(delta[k] for k in ("domains", "twiddle_tables", "quotient_tables")):
+        bad.append(f"warm proves built domain tables: {delta}")
+    if path != "plonk" and (delta["fr_mont_mul"] > 6 * warm_proves or delta["fr_sub"] != 0):
+        bad.append(f"warm proves: {delta['fr_mont_mul']} fr_mont_mul, {delta['fr_sub']} fr_sub "
+                   f"launches in {warm_proves}")
     if bad:
         raise AssertionError(f"the {name} {path} path's launches are not the expected ones: {bad}")
+    return per
 
 
 def _chain(name: str, steps: int, builder: str) -> tuple:

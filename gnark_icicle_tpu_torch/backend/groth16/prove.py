@@ -5,8 +5,9 @@ Port of gnark_icicle_tpu/backend/groth16/prove.py (``prove`` :187, the
 device phase :371-555, ``_compute_h`` :31-90) with ``_assemble_proof``
 (:558-589) copied. Flow:
 
-  solve (host, native)  →  computeH (3 INTT → 3 coset NTT → (a·b−c)·den →
-  coset INTT → from Montgomery; h stays on the device, bit-reversed)  →
+  solve (host, native)  →  computeH (3 INTT → 3 coset NTT → coset INTT of
+  (a·b−c)·den, the pointwise on its first pass → from Montgomery; h stays on
+  the device, bit-reversed)  →
   MSMs A, B1, K, Z over G1 and B2 over G2  →  r, s blinding (host).
 
 Each phase's wall time is logged (the port's ``logger``) after the device
@@ -52,8 +53,9 @@ def _compute_h(ctx: DeviceCtx, a, b, c, log_n: int):
         return dom.coset_ntt_rev_in(dom.intt_nat_to_rev(e))
 
     ca, cb, cc = to_coset(ea), to_coset(eb), to_coset(ec)
-    h_evals = tf.mont_mul(tf.sub(tf.mont_mul(ca, cb), cc), den)
-    h_rev = dom.coset_intt_nat_to_rev(h_evals)  # Montgomery, bit-reversed
+    # (a·b − c)·den on the first pass of the coset INTT; Montgomery,
+    # bit-reversed
+    h_rev = dom.coset_intt_nat_to_rev_pointwise(ca, cb, cc, den)
     return tf.from_mont(h_rev)                   # plain = MSM scalar format
 
 

@@ -370,6 +370,116 @@ __device__ __forceinline__ void fstore(uint32_t* base, long long ld, long long l
 }
 
 // ---------------------------------------------------------------------------
+// the NTT pass (fr.cu k_ntt_pass): stages s_lo .. s_lo + c - 1 of a radix-2
+// transform of n = 2^log_n over a tile of 2^(log_g + c + log_t) elements in
+// shared memory. The stages mix only the bits s_lo .. s_lo + c - 1 of an
+// index, so the tile is G groups (bits above) x R = 2^c rows (the pass's
+// bits) x T columns (the consecutive low bits lo0 .. lo0 + T - 1): tile
+// element e = (g R + r) T + t is global index ((hi0 + g) << (s_lo + c)) +
+// (r << s_lo) + lo0 + t. A pass with s_lo > 0 takes G = 1 and T >= 8, so each
+// limb row of the tile is a run of at least 32 bytes; the pass with s_lo = 0
+// takes T = 1 and G consecutive groups, one contiguous chunk. The functions
+// are per-thread steps, plain C++ (tests/test_torch_field_cuh.py runs them on
+// the host, thread after thread); shared memory holds the tile limb-major, E
+// words a limb, so neighbouring threads touch neighbouring words.
+// ---------------------------------------------------------------------------
+
+struct NttPass {
+  const uint32_t* x;      // input (N, n)
+  uint32_t* out;          // output (N, n); may be x (every tile is read before it is written)
+  const uint32_t* tws;    // stage-major twiddles (N, n): stage s (half-width 2^s) at columns 2^s + j
+  const uint32_t* mul;    // load x * mul[i] (N, n), or null
+  const uint32_t* sub;    // then - sub[i] (N, n), or null
+  const uint32_t* scale;  // then * scale (N, scale_ld): column i, or 0 where scale_ld == 1; or null
+  const uint32_t* post;   // store v * post (N, post_ld), as scale; or null
+  long long n, scale_ld, post_ld;
+  int s_lo, c, log_t, log_g, dif;
+};
+
+__device__ __forceinline__ int ntt_log_tile(const NttPass& a) { return a.log_g + a.c + a.log_t; }
+
+// the first column of block blk's tile, lo0
+__device__ __forceinline__ long long ntt_lo0(const NttPass& a, long long blk) {
+  return (blk & ((1LL << (a.s_lo - a.log_t)) - 1)) << a.log_t;
+}
+
+// the global index of tile element e of block blk (tile-local indices are
+// below 2^12, so they take 32-bit arithmetic; global ones 64-bit)
+__device__ __forceinline__ long long ntt_index(const NttPass& a, long long blk, int e) {
+  const long long hi0 = (blk >> (a.s_lo - a.log_t)) << a.log_g;
+  const int t = e & ((1 << a.log_t) - 1), r = (e >> a.log_t) & ((1 << a.c) - 1);
+  const int g = e >> (a.log_t + a.c);
+  return ((hi0 + g) << (a.s_lo + a.c)) + ((long long)r << a.s_lo) + ntt_lo0(a, blk) + t;
+}
+
+// limb k of tile element e at sm[k E + e]
+template <class P>
+__device__ __forceinline__ Elt<P> tload(const uint32_t* sm, int E, int e) {
+  Elt<P> v;
+#pragma unroll
+  for (int k = 0; k < P::N; ++k) v.v[k] = sm[k * E + e];
+  return v;
+}
+
+template <class P>
+__device__ __forceinline__ void tstore(uint32_t* sm, int E, int e, const Elt<P>& v) {
+#pragma unroll
+  for (int k = 0; k < P::N; ++k) sm[k * E + e] = v.v[k];
+}
+
+// v = ((x mul - sub) scale) at element e into the tile
+template <class P>
+__device__ __forceinline__ void ntt_load(const NttPass& a, uint32_t* sm, long long blk, int e) {
+  const long long i = ntt_index(a, blk, e);
+  Elt<P> v = fload<P>(a.x, a.n, i);
+  if (a.mul) v = fmul(v, fload<P>(a.mul, a.n, i));
+  if (a.sub) v = fsub(v, fload<P>(a.sub, a.n, i));
+  if (a.scale) v = fmul(v, fload<P>(a.scale, a.scale_ld, a.scale_ld == 1 ? 0 : i));
+  tstore<P>(sm, 1 << ntt_log_tile(a), e, v);
+}
+
+// the twiddles of the pass's local stage L from block blk's first column:
+// tws + 2^(s_lo + L) + lo0 (see ntt_butterfly)
+__device__ __forceinline__ const uint32_t* ntt_stage_twiddles(const NttPass& a, long long blk,
+                                                             int L) {
+  return a.tws + (1LL << (a.s_lo + L)) + ntt_lo0(a, blk);
+}
+
+// Butterfly b (of E / 2) of the pass's local stage L, stage s = s_lo + L of
+// the transform (half-width m = 2^s): the pair e0, e1 = e0 + 2^(log_t + L)
+// of tile elements, global i0 and i0 + m, with twiddle j = i0 mod m (tw: the
+// stage's twiddles from ntt_stage_twiddles), the butterflies of
+// ops/ntt.py ntt_stage_plain:
+//   DIF: (a, b) -> (a + b, (a - b) w)        DIT: (a, b) -> (a + b w, a - b w)
+template <class P>
+__device__ __forceinline__ void ntt_butterfly(const NttPass& a, uint32_t* sm, const uint32_t* tw,
+                                              int L, int b) {
+  const int E = 1 << ntt_log_tile(a), p = a.log_t + L;
+  const int e0 = ((b >> p) << (p + 1)) | (b & ((1 << p) - 1)), e1 = e0 | (1 << p);
+  const int t = e0 & ((1 << a.log_t) - 1), r0 = (e0 >> a.log_t) & ((1 << L) - 1);
+  const Elt<P> w = fload<P>(tw, a.n, ((long long)r0 << a.s_lo) + t);
+  const Elt<P> x0 = tload<P>(sm, E, e0), x1 = tload<P>(sm, E, e1);
+  if (a.dif) {
+    tstore<P>(sm, E, e0, fadd(x0, x1));
+    tstore<P>(sm, E, e1, fmul(fsub(x0, x1), w));
+  } else {
+    const Elt<P> xw = fmul(x1, w);
+    tstore<P>(sm, E, e0, fadd(x0, xw));
+    tstore<P>(sm, E, e1, fsub(x0, xw));
+  }
+}
+
+// element e of the tile, times post, to out
+template <class P>
+__device__ __forceinline__ void ntt_store(const NttPass& a, const uint32_t* sm, long long blk,
+                                          int e) {
+  const long long i = ntt_index(a, blk, e);
+  Elt<P> v = tload<P>(sm, 1 << ntt_log_tile(a), e);
+  if (a.post) v = fmul(v, fload<P>(a.post, a.post_ld, a.post_ld == 1 ? 0 : i));
+  fstore<P>(a.out, a.n, i, v);
+}
+
+// ---------------------------------------------------------------------------
 // quadratic extension Fp2 = Fp[u]/(u^2 - BETA), BETA = -1 (BN254, BLS12-381)
 // or -5 (BLS12-377)
 // ---------------------------------------------------------------------------

@@ -1,23 +1,30 @@
 // Fr (scalar field) kernels: the elementwise Montgomery product, the
-// subtraction computeH needs, the addition of PLONK's linear combinations,
-// one radix-2 NTT stage, and PLONK's quotient on the 4n coset. Built once per
-// curve (field.cuh, CurveFr): BN254, BLS12-381 and BLS12-377 r at 8 words,
-// BW6-761 r at 12.
+// subtraction and the addition of PLONK's linear combinations, one NTT pass
+// of up to 11 radix-2 stages in shared memory, and PLONK's quotient on the 4n
+// coset. Built once per curve (field.cuh, CurveFr): BN254, BLS12-381 and
+// BLS12-377 r at 8 words, BW6-761 r at 12.
 //
 // Replaces TPU kernel K1: gnark_icicle_tpu/ops/field_t.py:353 TField.mont_mul
 // (Pallas body _mul_kernel, :314), which carries every NTT butterfly stage
 // (gnark_icicle_tpu/ops/ntt.py:190 _tmul, :204 _butterflies_t) and through
 // them computeH (gnark_icicle_tpu/backend/groth16/prove.py:31).
 //
-// Bound on the card: fr_mont_mul and fr_sub read 8N bytes and write 4N per
-// lane (N = 8 or 12 words), so at 2^16-2^18 lanes they are bound by device
-// memory, not by the 2N^2 integer multiply-adds of one product. An NTT stage
-// is the same plus a twiddle read. The design keeps one lane per thread on
-// the limb-major (N, n) layout, so every limb load is a coalesced 128-byte
-// line per warp,
-// and fuses the twiddle product into the butterfly (no separate pass over
-// the d-half as the TPU version makes). Fusing several stages through shared
-// memory is later work.
+// Bound on the card: fr_mont_mul, fr_sub and fr_add read 8N bytes and write
+// 4N per lane (N = 8 or 12 words), so at 2^16-2^19 lanes they are bound by
+// device memory, not by the 2N^2 integer multiply-adds of one product; one
+// thread a lane on the limb-major (N, n) layout, every limb load a coalesced
+// 128-byte line per warp. A whole transform of n = 2^k is bound by its
+// products instead: (n/2) k twiddle products of 2 * 2N^2 32-bit multiply-adds
+// (0.076 ms at 2^19 and 8 words) against one read and one write of the array
+// (0.010 ms). ntt_pass is designed for that: a transform is 2 or 3 passes
+// (ops/ntt.py pass_split), each running its stages on a tile in shared memory
+// (field.cuh "the NTT pass"), so the array crosses device memory 2-3 times,
+// not k times, and the stages' products have the SMs to themselves between a
+// tile's load and its store. The twiddles come from a stage-major table (stage
+// s's 2^s twiddles consecutive), so neighbouring butterflies read
+// neighbouring words; it is built once per domain. The scalings of the
+// transforms ride the first load and the last store: the coset powers, 1/n
+// and g^-i n^-1, and computeH's pointwise (a b - c) den.
 //
 // plonk_quotient is the row function of gnark_icicle_tpu/backend/plonk/
 // prove.py:176-218 (_quotient_chunk_fn: 21 Montgomery products and 16 adds
@@ -98,28 +105,26 @@ __global__ void k_plonk_quotient(QuotientIn in, const uint32_t* consts, const ui
   fstore<FrM>(out, n, l, fmul(num, fload<FrM>(zh_inv, 4, l & 3)));
 }
 
-// One radix-2 stage over (N, n) data in place. Stage half-width m: lane k
-// of n/2 is butterfly j = k mod m of group g = k / m, touching elements
-// i0 = 2mg + j and i1 = i0 + m with twiddle tw[j * stride] (the layout of
-// gnark_icicle_tpu/ops/ntt.py:224, view (-1, 2, m)).
-//   DIF: (a, b) -> (a + b, (a - b) w)        DIT: (a, b) -> (a + bw, a - bw)
-__global__ void k_ntt_stage(uint32_t* x, long long n, long long m, long long stride,
-                            const uint32_t* tw, long long tw_ld, int dif) {
-  const long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= n / 2) return;
-  const long long g = k / m, j = k - g * m;
-  const long long i0 = 2 * m * g + j, i1 = i0 + m;
-  const Fr w = fload<FrM>(tw, tw_ld, j * stride);
-  const Fr a = fload<FrM>(x, n, i0);
-  const Fr b = fload<FrM>(x, n, i1);
-  if (dif) {
-    fstore<FrM>(x, n, i0, fadd(a, b));
-    fstore<FrM>(x, n, i1, fmul(fsub(a, b), w));
-  } else {
-    const Fr bw = fmul(b, w);
-    fstore<FrM>(x, n, i0, fadd(a, bw));
-    fstore<FrM>(x, n, i1, fsub(a, bw));
+// One pass of an NTT: block blk loads its tile (field.cuh ntt_index) with the
+// load's scalings, runs the pass's stages in shared memory (DIF from the
+// highest down, DIT from the lowest up), and stores it with the store's.
+// 512 threads at 8 words (at most 128 registers a thread), 256 at 12
+constexpr int NTT_THREADS = FrM::N > 8 ? 256 : 512;
+constexpr int NTT_LOG_TILE_MAX = 11;  // 2048 elements: 64 KB at 8 words, 96 KB at 12
+
+__global__ void __launch_bounds__(NTT_THREADS) k_ntt_pass(NttPass a) {
+  extern __shared__ uint32_t sm[];
+  const long long blk = blockIdx.x;
+  const int E = 1 << ntt_log_tile(a);
+  for (int e = threadIdx.x; e < E; e += blockDim.x) ntt_load<FrM>(a, sm, blk, e);
+  __syncthreads();
+  for (int k = 0; k < a.c; ++k) {
+    const int L = a.dif ? a.c - 1 - k : k;
+    const uint32_t* tw = ntt_stage_twiddles(a, blk, L);
+    for (int b = threadIdx.x; b < E / 2; b += blockDim.x) ntt_butterfly<FrM>(a, sm, tw, L, b);
+    __syncthreads();
   }
+  for (int e = threadIdx.x; e < E; e += blockDim.x) ntt_store<FrM>(a, sm, blk, e);
 }
 
 extern "C" int ENTRY(fr_mont_mul)(const void* a, const void* b, long long b_ld, int b_bcast, void* out,
@@ -155,10 +160,33 @@ extern "C" int ENTRY(plonk_quotient)(const void* const* in, const void* consts, 
   return (int)cudaGetLastError();
 }
 
-extern "C" int ENTRY(ntt_stage)(void* x, long long n, long long m, long long stride, const void* tw,
-                         long long tw_ld, int dif, void* stream) {
-  if (n > 1)
-    k_ntt_stage<<<n_blocks(n / 2, 256), 256, 0, (cudaStream_t)stream>>>(
-        (uint32_t*)x, n, m, stride, (const uint32_t*)tw, tw_ld, dif);
+// x, out, tws, mul, sub, scale, post: (N, n) limb-major planes (scale and
+// post (N, 1) where their ld is 1); mul, sub, scale and post may be null.
+// The tile of 2^(log_g + c + log_t) elements must divide n, and log_t may
+// not exceed s_lo. Above 48 KB a block's shared memory takes the function
+// attribute, set once; a refused launch is returned, never skipped.
+extern "C" int ENTRY(ntt_pass)(const void* x, void* out, const void* tws, const void* mul,
+                               const void* sub, const void* scale, long long scale_ld,
+                               const void* post, long long post_ld, long long n, int s_lo, int c,
+                               int log_t, int log_g, int dif, void* stream) {
+  static bool attr_set = false;
+  const int log_e = log_g + c + log_t;
+  if (log_e > NTT_LOG_TILE_MAX || log_t > s_lo || c < 0 || log_g < 0 || n < (1LL << log_e) ||
+      (n & ((1LL << log_e) - 1)) != 0)
+    return (int)cudaErrorInvalidValue;
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(k_ntt_pass,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               (4 << NTT_LOG_TILE_MAX) * FrM::N);
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
+  }
+  NttPass a{(const uint32_t*)x, (uint32_t*)out, (const uint32_t*)tws, (const uint32_t*)mul,
+            (const uint32_t*)sub, (const uint32_t*)scale, (const uint32_t*)post,
+            n, scale_ld, post_ld, s_lo, c, log_t, log_g, dif};
+  const long long E = 1LL << log_e;
+  const int threads = E / 2 < 32 ? 32 : (E / 2 > NTT_THREADS ? NTT_THREADS : (int)(E / 2));
+  k_ntt_pass<<<(unsigned int)(n >> log_e), threads, (size_t)(4 * E * FrM::N),
+               (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

@@ -52,14 +52,11 @@ class DeviceCtx:
         bits = curve.fr.modulus.bit_length()
         self.msm_g1 = MSMKernel(self.g1, bits)
         self.msm_g2 = MSMKernel(self.g2, bits)
-        self._domains: dict = {}
 
     def domain(self, log_n: int, coset: bool = False) -> Domain:
-        key = (log_n, coset)
-        if key not in self._domains:
-            self._domains[key] = domain_for(self.fr, self.curve.fr, log_n,
-                                            self.device, coset=coset)
-        return self._domains[key]
+        """The Fr domain of 2^log_n on this device (ops/ntt.py caches it
+        across contexts, so a prove builds no table that an earlier one did)."""
+        return domain_for(self.fr, self.curve.fr, log_n, self.device, coset=coset)
 
     def sync(self) -> None:
         """Wait for the device (phase timings)."""

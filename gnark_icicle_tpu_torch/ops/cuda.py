@@ -56,7 +56,8 @@ SIGNATURES = {
         "fr_sub": [_P, _P, _P, _I64, _P],
         "fr_add": [_P, _P, _P, _I64, _P],
         "plonk_quotient": [_P, _P, _P, _P, _I64, _P],
-        "ntt_stage": [_P, _I64, _I64, _I64, _P, _I64, _I32, _P],
+        "ntt_pass": [_P, _P, _P, _P, _P, _P, _I64, _P, _I64, _I64, _I32, _I32, _I32,
+                     _I32, _I32, _P],
     },
     "g1": {
         "g1_add_mixed_masked": [_P, _I64, _I64, _P, _P, _P, _P, _P, _I32, _P],

@@ -3,9 +3,12 @@ subtraction and addition, powers and inverses, and PLONK's fused quotient.
 
 Port of gnark_icicle_tpu/ops/field_t.py ``TField`` (:320), whose
 ``mont_mul`` (:353) is TPU kernel K1. Here it is ``csrc/fr.cu``
-``fr_mont_mul``; ``fr_sub`` joins it because computeH's pointwise
-``(a·b − c)·den`` runs on the card too, and ``fr_add`` because PLONK's
-linear combinations do (gnark_icicle_tpu/backend/plonk/prove.py:223).
+``fr_mont_mul``; ``fr_sub`` joins it (PLONK's quotient tables take one
+subtraction; computeH's pointwise ``(a·b − c)·den`` now rides the first pass
+of its coset INTT, ``ops/ntt.py``), and ``fr_add`` because PLONK's linear
+combinations run on the card (gnark_icicle_tpu/backend/plonk/prove.py:223).
+The NTT's entry of the same source, ``ntt_pass``, has its wrapper in
+``ops/ntt.py``.
 ``mont_pow``/``mont_inv`` are square and multiply over ``fr_mont_mul``
 launches (LimbField.mont_pow :292, about 380 launches for an inverse).
 ``plonk_quotient`` is PLONK's row function on the 4n coset
@@ -34,7 +37,7 @@ _K1 = "gnark_icicle_tpu/ops/field_t.py:353"
 # scalar-field modulus -> {entry: Kernel} of its curve
 FR_KERNELS = {
     q: {name: Kernel("fr", curve, name, _K1)
-        for name in ("fr_mont_mul", "fr_sub", "fr_add", "plonk_quotient")}
+        for name in ("fr_mont_mul", "fr_sub", "fr_add", "plonk_quotient", "ntt_pass")}
     for q, curve in ((bn254.R, "bn254"), (bls12_381.R, "bls12_381"),
                      (bls12_377.R, "bls12_377"), (bw6_761.R, "bw6_761"))
 }

@@ -26,7 +26,9 @@ from gnark_icicle_tpu_torch.ops.ec_t import TCurve, TCurve2
 from gnark_icicle_tpu_torch.ops.field import field_for
 from gnark_icicle_tpu_torch.ops.field_t import QUOTIENT_INPUTS, TField, plonk_quotient_plain
 from gnark_icicle_tpu_torch.ops.msm import msm_host
-from gnark_icicle_tpu_torch.ops.ntt import domain_for, ntt_stage, ntt_stage_plain
+from gnark_icicle_tpu_torch.ops.ntt import (
+    domain_for, ntt_pass, ntt_pass_plain, pass_split, split_stages,
+)
 
 from test_torch_common import CURVES, cuda_device, g2_over_fp2, rand_ints  # noqa: F401
 
@@ -87,17 +89,32 @@ def test_fr_add_quotient_and_inverse_match_plain(cuda_device, name):
 
 
 @pytest.mark.parametrize("name", NAMES)
-def test_ntt_stage_kernel_matches_plain(cuda_device, name):
+def test_ntt_pass_kernel_matches_plain(cuda_device, name):
+    """ntt_pass against ntt_pass_plain at 2^12, DIF and DIT: each pass of
+    pass_split (the low pass on groups of contiguous chunks, the upper on
+    strided rows) and of a three-pass split (a middle pass), each with
+    each fused scaling — none, the coset powers on the load, computeH's
+    pointwise (a·b − c)·den, 1/n and a table on the store —, out of place
+    and in place."""
     R = CURVES[name].fr.modulus
     F = field_for(R)
     n = 1 << 12
-    tw = F.encode(rand_ints(90, R, n // 2), cuda_device)
+    tws = F.encode(rand_ints(90, R, n), cuda_device)
     x = F.encode(rand_ints(91, R, n), cuda_device)
-    for m, stride, dif in ((n // 2, 1, True), (1, n // 2, False), (64, 8, True)):
-        xk, xp = x.clone(), x.clone()
-        ntt_stage(F, xk, m, stride, tw, dif)
-        ntt_stage_plain(F, xp, m, stride, tw, dif)
-        assert torch.equal(xk, xp)
+    tab, tab2 = (F.encode(rand_ints(s, R, n), cuda_device) for s in (92, 93))
+    col = F.const(rand_ints(94, R, 1, edge=False)[0], cuda_device)
+    scalings = ({}, {"mul": tab}, {"mul": tab, "sub": tab2, "scale": col},
+                {"post": col}, {"post": tab})
+    passes = pass_split(12) + split_stages(12, 6, 3)
+    assert len(passes) == 5
+    for p in passes:
+        for dif in (True, False):
+            for ops in scalings:
+                want = ntt_pass_plain(F, x, tws, p, dif, **ops)
+                assert torch.equal(ntt_pass(F, x, tws, p, dif, **ops), want)
+                y = x.clone()
+                assert ntt_pass(F, y, tws, p, dif, **ops, out=y) is y
+                assert torch.equal(y, want)
 
 
 @pytest.mark.parametrize("name", NAMES)

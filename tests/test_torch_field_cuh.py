@@ -178,10 +178,50 @@ template <class E, class B3, class RD, class WR> void reduce_ops(RD rd, WR wr) {
   }
 }
 
+// "ntt n s_lo c log_t log_g dif has_mul has_sub scale_ld post_ld <x> <tws>
+// [<mul>] [<sub>] [<scale>] [<post>]": one NTT pass as k_ntt_pass runs it,
+// block after block, each step thread after thread; prints the output
+template <class P> void ntt_ops() {
+  std::string op;
+  while (std::cin >> op && op != "end") {
+    long long n, scale_ld, post_ld;
+    int s_lo, c, log_t, log_g, dif, has_mul, has_sub;
+    std::cin >> std::dec >> n >> s_lo >> c >> log_t >> log_g >> dif >> has_mul >> has_sub >>
+        scale_ld >> post_ld;
+    auto plane = [&](long long m) {
+      std::vector<uint32_t> v(P::N * m);
+      for (long long i = 0; i < m; ++i) fstore<P>(v.data(), m, i, rd<P>());
+      return v;
+    };
+    const auto x = plane(n), tws = plane(n);
+    const auto mul = plane(has_mul ? n : 0), sub = plane(has_sub ? n : 0);
+    const auto scale = plane(scale_ld), post = plane(post_ld);
+    std::vector<uint32_t> out(P::N * n);
+    const NttPass a{x.data(), out.data(), tws.data(), has_mul ? mul.data() : nullptr,
+                    has_sub ? sub.data() : nullptr, scale_ld ? scale.data() : nullptr,
+                    post_ld ? post.data() : nullptr, n, scale_ld, post_ld, s_lo, c, log_t,
+                    log_g, dif};
+    const int E = 1 << ntt_log_tile(a);
+    std::vector<uint32_t> sm(P::N * E);
+    for (long long blk = 0; blk < n / E; ++blk) {
+      for (int e = 0; e < E; ++e) ntt_load<P>(a, sm.data(), blk, e);
+      for (int k = 0; k < c; ++k) {
+        const int L = dif ? c - 1 - k : k;
+        const uint32_t* tw = ntt_stage_twiddles(a, blk, L);
+        for (int b = 0; b < E / 2; ++b) ntt_butterfly<P>(a, sm.data(), tw, L, b);
+      }
+      for (int e = 0; e < E; ++e) ntt_store<P>(a, sm.data(), blk, e);
+    }
+    for (long long i = 0; i < n; ++i) wr(fload<P>(out.data(), n, i));
+    printf("\n");
+  }
+}
+
 int main() {
   std::string which;
   while (std::cin >> which) {
     if (which == "fp") field_ops<CurveFp>();
+    else if (which == "ntt") ntt_ops<CurveFr>();
     else if (which == "fr") field_ops<CurveFr>();
     else if (which == "g1") group_ops<Elt<CurveFp>, G1B3>(rd<CurveFp>, wr<CurveFp>);
     else if (which == "b3g1") b3_ops<Elt<CurveFp>, G1B3>(rd<CurveFp>, wr<CurveFp>);
@@ -482,3 +522,55 @@ def _words_of(t) -> list:
     return [sum((int(x) & 0xFFFFFFFF) << (32 * i) for i, x in enumerate(t[k].tolist()))
             for k in range(t.shape[0])]
 
+
+
+@pytest.mark.parametrize("name", sorted(CURVES))
+def test_ntt_pass_matches_plain(host_build, name):
+    """csrc/field.cuh's NTT pass (k_ntt_pass's loads, butterflies and
+    stores, block after block, thread after thread) against ops/ntt.py
+    ntt_pass_plain, limb for limb: the two passes of pass_split at 2^12
+    (DIF with 1/n on the store, DIT with the coset powers on the load), and
+    at 2^8 a pass of each position on tiles of several groups and columns,
+    with computeH's pointwise (a·b − c)·den on the load and a table on the
+    store; random Montgomery values led by 0, 1, p − 1."""
+    import torch
+
+    from gnark_icicle_tpu_torch.ops.field import field_for
+    from gnark_icicle_tpu_torch.ops.ntt import NttPass, ntt_pass_plain, pass_split
+
+    q = CURVES[name].fr.modulus
+    F = field_for(q)
+    W = F.n32
+    rng = random.Random(31)
+
+    def arr(m):
+        return F.encode([0, 1, q - 1][:m] + [rng.randrange(q) for _ in range(m - 3)], "cpu")
+
+    def words(t):
+        return " ".join(_words(v, W) for v in _words_of(t.T.contiguous()))
+
+    cases = []
+    for dif, p in zip((True, False), pass_split(12)):
+        ops = {"post": F.const(rng.randrange(q), "cpu")} if dif else {"mul": arr(1 << 12)}
+        cases.append((1 << 12, p, dif, ops))
+    n = 1 << 8
+    cases += [(n, NttPass(6, 2, 2, 0), True, {"mul": arr(n), "sub": arr(n),
+                                               "scale": F.const(rng.randrange(q), "cpu")}),
+              (n, NttPass(3, 3, 3, 0), False, {"post": arr(n)}),
+              (n, NttPass(0, 3, 0, 2), True, {}),
+              (n, NttPass(0, 3, 0, 2), False, {"scale": arr(n)})]
+    lines, want = ["ntt"], []
+    for n, p, dif, ops in cases:
+        x, tws = arr(n), arr(n)
+        scale, post = ops.get("scale"), ops.get("post")
+        head = (f"pass {n} {p.s_lo} {p.c} {p.log_t} {p.log_g} {int(dif)} {int('mul' in ops)} "
+                f"{int('sub' in ops)} {0 if scale is None else scale.shape[1]} "
+                f"{0 if post is None else post.shape[1]}")
+        lines.append(" ".join([head, words(x), words(tws)] + [
+            words(ops[k]) for k in ("mul", "sub", "scale", "post") if k in ops]))
+        want.append(ntt_pass_plain(F, x, tws, p, dif, **ops))
+    lines.append("end")
+    got = _run(host_build[name], lines)
+    assert len(got) == len(want)
+    for line, w in zip(got, want):
+        assert _ints(line, W) == _words_of(w.T.contiguous())
