@@ -31,11 +31,15 @@ at 12, G2 over Fp), phases print one JSON line each on stdout:
      2-chain, W = 33, B = 2^11 and W = 36, B = 2^10), with CUDA-event times
      of both there and the least time the card could take (bound_ms), and
      Horner's time per double; *_add is timed at the fold's
-     width and *_double at one lane; the mixed
-     adds are also timed at setup's fixed-base ladder widths (one table row,
-     mask = a bit) and with the mask a prefix of the lanes, as the
-     reference's waves run. BW6-761's G2 runs its G1 entries with G2's b3
-     and is checked so;
+     width and *_double at one lane; the one-step mixed
+     add also with the mask a prefix of the lanes, as the reference's
+     waves run; setup's fixed-base comb (*_fixed_base at ops/fixed_base.py WINDOW)
+     and its normalization (*_normalize) at 2^12 scalars (0, 1, r - 1,
+     powers of two, all-ones windows; 24 lanes against the host product),
+     then timed at the path's batch widths (the Chain's 656,677 G1 and
+     131,512 G2 scalars; BW6-761's 173,101 and 35,856). BW6-761's G2 runs
+     its G1 entries with G2's b3 and is checked so (its comb and
+     normalization also timed);
   3. msm: G1 and G2 MSMs (2^12 and 2^10 points; BW6-761 2^10 and 2^10)
      against the host oracle of the port's curves/, in affine form, and a
      skewed G1 MSM (scalars mostly 0 and 1) whose digit-1 run is longer than
@@ -47,9 +51,12 @@ at 12, G2 over Fp), phases print one JSON line each on stdout:
      share, device time by kernel); the port's verifier accepts the proof
      and rejects a tampered public input. The kernels' launch counts are set
      to 0 just before setup and read just after the last prove: every entry
-     of the curve ran but *_double (no caller on the path), *_add (the
-     fold of split buckets, which the Chain has not) and fr_sub (computeH's
-     pointwise rides the coset INTT's first pass),
+     of the curve ran but *_double and *_add_mixed_masked (no caller on the
+     path), *_add (the fold of split buckets, which the Chain has not) and
+     fr_sub (computeH's pointwise rides the coset INTT's first pass),
+     each of setup's two fixed-base batches took one *_fixed_base and one
+     *_normalize launch (setup's log gives the points phase's split: comb
+     table, encoding, comb, normalization, decode),
      each MSM took at most three reduction and Horner launches, each
      transform the passes of pass_split (at most three), and the warm
      proves built no domain table and launched fr_mont_mul at most 6 times
@@ -59,7 +66,9 @@ at 12, G2 over Fp), phases print one JSON line each on stdout:
      compiled over BW6-761's r (BLS12-377's p), then setup, a first prove,
      two timed proves and a profiled one on the card, verify, and the inner
      public input + 1 rejected; launch counts as in phase 4, *_add included
-     (its MSMs split the top windows' buckets);
+     (its MSMs split the top windows' buckets), and setup's G1 batch and its
+     G2 batch over Fp both on the g1 entries (two *_fixed_base, two
+     *_normalize);
   plonk: the port's PLONK (KZG commitments on the G1 MSM, the 4n coset
      transforms, the fused quotient) on each curve's SCS Chain
      (bench.py:359 bench_plonk): 2^17 gates on BN254 and BLS12-381 (a 2^19
@@ -67,10 +76,12 @@ at 12, G2 over Fp), phases print one JSON line each on stdout:
      split), a first prove, two timed proves with their stage times (solve,
      round-1 commits, Z, quotient, linearization and openings), one under
      torch.profiler, verify and a tampered public input rejected; the
-     path's launches as above, with fr_add, fr_sub and plonk_quotient on it
-     and no g2_* entry;
+     path's launches as above, with fr_add, fr_sub and plonk_quotient on it,
+     the SRS as one *_fixed_base and one *_normalize launch, and no g2_*
+     entry;
   5. the JSON line of all kernels (each with its launches on each of its
-     curve's paths, and their sum; every kernel but *_double ran on one);
+     curve's paths, and their sum; every kernel but *_double and
+     *_add_mixed_masked ran on one);
   6. the card's name and power limit from nvidia-smi.
 The last line is {"ok": true, "device": {...}}. Any failure raises: the
 script exits non-zero and prints no such line. It needs one CUDA card and
@@ -136,17 +147,19 @@ def slice_shapes(name: str) -> dict:
     proof (35,871 constraints, 35,856 wires, a 2^16 domain; the h·Z MSM of
     65,536 points at c = 12: 33 windows, 67,584 wave lanes, the reduction at
     W = 33, B = 2^11; the wires' MSMs at c = 11: W = 36, B = 2^10; setup's
-    G1 ladder over 3·35,856 − 2 + 65,535 scalars, its G2 ladder over
-    35,856). The G2 MSM is B2 over the wires: 131,512 points on the Chain,
-    35,856 on BW6-761. "plonk" is the 4n rows of the curve's PLONK
-    quotient (PLONK_LOG)."""
+    G1 batch of 3·35,856 − 2 + 65,535 scalars, its G2 batch of 35,856).
+    Setup's fixed-base batches ("ladder"): G1 the A, B, K and Z scalars,
+    3·131,512 − 2 + 262,143 = 656,677 on the Chain, G2 B's 131,512. The G2
+    MSM is B2 over the wires: 131,512 points on the Chain, 35,856 on
+    BW6-761. "plonk" is the 4n rows of the curve's PLONK quotient
+    (PLONK_LOG)."""
     if name == "bw6_761":
         shapes = _path_shapes(16, 1 << 16, 35856, 377,
                               {"g1": 3 * 35856 - 2 + 65535, "g2": 35856}, 35856)
     else:
         bits = {"bn254": 254, "bls12_381": 255, "bls12_377": 253}[name]
-        shapes = _path_shapes(18, 1 << 18, 1 << 17, bits, {"g1": 1 << 18, "g2": 131512},
-                              131512)
+        shapes = _path_shapes(18, 1 << 18, 1 << 17, bits,
+                              {"g1": 3 * 131512 - 2 + (1 << 18) - 1, "g2": 131512}, 131512)
     return {**shapes, "plonk": 4 << PLONK_LOG[name]}
 # The card's rates for the bound (the least time the card could take): HBM
 # bandwidth from NVIDIA's H100 SXM data sheet; 32-bit integer multiply-adds
@@ -182,6 +195,18 @@ def combine_counts(V: int, M: int) -> tuple:
     with_g = ct if r > 1 else ct - 1
     return adds + with_g + ct - 1, doubles + with_g * log_m
 N_SKEW = 1 << 12    # points of the skewed MSM of the bucket accumulation check
+N_COMB = 1 << 12    # scalars of the fixed-base comb check
+COMB_HOST = 24      # of them held to the host's scalar products
+
+
+def comb_scalars(rng, r: int, n: int) -> list:
+    """n scalars below r: 0, 1, r − 1, 2, 2^64, 2^(bits − 1), 2^(bits − 1) − 1
+    (all ones below the top bit), runs of all-ones windows of 3-8 bits,
+    then random ones."""
+    bits = r.bit_length()
+    vals = [0, 1, r - 1, 2, 1 << 64, 1 << (bits - 1), (1 << (bits - 1)) - 1]
+    vals += [((1 << (8 * w)) - 1) << (3 * w) for w in range(3, 9)]
+    return vals + [rng.randrange(r) for _ in range(n - len(vals))]
 
 
 def _say(phase: str, **kv) -> None:
@@ -217,8 +242,11 @@ def _cuda_ms(fn, reps: int) -> float:
 
 
 def _max_abs_err(a, b) -> int:
+    """Largest difference of two tensors, or of two tuples of them."""
     import torch
 
+    if isinstance(a, tuple):
+        return max(_max_abs_err(x, y) for x, y in zip(a, b, strict=True))
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
 
 
@@ -239,6 +267,50 @@ def _bound(rates: dict, nbytes: float, products: float, words: int) -> tuple:
     t_bytes = nbytes / rates["hbm_bytes_per_s"]
     t_ops = 2 * (2 * words * words * products) / rates["imad_per_s"]
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def comb_work(tc, scalars, table, w: int, bits: int) -> tuple:
+    """(bytes, products, adds) of one *_fixed_base launch on these scalars:
+    a mixed add (11 products, ×3 over Fp2; b3's not counted, as PRODUCTS)
+    for each nonzero digit; the scalars and the whole table read once, the
+    projective points written once."""
+    from gnark_icicle_tpu_torch.ops.ec_t import comb_digits
+
+    adds = int((comb_digits(scalars, w, bits) != 0).sum().item())
+    nbytes = 4 * (scalars.numel() + table.numel() + scalars.shape[1] * tc.planes * tc.W)
+    return nbytes, adds * PRODUCTS["add_mixed_masked"] * (3 if tc.NP == 2 else 1), adds
+
+
+def normalize_work(tc, inf, k: int) -> tuple:
+    """(bytes, products) of one *_normalize launch at k lanes a thread
+    (csrc/field.cuh normalize_lanes; T = NORMALIZE_THREADS a block): 3
+    products for each lane after a thread's first (its running product,
+    its inverse and the inverse's update), per thread the Fermat inversion
+    (the bits of p − 2 less one squarings, its ones less one products) and
+    the product by R⁻¹, and per lane with Z ≠ 0 the coordinates' 2 over Fp,
+    10 over Fp2 (the norm 2, z⁻¹ 2, x and y 3 each); the points read once,
+    x, y and the flags written once."""
+    from gnark_icicle_tpu_torch.ops.ec_t import NORMALIZE_THREADS
+
+    n, T = inf.shape[0], NORMALIZE_THREADS
+    full, rest = divmod(n, T * k)
+    threads = full * T + min(T, rest)
+    e = tc.F.modulus - 2
+    inversion = e.bit_length() - 1 + bin(e).count("1") - 1 + 1
+    live = n - int(inf.sum().item())
+    products = 3 * (n - threads) + threads * inversion + live * (2 if tc.NP == 1 else 10)
+    return 4 * n * (5 * tc.NP * tc.W + 1), products
+
+
+def comb_bound(rates: dict, tc, scalars, table, w: int, bits: int) -> tuple:
+    """(bound_ms, bound_by, adds) of one *_fixed_base launch (comb_work)."""
+    nbytes, products, adds = comb_work(tc, scalars, table, w, bits)
+    return _bound(rates, nbytes, products, tc.W) + (adds,)
+
+
+def normalize_bound(rates: dict, tc, inf, k: int) -> tuple:
+    """(bound_ms, bound_by) of one *_normalize launch (normalize_work)."""
+    return _bound(rates, *normalize_work(tc, inf, k), tc.W)
 
 
 def phase_build(seconds: float) -> None:
@@ -568,6 +640,48 @@ def phase_kernels(device, name: str, rates: dict) -> list:
         skew_table = tc.table([pt or group.generator for pt in skew_pts], device)
         skew_err = bucket_check(skew_table, msm_lanes(skewed_scalars(N_SKEW)))
 
+        def comb_rows(entry: str) -> int:
+            """K6's role, setup's fixed-base batch: *_fixed_base (at
+            WINDOW) and *_normalize against their plain versions
+            at N_COMB edge scalars (and a few lanes against the host
+            product), then at the path's batch width (random scalars below
+            r), timed with the bound. Returns the check sizes' error."""
+            from gnark_icicle_tpu_torch.ops.ec_t import NORMALIZE_LANES
+            from gnark_icicle_tpu_torch.ops.fixed_base import WINDOW, FixedBaseMul
+
+            group = curve.g1 if tag == "g1" else curve.g2
+            bits = R.bit_length()
+            w = WINDOW
+            fb = FixedBaseMul(tc, group, group.generator, bits, device)
+            vals = comb_scalars(rng, R, N_COMB)
+            sc = to_lanes(ints_to_limbs32(vals, fr.n32), device)
+            got = fb.mul(sc)
+            xy, inf = tc.normalize(got)
+            err = max(_max_abs_err(got, tc.fixed_base_plain(sc, fb.table, w, bits)),
+                      _max_abs_err((xy, inf), tc.normalize_plain(got)))
+            host = [group.scalar_mul(group.generator, v) for v in vals[:COMB_HOST]]
+            if tc.NP == 2:
+                host = [None if q is None else ((q[0].c0, q[0].c1), (q[1].c0, q[1].c1))
+                        for q in host]
+            if err != 0 or tc.affine_host(xy[..., :COMB_HOST], inf[:COMB_HOST]) != host:
+                raise AssertionError(f"{prefix}{entry}_fixed_base / _normalize differ "
+                                     "at the check scalars")
+            lanes = shapes["ladder"][tag]
+            big = to_lanes(ints_to_limbs32(
+                [0, 1, R - 1] + [rng.randrange(R) for _ in range(lanes - 3)], fr.n32), device)
+            nbytes, products, adds = comb_work(tc, big, fb.table, w, bits)
+            role = "G2 over Fp, G2's b3" if check_only else tag.upper()
+            record(f"{entry}_fixed_base", err,
+                   f"{lanes} lanes ({role}), w = {w}, {fb.table.shape[0]} table rows",
+                   [big], fb.mul, lambda s: tc.fixed_base_plain(s, fb.table, w, bits),
+                   nbytes, products, fp.n32, plain_once=True, w=w, adds=adds)
+            P_big = fb.mul(big)
+            k = NORMALIZE_LANES
+            record(f"{entry}_normalize", err, f"{lanes} lanes ({role}), k = {k}", [P_big],
+                   tc.normalize, tc.normalize_plain,
+                   *normalize_work(tc, tc.normalize(P_big)[1], k), fp.n32, plain_once=True, k=k)
+            return err
+
         P_, Q_ = rand_points(n), rand_points(n)
         # an edge table: rows at 0, 1, p - 1 and near R
         check = [P_] + rand_wave(n, 1 << 12)
@@ -578,34 +692,18 @@ def phase_kernels(device, name: str, rates: dict) -> list:
                                  wave(tc.add_mixed_masked_plain, n)(*[t.clone() for t in check])),
                     _max_abs_err(tc.add(P_, Q_), plain("add")(P_, Q_)),
                     _max_abs_err(tc.double(P_), plain("double")(P_))]
-            lanes = shapes["ladder"]["g2"]
-            w_ladder = rand_wave(lanes, 1, signed=False)
-            acc = rand_points(lanes)
-            errs.append(_max_abs_err(wave(tc.add_mixed_masked, lanes)(acc.clone(), *w_ladder),
-                                     wave(tc.add_mixed_masked_plain, lanes)(acc.clone(), *w_ladder)))
             errs.append(skew_err)
             errs.append(reduction_check())
             reduction_path(0, timed=False)
+            errs.append(comb_rows("g1"))
             if max(errs) != 0:
                 raise AssertionError(f"{prefix}g1_* with G2's b3 differ from the plain version")
             _say("kernel_check", curve=name, group="g2 over Fp (g1 entries, G2's b3)",
-                 max_abs_err=max(errs), ladder_lanes=lanes)
+                 max_abs_err=max(errs), comb_lanes=shapes["ladder"]["g2"])
             continue
         lanes = shapes["wave"]
         w_path = rand_wave(lanes, shapes["points"])
         nb, k = wave_bytes(lanes, w_path)
-        # K6's role: setup's fixed-base ladder step (one row, no sign, mask = bit)
-        ladder_lanes = shapes["ladder"][tag]
-        w_ladder = rand_wave(ladder_lanes, 1, signed=False)
-        acc_ladder = rand_points(ladder_lanes)
-        lad = [wave(tc.add_mixed_masked, ladder_lanes), wave(tc.add_mixed_masked_plain, ladder_lanes)]
-        lad_err = _max_abs_err(lad[0](acc_ladder.clone(), *w_ladder),
-                               lad[1](acc_ladder.clone(), *w_ladder))
-        if lad_err != 0:
-            raise AssertionError(f"{prefix}{tag}_add_mixed_masked: ladder step differs")
-        lnb, lk = wave_bytes(ladder_lanes, w_ladder)
-        l_bound, l_by = _bound(rates, lnb, lk * PRODUCTS["add_mixed_masked"] * per_product,
-                               fp.n32)
         # the reference's wave: the unmasked lanes a prefix of the lanes
         acc_wave = rand_points(lanes)
         w_prefix = list(w_path)
@@ -620,10 +718,6 @@ def phase_kernels(device, name: str, rates: dict) -> list:
                [rand_points(lanes)] + w_path,
                wave(tc.add_mixed_masked, lanes), wave(tc.add_mixed_masked_plain, lanes),
                nb, k * PRODUCTS["add_mixed_masked"] * per_product, fp.n32,
-               ladder={"lanes": ladder_lanes,
-                       "ms": _cuda_ms(lambda: lad[0](acc_ladder, *w_ladder), REPS_KERNEL),
-                       "plain_ms": _cuda_ms(lambda: lad[1](acc_ladder, *w_ladder), 2),
-                       "bound_ms": l_bound, "bound_by": l_by},
                prefix_mask={"unmasked": pk,
                             "ms": _cuda_ms(lambda: wave(tc.add_mixed_masked, lanes)(
                                 acc_wave, *w_prefix), REPS_KERNEL),
@@ -665,6 +759,7 @@ def phase_kernels(device, name: str, rates: dict) -> list:
                    (len(args) + 1) * 3 * coord * width,
                    width * PRODUCTS[op] * per_product, fp.n32)
         reduction_path(reduction_check(), timed=True)
+        comb_rows(tag)
     torch.cuda.synchronize()
     for r in results:
         _say("kernel", **r)
@@ -879,7 +974,7 @@ def _prove_path(device, name: str, system: str, cs, pub, sec, bad_pub, phase: st
     import torch
 
     from gnark_icicle_tpu_torch.ops import cuda as kc
-    from gnark_icicle_tpu_torch.ops import ntt
+    from gnark_icicle_tpu_torch.ops import fixed_base, ntt
 
     backend = importlib.import_module(f"gnark_icicle_tpu_torch.backend.{system}")
     curve = _curves()[name]
@@ -915,6 +1010,9 @@ def _prove_path(device, name: str, system: str, cs, pub, sec, bad_pub, phase: st
         return transform(dom, *args, **kw)
 
     ntt.Domain._transform = counted
+    # setup builds its comb tables as a fresh process would (phase 2 and
+    # earlier paths built them on this card)
+    fixed_base._TABLES.clear()
     try:
         for k in kc.KERNELS.values():   # count this path's launches only
             k.launches = 0
@@ -993,7 +1091,9 @@ def _expectations(name: str, path: str) -> dict:
     and PLONK's commitments where a bucket is split; PLONK has no G2 MSM, so
     no g2_* entry runs there; the running sums run on every path but the
     small PLONK ones (PLONK_LOG < 17), where a window may hold one bucket
-    chunk and skip them."""
+    chunk and skip them. *_add_mixed_masked, the one-step wave, has no
+    caller since setup's batches run the comb (*_fixed_base, *_normalize),
+    so no path launches it."""
     from gnark_icicle_tpu_torch.ops import cuda as kc
 
     pre = kc.CURVES[name]
@@ -1006,7 +1106,7 @@ def _expectations(name: str, path: str) -> dict:
         g, _, op = e.partition("_")
         if g not in ("g1", "g2"):
             out[k.name] = "ran" if plonk or e not in ("fr_add", "plonk_quotient", "fr_sub") else "zero"
-        elif op == "double" or (plonk and g == "g2"):
+        elif op in ("double", "add_mixed_masked") or (plonk and g == "g2"):
             out[k.name] = "zero"
         elif op == "add":
             out[k.name] = {"groth16": "zero", "2chain": "ran", "plonk": "any"}[path]
@@ -1021,7 +1121,8 @@ def _check_launches(name: str, launches: dict, path: str, transforms: list, warm
                     warm_proves: int) -> dict:
     """The path's launches against _expectations; per MSM (one
     *_bucket_accumulate each) one combine, one Horner and at most one
-    running-sums launch, so at most three; per transform (`transforms`: the
+    running-sums launch, so at most three; per fixed-base batch of setup
+    one *_fixed_base and one *_normalize; per transform (`transforms`: the
     log_n of each) the passes of pass_split, at most three; warm proves
     (`warm`: _warm_state after the first prove and after the last) build no
     domain table, and on Groth16 paths launch fr_mont_mul at most 6 times a
@@ -1046,6 +1147,16 @@ def _check_launches(name: str, launches: dict, path: str, transforms: list, warm
     passes = launches[kc.CURVES[name] + "ntt_pass"]
     if not transforms or max(per.values()) > 3 or passes != sum(per[t] for t in transforms):
         bad.append(f"ntt_pass: {passes} launches for {len(transforms)} transforms {per}")
+    # setup's fixed-base batches (G1 and G2 on the Chain, BW6-761's G1 and
+    # its G2 over Fp through the g1 entries, PLONK's SRS): one *_fixed_base
+    # and one *_normalize launch each
+    batches = {"groth16": {"g1": 1, "g2": 1}, "2chain": {"g1": 2},
+               "plonk": {"g1": 1, "g2": 0}}[path]
+    for g, want in batches.items():
+        for e in ("fixed_base", "normalize"):
+            key = f"{kc.CURVES[name]}{g}_{e}"
+            if key in launches and launches[key] != want:
+                bad.append(f"{key}: {launches[key]} launches for {want} batches")
     delta = {k: warm[1][k] - warm[0][k] for k in warm[0]}
     if any(delta[k] for k in ("domains", "twiddle_tables", "quotient_tables")):
         bad.append(f"warm proves built domain tables: {delta}")

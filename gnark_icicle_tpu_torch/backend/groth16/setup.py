@@ -132,16 +132,19 @@ def setup(cs, curve, rng=None, engine: str = "auto", device=None):
     G1, G2 = g1.generator, g2.generator
     bits = q.bit_length()
 
+    split: dict = {}   # the device batches' parts (batch_scalar_mul_host)
+
     def batch(tc, grp, base, scalars):
         if len(scalars) < 256:
             return [grp.scalar_mul(base, s) for s in scalars]
-        return batch_scalar_mul_host(tc, grp, base, scalars, bits, dev)
+        return batch_scalar_mul_host(tc, grp, base, scalars, bits, dev, times=split)
 
     sizes = [len(A), len(B), len(pk_k_scalars), len(z_scalars)]
     g1_all = batch(ctx.g1, g1, G1, A + B + pk_k_scalars + z_scalars)
     cut = [sum(sizes[:i]) for i in range(5)]
     g1_a, g1_b, g1_k, g1_z = (g1_all[cut[i]:cut[i + 1]] for i in range(4))
     g2_b = batch(ctx.g2, g2, G2, B)
+    t_keys = time.perf_counter()
 
     pk = ProvingKey(
         g1_alpha=g1.scalar_mul(G1, alpha),
@@ -167,8 +170,9 @@ def setup(cs, curve, rng=None, engine: str = "auto", device=None):
         commitment_keys=[],
         public_and_commitment_committed=[],
     )
-    logger().info("groth16 setup: host algebra took=%.3fs, points took=%.3fs",
-                  t_host - t0, time.perf_counter() - t_host)
+    parts = {"host algebra": t_host - t0, "points": time.perf_counter() - t_host, **split,
+             "keys": time.perf_counter() - t_keys}
+    logger().info("groth16 setup: %s", ", ".join(f"{k} took={v:.3f}s" for k, v in parts.items()))
     return pk, vk
 
 

@@ -843,6 +843,7 @@ struct Coord;
 template <class P>
 struct Coord<Elt<P>> {
   static constexpr int NP = 1;  // planes per coordinate
+  using Base = Elt<P>;          // its base field
   static __device__ __forceinline__ Elt<P> load(const uint32_t* plane, long long ld, long long lane) {
     return fload<P>(plane, ld, lane);
   }
@@ -857,6 +858,7 @@ struct Coord<Elt<P>> {
 template <class P>
 struct Coord<Elt2<P>> {
   static constexpr int NP = 2;
+  using Base = Elt<P>;
   static __device__ __forceinline__ Elt2<P> load(const uint32_t* plane, long long ld, long long lane) {
     return Elt2<P>{fload<P>(plane, ld, lane), fload<P>(plane + P::N * ld, ld, lane)};
   }
@@ -931,6 +933,159 @@ struct RegPoint {
 
 static inline unsigned int n_blocks(long long n, int threads) {
   return (unsigned int)((n + threads - 1) / threads);
+}
+
+// ---------------------------------------------------------------------------
+// the fixed-base comb (K6's role in setup and the SRS) and the batch
+// normalization after it: per-thread steps, plain C++
+// (tests/test_torch_field_cuh.py runs them on the host)
+//
+// The comb: s G = sum_j table[j][d_j] with d_j the w-bit digits of s and
+// row (j, d) of the table d 2^(w j) G, affine, at index j (2^w - 1) + d - 1.
+// k_mixed_accumulate walks a lane's nonzero digits in the order of j (its
+// comb mode), so a lane does about J = ceil(bits / w) mixed adds where the
+// bit ladder did `bits` masked steps.
+// ---------------------------------------------------------------------------
+
+// digit j of lane l's scalar: the w bits from bit w j (the top window only
+// those below `bits`) of the plain words s[k ld + l], k < wr
+__device__ __forceinline__ uint32_t fb_digit(const uint32_t* s, long long ld, long long l, int wr,
+                                             int bits, int w, int j) {
+  const int b = w * j, k = b >> 5, sh = b & 31;
+  uint32_t v = s[k * ld + l] >> sh;
+  if (sh + w > 32 && k + 1 < wr) v |= s[(k + 1) * ld + l] << (32 - sh);
+  const int width = bits - b < w ? bits - b : w;
+  return v & ((1u << width) - 1u);
+}
+
+// word k of p - 2: 2 comes off the lowest word and the borrow runs up
+// through words that are 0 (BLS12-377's p ends in 0x...00000001)
+template <class P>
+__device__ __forceinline__ uint32_t pm2_word(int k) {
+  if (k == 0) return P::mod(0) - 2u;
+  bool borrow = P::mod(0) < 2u;
+  for (int j = 1; j < k && borrow; ++j) borrow = P::mod(j) == 0u;
+  return P::mod(k) - (borrow ? 1u : 0u);
+}
+
+// x^(p - 2), the inverse of x != 0 by Fermat, lazily (x < 2p in, < 2p out):
+// square and multiply from the top bit of p - 2. A thread inverts once for
+// its k lanes, so a window over the exponent would save few products a
+// lane; both loops stay rolled, so the product is inlined twice.
+template <class P>
+__device__ __forceinline__ Elt<P> lpow_pm2(const Elt<P>& x) {
+  Elt<P> r = x;
+  bool started = false;
+#pragma unroll 1
+  for (int k = P::N - 1; k >= 0; --k) {
+    const uint32_t e = pm2_word<P>(k);
+#pragma unroll 1
+    for (int i = 31; i >= 0; --i) {
+      const bool bit = (e >> i) & 1u;
+      if (started) {
+        r = lmul(r, r);
+        if (bit) r = lmul(r, x);
+      }
+      started = started || bit;
+    }
+  }
+  return r;
+}
+
+template <class P>
+__device__ __forceinline__ bool is_zero(const Elt<P>& x) {
+  uint32_t o = 0;
+#pragma unroll
+  for (int j = 0; j < P::N; ++j) o |= x.v[j];
+  return o == 0;
+}
+
+template <class P>
+__device__ __forceinline__ bool is_zero(const Elt2<P>& x) {
+  return is_zero(x.c0) && is_zero(x.c1);
+}
+
+// what Montgomery's trick inverts for z: z over Fp, the norm z0^2 - BETA z1^2
+// (in Fp, nonzero for z != 0: BETA is not a square) over Fp2
+template <class P>
+__device__ __forceinline__ Elt<P> trick_value(const Elt<P>& z) { return z; }
+
+template <class P>
+__device__ __forceinline__ Elt<P> trick_value(const Elt2<P>& z) {
+  return ladd(lmul(z.c0, z.c0), mul_small<-P::BETA>(lmul(z.c1, z.c1)));
+}
+
+// z^-1 from d = 1 / trick_value(z): d over Fp, (z0, -z1) d over Fp2
+template <class P>
+__device__ __forceinline__ Elt<P> inverse_of(const Elt<P>&, const Elt<P>& d) { return d; }
+
+template <class P>
+__device__ __forceinline__ Elt2<P> inverse_of(const Elt2<P>& z, const Elt<P>& d) {
+  return Elt2<P>{lmul(z.c0, d), lneg(lmul(z.c1, d))};
+}
+
+// One thread's batch normalization: lanes first + i stride, i < count, of
+// the projective points p (planes X, Y, Z of row stride ld; Z canonical)
+// -> the affine x, y as canonical PLAIN words in xy (planes x, y, stride
+// ld) and inf[l] = 1 where Z = 0 (x = y = 0 there), else 0.
+//
+// Montgomery's trick over the thread's lanes: the running products of
+// trick_value(Z) (a lane with Z = 0 enters as the word 1, which is nonzero)
+// wait in the first Fp plane of x, and over Fp2 each lane's norm in the
+// second; one Fermat inversion of the last; then the lanes from the last
+// down, each taking its inverse from the product before it. The inverse
+// is first multiplied by the word 1, i.e. by R^-1, so that the Montgomery
+// product X z^-1 R^-1 comes out as the plain value X / Z: no conversion
+// from Montgomery form is left. Per lane 5 products over Fp (its running
+// product, its inverse, the inverse's update, x and y), 13 over Fp2 (the
+// norm 2 more, z^-1 2, x and y 3 each), and per thread one inversion:
+// about 1.5 bits products, shared by its k lanes.
+template <class E>
+__device__ __forceinline__ void normalize_lanes(const uint32_t* p, long long ld, uint32_t* xy,
+                                                int32_t* inf, long long first, long long stride,
+                                                int count) {
+  using C = Coord<E>;
+  using B = typename C::Base;
+  constexpr int N = B::N;
+  const long long plane = (long long)E::N * ld * C::NP;
+  const uint32_t* pz = p + 2 * plane;
+  uint32_t* run = xy;               // running products (x, first Fp plane)
+  uint32_t* own = xy + N * ld;      // Fp2: each lane's norm (x, second Fp plane)
+  B word1{};
+  word1.v[0] = 1u;
+  B acc{};
+#pragma unroll 1
+  for (int i = 0; i < count; ++i) {
+    const long long l = first + i * stride;
+    const E z = C::load(pz, ld, l);
+    const bool zero = is_zero(z);
+    inf[l] = zero ? 1 : 0;
+    const B v = zero ? word1 : trick_value(z);
+    if constexpr (C::NP == 2) fstore(own, ld, l, v);
+    acc = i == 0 ? v : lmul(acc, v);
+    fstore(run, ld, l, acc);
+  }
+  if (count <= 0) return;
+  B d = lmul(lpow_pm2(acc), word1);  // (the product)^-1 R^-1
+#pragma unroll 1
+  for (int i = count - 1; i >= 0; --i) {
+    const long long l = first + i * stride;
+    const E z = C::load(pz, ld, l);
+    const bool zero = inf[l] != 0;
+    B v;
+    if constexpr (C::NP == 2) v = Coord<B>::load(own, ld, l);
+    else v = zero ? word1 : z;
+    const B di = i == 0 ? d : lmul(d, Coord<B>::load(run, ld, l - stride));
+    if (i > 0) d = lmul(d, v);
+    E x{}, y{};
+    if (!zero) {
+      const E zi = inverse_of(z, di);
+      x = lcanon(lmul(C::load(p, ld, l), zi));
+      y = lcanon(lmul(C::load(p + plane, ld, l), zi));
+    }
+    C::store(xy, ld, l, x);
+    C::store(xy + plane, ld, l, y);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1289,7 +1444,9 @@ __global__ void k_double(const uint32_t* p, long long ldp, uint32_t* o, long lon
 #if defined(__CUDACC__)
 // ---------------------------------------------------------------------------
 // the staged mixed-add kernel: the MSM's bucket accumulation (one launch per
-// MSM) and the masked wave step (setup's fixed-base ladders), one kernel
+// MSM), the masked wave step and the fixed-base comb of setup and the SRS
+// (one launch per batch), one kernel, so that ptxas builds the mixed add
+// once per (coordinate type, b3 form); then the batch normalization
 //
 // Each thread owns one lane and adds its run of points in a loop. A row
 // arrives by cp.async (16-byte chunks) in the thread's slot of shared
@@ -1348,8 +1505,8 @@ __device__ __forceinline__ void sts16(uint4* p, uint4 v) {
                :: "r"(smem_addr(p)), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w) : "memory");
 }
 
-// .ca, cached in L1: setup's ladders gather one row into every lane, which
-// .cg (L2 only) would fetch from L2 once per warp
+// .ca, cached in L1: the comb's lanes gather rows of one small table (61 KB
+// to a few hundred KB), which .cg (L2 only) would fetch from L2 each time
 __device__ __forceinline__ void cp_async16(uint4* dst, const uint4* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 16;"
                :: "r"(smem_addr(dst)), "l"(src) : "memory");
@@ -1453,20 +1610,36 @@ __device__ __forceinline__ void accumulate(Acc& A, int n, const uint32_t* table,
   }
 }
 
-// One mixed-add kernel for both entries. Lane l < L of the accumulator
-// planes (stride ld) adds a run of points:
+// Where each lane's points come from (k_mixed_accumulate):
 //   start given (the MSM's bucket accumulation): count[l] points at sorted
 //     positions start[l] + t, acc_l += sum (-1)^sign[s] table[order[s]];
-//   start null (the wave step): the one point at position l where count
-//     (the mask) is nonzero, everywhere if count is null.
-// A null sign means all positive. The lane's accumulator is read once and
-// written once (canonical). MSM lanes come sorted by count, descending, so a
-// warp's threads loop about equally long.
+//   start and scalars null (the wave step): the one point at position l
+//     where count (the mask) is nonzero, everywhere if count is null;
+//   scalars given (the fixed-base comb): acc_l += table[j (2^w - 1) + d_j - 1]
+//     for the nonzero digits d_j (fb_digit) of lane l's scalar, j upwards.
+//     The lane first writes those rows to order[l J ..] (J = ceil(bits / w)
+//     words a lane, scratch that the caller provides), then walks them as an
+//     MSM lane walks its run: the loop of adds is the MSM's, and a branch of
+//     the comb's inside it cost the MSM's accumulation up to 14 % (PERF.md).
+// A null sign means all positive.
+struct Walk {
+  int32_t* order;           // the comb writes its rows here
+  const int32_t* sign;
+  const long long* start;
+  const int32_t* count;
+  const uint32_t* scalars;  // (wr, ld) plain words, the accumulator's stride
+  int wr, bits, w;
+};
+
+// One mixed-add kernel for the MSM's bucket accumulation, the wave step and
+// the fixed-base comb: lane l < L of the accumulator planes (stride ld) adds
+// its points (Walk), read once and written once (canonical). MSM lanes come
+// sorted by count, descending, so a warp's threads loop about equally long;
+// a comb lane adds about J (1 - 2^-w) points.
 template <class E, class B3>
 __global__ void __launch_bounds__(Stage<E>::T)
 k_mixed_accumulate(uint32_t* acc, long long ld, long long L, const uint32_t* table,
-                   const int32_t* order, const int32_t* sign, const long long* start,
-                   const int32_t* count, const uint32_t* b3_row) {
+                   const Walk walk, const uint32_t* b3_row) {
   using S = Stage<E>;
   using C = Coord<E>;
   extern __shared__ uint4 smem[];
@@ -1478,11 +1651,24 @@ k_mixed_accumulate(uint32_t* acc, long long ld, long long L, const uint32_t* tab
   const B3 b3(b3s);
   const long long l = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (l >= L) return;
-  const long long s0 = start != nullptr ? start[l] : l;
-  const int n = start != nullptr ? count[l] : (count == nullptr || count[l] != 0);
+  long long s0 = l;
+  int n = 0;
+  if (walk.scalars != nullptr) {  // the comb: this lane's rows, then the walk below
+    const int J = (walk.bits + walk.w - 1) / walk.w, D = (1 << walk.w) - 1;
+    s0 = l * J;
+    for (int j = 0; j < J; ++j) {
+      const uint32_t d = fb_digit(walk.scalars, ld, l, walk.wr, walk.bits, walk.w, j);
+      if (d != 0) walk.order[s0 + n++] = j * D + (int)d - 1;
+    }
+  } else if (walk.start != nullptr) {
+    s0 = walk.start[l];
+    n = walk.count[l];
+  } else {
+    n = walk.count == nullptr || walk.count[l] != 0;
+  }
   if (n <= 0) return;
-  auto idx_of = [&](int t) { return order[s0 + t]; };
-  auto neg_of = [&](int t) { return sign != nullptr && sign[s0 + t] != 0; };
+  auto idx_of = [&](int t) { return walk.order[s0 + t]; };
+  auto neg_of = [&](int t) { return walk.sign != nullptr && walk.sign[s0 + t] != 0; };
   const long long plane = (long long)E::N * ld * C::NP;
   uint4* slot = smem + S::EC + threadIdx.x;
   if constexpr (S::ACC_SMEM) {
@@ -1507,8 +1693,7 @@ k_mixed_accumulate(uint32_t* acc, long long ld, long long L, const uint32_t* tab
 // above 48 KB the kernel must be allowed more first.
 template <class E, class B3>
 static int launch_mixed_accumulate(void* acc, long long ld, long long L, const void* table,
-                                   const void* order, const void* sign, const void* start,
-                                   const void* count, const void* b3, void* stream) {
+                                   const Walk& walk, const void* b3, void* stream) {
   constexpr size_t bytes = Stage<E>::bytes();
   auto kernel = k_mixed_accumulate<E, B3>;
   if (bytes > 48 * 1024) {
@@ -1518,9 +1703,32 @@ static int launch_mixed_accumulate(void* acc, long long ld, long long L, const v
   }
   if (L > 0)
     kernel<<<n_blocks(L, Stage<E>::T), Stage<E>::T, bytes, (cudaStream_t)stream>>>(
-        (uint32_t*)acc, ld, L, (const uint32_t*)table, (const int32_t*)order,
-        (const int32_t*)sign, (const long long*)start, (const int32_t*)count,
-        (const uint32_t*)b3);
+        (uint32_t*)acc, ld, L, (const uint32_t*)table, walk, (const uint32_t*)b3);
+  return (int)cudaGetLastError();
+}
+
+// The batch normalization, one launch: block b's thread t takes the k lanes
+// b NORM_T k + t + i NORM_T, so that at each step a warp touches 32
+// neighbouring lanes (normalize_lanes). Few threads are in flight (n / k),
+// each a chain of products with little to overlap; the launch is small
+// beside the comb's.
+constexpr int NORM_T = 64;
+
+template <class E>
+__global__ void __launch_bounds__(NORM_T)
+k_normalize(const uint32_t* p, long long n, uint32_t* xy, int32_t* inf, int k) {
+  const long long first = (long long)blockIdx.x * NORM_T * k + threadIdx.x;
+  if (first >= n) return;
+  const long long rest = (n - first + NORM_T - 1) / NORM_T;
+  normalize_lanes<E>(p, n, xy, inf, first, NORM_T, rest < k ? (int)rest : k);
+}
+
+template <class E>
+static int launch_normalize(const void* p, long long n, void* xy, void* inf, int k, void* stream) {
+  if (k < 1) return (int)cudaErrorInvalidValue;
+  if (n > 0)
+    k_normalize<E><<<n_blocks(n, NORM_T * k), NORM_T, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)p, n, (uint32_t*)xy, (int32_t*)inf, k);
   return (int)cudaGetLastError();
 }
 

@@ -64,12 +64,16 @@ SIGNATURES = {
         "g1_bucket_accumulate": [_P, _I64, _P, _P, _P, _P, _P, _P, _I32, _P],
         "g1_add": [_P, _I64, _P, _I64, _P, _I64, _I64, _P, _P],
         "g1_double": [_P, _I64, _P, _I64, _I64, _P, _P],
+        "g1_fixed_base": [_P, _I64, _P, _I32, _I32, _I32, _P, _P, _P, _I32, _P],
+        "g1_normalize": [_P, _I64, _P, _P, _I32, _P],
     },
     "g2": {
         "g2_add_mixed_masked": [_P, _I64, _I64, _P, _P, _P, _P, _P, _I32, _P],
         "g2_bucket_accumulate": [_P, _I64, _P, _P, _P, _P, _P, _P, _I32, _P],
         "g2_add": [_P, _I64, _P, _I64, _P, _I64, _I64, _P, _P],
         "g2_double": [_P, _I64, _P, _I64, _I64, _P, _P],
+        "g2_fixed_base": [_P, _I64, _P, _I32, _I32, _I32, _P, _P, _P, _I32, _P],
+        "g2_normalize": [_P, _I64, _P, _P, _I32, _P],
     },
     **{f"{g}_reduce": {
         f"{g}_bucket_reduce": [_P, _I64, _I32, _P, _P, _I32, _P],

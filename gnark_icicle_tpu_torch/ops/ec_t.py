@@ -22,8 +22,15 @@ Kernels (``csrc/g1.cu``, ``csrc/g2.cu``; the reduction and Horner in
   run of sorted points (gathered by index, signed) in a loop, where the
   reference launches one wave step per point of the longest run;
 * ``add_mixed_masked`` — K4/K5 as one wave step: acc += (±)table[idx] where
-  mask, in place, with the gather, sign and mask inside the kernel (setup's
-  fixed-base ladders, K6's role);
+  mask, in place, with the gather, sign and mask inside the kernel (no
+  caller on the path since setup's batches run the comb);
+* ``fixed_base`` — K6 (ops/ec_pallas.py:440) in its role in setup and the
+  SRS, redesigned for the card: the fixed-base product of every lane's
+  scalar through a comb table, one launch of the bucket accumulation's
+  kernel, where the reference launches one masked mixed add per scalar bit;
+* ``normalize`` — the JAX package's ``batch_normalize`` (ops/fixed_base.py:95):
+  projective to affine plain words and an infinity flag, Montgomery's trick
+  over k lanes a thread, one launch;
 * ``bucket_reduce`` and ``horner`` — K2/K3 (ops/ec_t.py:266, :649) in their
   MSM role, redesigned for the card: the weighted bucket reduction
   Σ_b (b+1)·S_{w,b} per window in two launches (``reduce_runs``, the running
@@ -51,25 +58,29 @@ import torch
 from ..curves import bls12_377, bls12_381, bn254, bw6_761
 from .cuda import Kernel, is_cuda, require, stream
 from .ec import DevCurve, DevField, DevField2
-from .field import Field, ints_to_limbs32, to16, to32
+from .field import Field, from_lanes, ints_to_limbs32, limbs32_to_ints, to16, to32
 
 
-# entries of one group, in the order of _group_kernels; those from
-# B3_ENTRIES on, and 0, use the b3 form of a group (group_flag)
+# entries of one group, in the order of _group_kernels; all but B3_FREE
+# use the b3 form of a group (group_flag)
 ENTRIES = ("add_mixed_masked", "add", "double", "bucket_accumulate", "bucket_reduce",
-           "reduce_combine", "horner")
-B3_ENTRIES = 3
-MIXED = ("add_mixed_masked", "bucket_accumulate")               # K4/K5's roles
+           "reduce_combine", "horner", "fixed_base", "normalize")
+B3_FREE = ("add", "double", "normalize")
 REDUCTION = ("bucket_reduce", "reduce_combine", "horner")
 
 
 def _group_kernels(curve: str, g: str, k_mixed: str, k_mul: str):
     """The ENTRIES of one group of one curve: the mixed adds replace
-    k_mixed, the others (the complete add and double, and the reduction
-    and Horner that run them) k_mul; the reduction and Horner entries are
-    built from ``<g>_reduce.cu``, the others from ``<g>.cu``."""
+    k_mixed, the comb K6 (setup's fixed-base ladders) and the normalization
+    the JAX package's batch_normalize, the others (the complete add and
+    double, and the reduction and Horner that run them) k_mul; the
+    reduction and Horner entries are built from ``<g>_reduce.cu``, the
+    others from ``<g>.cu``."""
+    replaces = {"add_mixed_masked": k_mixed, "bucket_accumulate": k_mixed,
+                "fixed_base": "gnark_icicle_tpu/ops/ec_pallas.py:440",
+                "normalize": "gnark_icicle_tpu/ops/fixed_base.py:95"}
     return tuple(Kernel(f"{g}_reduce" if e in REDUCTION else g, curve, f"{g}_{e}",
-                        k_mixed if e in MIXED else k_mul) for e in ENTRIES)
+                        replaces.get(e, k_mul)) for e in ENTRIES)
 
 
 # base-field modulus -> {"g1": kernels, "g2": kernels} of its curve; the
@@ -97,6 +108,30 @@ _GROUP_B3 = {c.fp.modulus: tuple([v % c.fp.modulus for v in _b3_ints(g)] for g i
 
 # threads of a combine block at most (csrc/field.cuh COMBINE_T)
 COMBINE_THREADS = 128
+
+# the batch normalization (csrc/field.cuh k_normalize): threads a block
+# (NORM_T) and lanes a thread, the k of its Montgomery's trick. A thread's
+# chain of products runs alone, so the launch wants many threads: on an H100
+# k = 16 was the fastest of 16, 32 and 64 on the G2 and BW6-761 batches and
+# 0.1-1.1 ms behind the best on the 656,677-lane G1 batches, whose comb takes
+# 24-76 ms (fixed_base_ab.py, PERF.md §6)
+NORMALIZE_THREADS = 64
+NORMALIZE_LANES = 16
+
+
+def comb_digits(scalars: torch.Tensor, w: int, bits: int) -> torch.Tensor:
+    """(Wr, n) plain int32 scalar words -> (J, n) int64 digits of the comb,
+    J = ⌈bits / w⌉: digit j is the w bits from bit w·j (the top window only
+    those below ``bits``), as csrc/field.cuh ``fb_digit`` reads them."""
+    v = scalars.to(torch.int64) & 0xFFFFFFFF
+    out = []
+    for j in range(-(-bits // w)):
+        k, sh = divmod(w * j, 32)
+        d = v[k] >> sh
+        if sh + w > 32 and k + 1 < v.shape[0]:
+            d = d | (v[k + 1] << (32 - sh))
+        out.append(d & ((1 << min(w, bits - w * j)) - 1))
+    return torch.stack(out)
 
 # the launch of k_mixed_accumulate (csrc/field.cuh Stage<E>): T threads a
 # block, at least MIN_BLOCKS blocks an SM (its shared memory and at most 255
@@ -206,13 +241,13 @@ class _TCurveBase:
 
     def _kernel(self, i: int) -> Kernel:
         """Entry i of ENTRIES; raises for a curve whose kernels are not
-        built, and for an entry with a b3 form (0 and from B3_ENTRIES on)
-        whose b3 is neither of its curve's groups'."""
+        built, and for an entry with a b3 form (all but B3_FREE) whose b3 is
+        neither of its curve's groups'."""
         if self._kernels is None:
             raise NotImplementedError(
                 f"no {self.GROUP} kernels are built for the base field "
                 f"{self.F.modulus:#x}")
-        if (i == 0 or i >= B3_ENTRIES) and self.group_flag is None:
+        if ENTRIES[i] not in B3_FREE and self.group_flag is None:
             raise NotImplementedError(
                 "the mixed-add, reduction and Horner kernels are built for their "
                 "curve's G1 and G2 b3 (csrc/field.cuh); this b3 is neither")
@@ -299,6 +334,115 @@ class _TCurveBase:
         kernel.launch(acc.data_ptr(), L, table.data_ptr(), order.data_ptr(),
                       _ptr(sign), start.data_ptr(), count.data_ptr(),
                       self.b3_row(acc.device).data_ptr(), self.group_flag, stream(acc))
+
+    # -- setup's fixed-base comb and batch normalization --------------------
+    def fixed_base_plain(self, scalars, table, w: int, bits: int):
+        """The plain version of ``fixed_base``: from the identity, window j
+        upwards, the masked mixed add of row j·(2^w − 1) + d_j − 1 on the
+        lanes whose digit d_j is nonzero."""
+        n = scalars.shape[1]
+        acc = self.identity(n, scalars.device)
+        rows = (1 << w) - 1
+        for j, d in enumerate(comb_digits(scalars, w, bits)):
+            self.add_mixed_masked_plain(acc, n, table, (j * rows + d - 1).to(torch.int32),
+                                        None, (d != 0).to(torch.int32))
+        return acc
+
+    def fixed_base(self, scalars, table, w: int, bits: int):
+        """Σ_j table[j·(2^w − 1) + d_j − 1] over the nonzero w-bit digits d_j
+        of each lane's scalar (``comb_digits``), j upwards, from the identity:
+        the fixed-base product s·G through its comb table (ops/fixed_base.py
+        ``comb_table``: row (j, d) is d·2^(w·j)·G).
+
+        scalars: (Wr, n) int32 plain words of at most ``bits`` bits; table:
+        (⌈bits / w⌉·(2^w − 1), row) affine rows; 1 ≤ w ≤ 16. Returns (planes,
+        W, n) projective points, the identity where s = 0. One launch of
+        the mixed-add kernel in its comb mode, which first writes each
+        lane's rows to a scratch of ⌈bits / w⌉ int32 a lane and then walks
+        them as the MSM walks a bucket; equal to the plain version limb
+        for limb."""
+        require(1 <= w <= 16 and scalars.dim() == 2 and 1 <= bits <= 32 * scalars.shape[0]
+                and table.shape[0] >= -(-bits // w) * ((1 << w) - 1),
+                "fixed_base takes 1 <= w <= 16, (Wr, n) scalars of at most 32·Wr bits "
+                "and a table of ⌈bits / w⌉·(2^w − 1) rows")
+        if not is_cuda(scalars, table):
+            return self.fixed_base_plain(scalars, table, w, bits)
+        kernel = self._kernel(7)
+        self._check_table(table)
+        require(scalars.dtype == torch.int32 and scalars.is_contiguous(),
+                "scalars must be contiguous (Wr, n) int32")
+        n = scalars.shape[1]
+        out = self.identity(n, scalars.device)
+        rows = torch.empty(n * -(-bits // w), dtype=torch.int32, device=scalars.device)
+        kernel.launch(out.data_ptr(), n, scalars.data_ptr(), scalars.shape[0], bits, w,
+                      table.data_ptr(), rows.data_ptr(), self.b3_row(out.device).data_ptr(),
+                      self.group_flag, stream(out))
+        return out
+
+    def _trick_value(self, Z):
+        """What the normalization's Montgomery trick inverts (csrc/field.cuh
+        ``trick_value``): Z over Fp, z0² − β·z1² over Fp2; (W, n) words."""
+        F = self.F
+        if self.NP == 1:
+            return Z[0]
+        z0, z1 = (to16(z) for z in Z)
+        m1 = F.mont_mul16(z1, z1)
+        return to32(F.add16(F.mont_mul16(z0, z0), self.curve.f._beta_term(m1)))
+
+    def normalize_plain(self, P, k: int = NORMALIZE_LANES):
+        """The plain version of ``normalize``: the kernel's Montgomery trick,
+        thread by thread as lanes of one batch (thread t of block b takes
+        lanes b·T·k + i·T + t, i < k): the running products of the trick
+        values (the word 1 where Z = 0 and past the last lane), one
+        inversion, each lane's inverse from the product before it, all
+        times R⁻¹ (a product with the word 1), so that X·z⁻¹ comes out plain."""
+        F, NP, W = self.F, self.NP, self.W
+        n = P.shape[2]
+        T = NORMALIZE_THREADS
+        groups = -(-n // (T * k)) * T
+        Z = P[2 * NP:3 * NP]
+        zero = (Z == 0).all(dim=1).all(dim=0)
+        word1 = F.plain_const(1, P.device)
+        v = torch.where(zero, word1, self._trick_value(Z))
+        v = torch.cat([v, word1.expand(W, groups * k - n)], 1)
+        v = v.reshape(W, -1, k, T).transpose(1, 2).reshape(W, k, groups)  # [:, i]: step i
+        run = [v[:, 0]]
+        for i in range(1, k):
+            run.append(F.mont_mul(run[-1], v[:, i]))
+        d = F.mont_mul(F.mont_inv(run[-1]), word1)
+        inv = [None] * k
+        for i in range(k - 1, -1, -1):
+            inv[i] = d if i == 0 else F.mont_mul(d, run[i - 1])
+            if i > 0:
+                d = F.mont_mul(d, v[:, i])
+        di = torch.stack(inv, 1).reshape(W, k, -1, T).transpose(1, 2).reshape(W, -1)[:, :n]
+        if NP == 1:
+            zi = di
+            x, y = F.mont_mul(P[0], zi), F.mont_mul(P[1], zi)
+        else:
+            zi = (to16(F.mont_mul(Z[0], di)), to16(F.neg(F.mont_mul(Z[1], di))))
+            x, y = (torch.stack([to32(c) for c in self.curve.f.mul(self._coords(P[i:i + 2])[0], zi)])
+                    for i in (0, 2))
+        xy = torch.cat([x.reshape(NP, W, n), y.reshape(NP, W, n)])
+        return torch.where(zero, 0, xy), zero.to(torch.int32)
+
+    def normalize(self, P, k: int = NORMALIZE_LANES):
+        """Projective (planes, W, n), Z canonical -> (xy, inf): the affine x
+        and y as canonical PLAIN words (2·NP, W, n) (x0, x1, y0, y1 over Fp2)
+        and inf (n,) int32, 1 where Z = 0 (x = y = 0 there). The port of the
+        JAX package's batch_normalize, whose Montgomery (x, y) are these
+        words times R: one launch, Montgomery's trick over k lanes a thread
+        (one Fermat inversion each), the result left plain for the host."""
+        require(k >= 1, "normalize takes k >= 1 lanes a thread")
+        if not is_cuda(P):
+            return self.normalize_plain(P, k)
+        kernel = self._kernel(8)
+        self._check_lanes(P)
+        n = P.shape[2]
+        xy = torch.empty((2 * self.NP, self.W, n), dtype=torch.int32, device=P.device)
+        inf = torch.empty(n, dtype=torch.int32, device=P.device)
+        kernel.launch(P.data_ptr(), n, xy.data_ptr(), inf.data_ptr(), k, stream(P))
+        return xy, inf
 
     # -- the MSM's bucket reduction and Horner ------------------------------
     def _padd(self, P, Q):
@@ -473,6 +617,15 @@ class _TCurveBase:
         """(planes, W, n) projective -> host affine points (None = infinity);
         G2 coordinates come back as (c0, c1) pairs of ints."""
         return self.curve.to_affine_host(self._coords(P), self.F.modulus)
+
+    def affine_host(self, xy, inf) -> list:
+        """``normalize``'s (xy, inf) -> host affine points (None = infinity),
+        in ``to_affine_host``'s form; each coordinate plane is decoded to
+        ints in one vectorised pass."""
+        cols = [limbs32_to_ints(from_lanes(c)) for c in xy]
+        pts = (zip(cols[0], cols[1]) if self.NP == 1
+               else zip(zip(cols[0], cols[1]), zip(cols[2], cols[3])))
+        return [None if f else pt for pt, f in zip(pts, inf.tolist())]
 
 
 class TCurve(_TCurveBase):

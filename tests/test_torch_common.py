@@ -55,6 +55,16 @@ def rand_ints(seed: int, q: int, n: int, edge: bool = True) -> list:
     return vals
 
 
+def edge_scalars(r: int, n: int, seed: int) -> list:
+    """n scalars below r for the fixed-base comb: 0, 1, r − 1, powers of two
+    (the top bit's too), all ones below the top bit, runs of all-ones
+    windows of 3-8 bits, then random ones from a numpy seed."""
+    bits = r.bit_length()
+    vals = [0, 1, r - 1, 2, 1 << 64, 1 << (bits - 1), (1 << (bits - 1)) - 1]
+    vals += [((1 << (8 * w)) - 1) << (3 * w) for w in range(3, 9)]
+    return vals + rand_ints(seed, r, n - len(vals), edge=False)
+
+
 def ref_to_lanes(x_n16, device="cpu") -> torch.Tensor:
     """Reference (N, 2W) 16-bit limbs -> the port's (W, N) int32 tensor."""
     return to_lanes(repack16_to_32(np.asarray(x_n16)), device)

@@ -30,7 +30,9 @@ from gnark_icicle_tpu_torch.ops.ntt import (
     domain_for, ntt_pass, ntt_pass_plain, pass_split, split_stages,
 )
 
-from test_torch_common import CURVES, cuda_device, g2_over_fp2, rand_ints  # noqa: F401
+from test_torch_common import (  # noqa: F401
+    CURVES, cuda_device, edge_scalars, g2_over_fp2, rand_ints,
+)
 
 pytestmark = pytest.mark.cuda
 NAMES = sorted(CURVES)
@@ -201,6 +203,40 @@ def test_bucket_accumulate_matches_plain(cuda_device, name, group):
     tc.bucket_accumulate(acc_k, table, *args)
     tc.bucket_accumulate_plain(acc_p, table, *args)
     assert torch.equal(acc_k, acc_p)
+
+
+@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_fixed_base_and_normalize_match_plain(cuda_device, name, group):
+    """The comb (*_fixed_base, at the window of the path and at w = 5) and
+    the batch normalization (*_normalize at the path's k and at 3) on the card
+    against their plain versions, limb for limb, at 2^12 edge and random
+    scalars; a few lanes against the host product. BW6-761's G2 runs the
+    g1 entries with G2's b3."""
+    from gnark_icicle_tpu_torch.ops.ec_t import NORMALIZE_LANES
+    from gnark_icicle_tpu_torch.ops.fixed_base import WINDOW, FixedBaseMul
+    from gnark_icicle_tpu_torch.ops.field import ints_to_limbs32, to_lanes
+
+    curve = CURVES[name]
+    tc = _group(curve, group)
+    G = curve.g1 if group == "g1" else curve.g2
+    r = curve.fr.modulus
+    bits = r.bit_length()
+    scalars = edge_scalars(r, 1 << 12, 330)
+    sc = to_lanes(ints_to_limbs32(scalars, field_for(r).n32), cuda_device)
+    for i, w in enumerate((WINDOW, 5)):
+        fb = FixedBaseMul(tc, G, G.generator, bits, cuda_device, w=w)
+        got = fb.mul(sc)
+        assert torch.equal(got, tc.fixed_base_plain(sc, fb.table, w, bits))
+        for k in ((NORMALIZE_LANES, 3) if i == 0 else (NORMALIZE_LANES,)):
+            xy, inf = tc.normalize(got, k)
+            want = tc.normalize_plain(got, k)
+            assert torch.equal(xy, want[0]) and torch.equal(inf, want[1])
+        assert inf.tolist() == [int(s == 0) for s in scalars]
+        host = [G.scalar_mul(G.generator, s) for s in scalars[:16]]
+        if tc.NP == 2:
+            host = [None if q is None else ((q[0].c0, q[0].c1), (q[1].c0, q[1].c1)) for q in host]
+        assert tc.affine_host(xy[..., :16], inf[:16]) == host
 
 
 @pytest.mark.parametrize("name", NAMES)

@@ -217,6 +217,49 @@ template <class P> void ntt_ops() {
   }
 }
 
+// "dig wr bits w <wr words>": the comb's digits fb_digit of one scalar,
+// windows j < ceil(bits / w)
+void digit_ops() {
+  std::string op;
+  while (std::cin >> op && op != "end") {
+    int wr, bits, w;
+    std::cin >> std::dec >> wr >> bits >> w;
+    std::vector<uint32_t> s(wr);
+    for (int k = 0; k < wr; ++k) { unsigned long v; std::cin >> std::hex >> v; s[k] = (uint32_t)v; }
+    for (int j = 0; j * w < bits; ++j) printf("%u ", fb_digit(s.data(), 1, 0, wr, bits, w, j));
+    printf("\n");
+  }
+}
+
+// "norm n k T <n points X Y Z>": the batch normalization as k_normalize runs
+// it, thread after thread (T threads a block, k lanes a thread); prints each
+// lane's plain x, y and its infinity flag
+template <class E, class RD, class WR> void norm_ops(RD rd, WR wr) {
+  std::string op;
+  while (std::cin >> op && op != "end") {
+    long long n;
+    int k, T;
+    std::cin >> std::dec >> n >> k >> T;
+    const long long pw = (long long)E::N * Coord<E>::NP;
+    std::vector<uint32_t> P(3 * pw * n), xy(2 * pw * n);
+    std::vector<int32_t> inf(n);
+    for (long long i = 0; i < n; ++i)
+      for (int c = 0; c < 3; ++c) Coord<E>::store(P.data() + c * pw * n, n, i, rd());
+    for (long long b = 0; b * T * k < n; ++b)
+      for (int t = 0; t < T; ++t) {
+        const long long first = b * T * k + t;
+        if (first >= n) continue;
+        const long long rest = (n - first + T - 1) / T;
+        normalize_lanes<E>(P.data(), n, xy.data(), inf.data(), first, T, rest < k ? (int)rest : k);
+      }
+    for (long long i = 0; i < n; ++i) {
+      wr(Coord<E>::load(xy.data(), n, i));
+      wr(Coord<E>::load(xy.data() + pw * n, n, i));
+      printf("%d\n", inf[i]);
+    }
+  }
+}
+
 int main() {
   std::string which;
   while (std::cin >> which) {
@@ -226,15 +269,19 @@ int main() {
     else if (which == "g1") group_ops<Elt<CurveFp>, G1B3>(rd<CurveFp>, wr<CurveFp>);
     else if (which == "b3g1") b3_ops<Elt<CurveFp>, G1B3>(rd<CurveFp>, wr<CurveFp>);
     else if (which == "rg1") reduce_ops<Elt<CurveFp>, G1B3>(rd<CurveFp>, wr<CurveFp>);
+    else if (which == "dig") digit_ops();
+    else if (which == "ng1") norm_ops<Elt<CurveFp>>(rd<CurveFp>, wr<CurveFp>);
 #if defined(CURVE_BW6_761)  // BW6-761 has no Fp2; its G2 over Fp runs the g1 law
     else if (which == "g2") group_ops<Elt<CurveFp>, TwistB3>(rd<CurveFp>, wr<CurveFp>);
     else if (which == "b3g2") b3_ops<Elt<CurveFp>, TwistB3>(rd<CurveFp>, wr<CurveFp>);
     else if (which == "rg2") reduce_ops<Elt<CurveFp>, TwistB3>(rd<CurveFp>, wr<CurveFp>);
+    else if (which == "ng2") norm_ops<Elt<CurveFp>>(rd<CurveFp>, wr<CurveFp>);
 #else
     else if (which == "f2") f2_ops<CurveFp>();
     else if (which == "g2") group_ops<Elt2<CurveFp>, G2B3>(rd2<CurveFp>, wr2<CurveFp>);
     else if (which == "b3g2") b3_ops<Elt2<CurveFp>, G2B3>(rd2<CurveFp>, wr2<CurveFp>);
     else if (which == "rg2") reduce_ops<Elt2<CurveFp>, G2B3>(rd2<CurveFp>, wr2<CurveFp>);
+    else if (which == "ng2") norm_ops<Elt2<CurveFp>>(rd2<CurveFp>, wr2<CurveFp>);
 #endif
     fflush(stdout);
   }
@@ -574,3 +621,83 @@ def test_ntt_pass_matches_plain(host_build, name):
     assert len(got) == len(want)
     for line, w in zip(got, want):
         assert _ints(line, W) == _words_of(w.T.contiguous())
+
+
+@pytest.mark.parametrize("name", sorted(CURVES))
+def test_comb_digits_match_python_ints(host_build, name):
+    """The fixed-base comb's digits (field.cuh fb_digit, ops/ec_t.py
+    comb_digits) against the w-bit digits of the scalar as an int, w = 3-7
+    and 16 (windows that straddle two words, a top window of fewer bits):
+    scalars 0, 1, r − 1, 2^k, runs of all-ones windows and random ones."""
+    import torch
+
+    from gnark_icicle_tpu_torch.ops.ec_t import comb_digits
+    from gnark_icicle_tpu_torch.ops.field import ints_to_limbs32, to_lanes
+
+    r = CURVES[name].fr.modulus
+    bits, wr = r.bit_length(), words_for(r)
+    rng = random.Random(37)
+    vals = [0, 1, r - 1, 1 << (bits - 1), (1 << (bits - 1)) - 1, 1 << 31, 1 << 32,
+            ((1 << 60) - 1) << 64] + [rng.randrange(r) for _ in range(12)]
+    lines, want = ["dig"], []
+    for w in (3, 4, 5, 6, 7, 16):
+        J = -(-bits // w)
+        digits = comb_digits(to_lanes(ints_to_limbs32(vals, wr), "cpu"), w, bits)
+        for i, s in enumerate(vals):
+            lines.append(f"dig {wr} {bits} {w} {_words(s, wr)}")
+            ref = [(s >> (w * j)) & ((1 << w) - 1) for j in range(J)]
+            assert digits[:, i].tolist() == ref
+            assert sum(d << (w * j) for j, d in enumerate(ref)) == s
+            want.append(ref)
+    lines.append("end")
+    got = [[int(v) for v in line.split()] for line in _run(host_build[name], lines)]
+    assert got == want
+
+
+@pytest.mark.parametrize("name", sorted(CURVES))
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_normalize_lanes_match_plain(host_build, name, group):
+    """The batch normalization's threads (field.cuh normalize_lanes, thread
+    after thread as k_normalize runs them) against ops/ec_t.py
+    normalize_plain, limb for limb, and the flags: 300 lanes at k = 2 and
+    4 (partial blocks and threads), random coordinates with Z = 0 on some
+    lanes and edge values elsewhere."""
+    import torch
+
+    from gnark_icicle_tpu_torch.ops.ec_t import NORMALIZE_THREADS, TCurve, TCurve2
+    from gnark_icicle_tpu_torch.ops.field import field_for
+
+    curve = CURVES[name]
+    p = curve.fp.modulus
+    n = words_for(p)
+    R = 1 << (32 * n)
+    F = field_for(p)
+    fp2 = group == "g2" and g2_over_fp2(curve)
+    G = curve.g1 if group == "g1" else curve.g2
+    tc = (TCurve2(F, curve.tower.beta, G.b * 3) if fp2 else TCurve(F, 3 * G.b % p))
+    rng = random.Random(41)
+    lanes = 300
+    planes = [[rng.randrange(p) for _ in range(lanes)] for _ in range(tc.planes)]
+    planes[0][:4] = [0, 1, p - 1, (R - 1) % p]
+    planes[2 * tc.NP][4:8] = [1, p - 1, (R - 1) % p, R % p]     # Z (its c0)
+    for i in (0, 9, 150, lanes - 1):                            # Z = 0
+        for k in range(2 * tc.NP, 3 * tc.NP):
+            planes[k][i] = 0
+    if fp2:
+        planes[2 * tc.NP][10] = 0                               # Z = (0, z1)
+    P = torch.stack([F.encode(vals, "cpu") for vals in planes])
+    words = " ".join(" ".join(_words(v * R % p, n) for v in vals) for vals in zip(*planes))
+    lines = ["n" + group]
+    want = []
+    for k in (2, 4):
+        lines.append(f"norm {lanes} {k} {NORMALIZE_THREADS} {words}")
+        want.append(tc.normalize_plain(P, k))
+    lines.append("end")
+    got = _run(host_build[name], lines)
+    assert len(got) == 2 * lanes
+    for c, (xy, inf) in enumerate(want):
+        assert inf.tolist() == [int(i in (0, 9, 150, lanes - 1)) for i in range(lanes)]
+        for i in range(lanes):
+            line = got[c * lanes + i].split()
+            assert int(line[-1]) == inf[i]
+            assert _ints(" ".join(line[:-1]), n) == _words_of(xy[:, :, i])
