@@ -15,7 +15,10 @@ at 12, G2 over Fp), phases print one JSON line each on stdout:
      card, bit-equal (Fr product, subtraction and addition at 2^16 lanes;
      PLONK's quotient at 2^16 rows, every input holding 0, 1, p - 1, p - 2
      and values near R, and again, timed, at the 4n rows of the curve's
-     PLONK path, as fr_add is; the NTT passes on the path's own domains,
+     PLONK path, as fr_add is; the batch inversion of the quotient's
+     tables at 2^16 + 37 lanes with those edges, zeros at the first and the
+     last lane of threads, a thread all zeros and threads of fewer than k
+     lanes, then timed at the 4n rows; the NTT passes on the path's own domains,
      computeH's 2^18 coset (BW6-761: 2^16) and PLONK's 4n coset (2^19 on
      BN254 and BLS12-381, 2^12 on the others), each pass with the
      scalings it carries there, and each whole transform, timed beside its
@@ -29,7 +32,13 @@ at 12, G2 over Fp), phases print one JSON line each on stdout:
      again at the shapes its curve's path gives it (the 2^17 Chain prove,
      the reduction at W = 17, B = 2^15; for BW6-761 the outer proof of the
      2-chain, W = 33, B = 2^11 and W = 36, B = 2^10), with CUDA-event times
-     of both there and the least time the card could take (bound_ms), and
+     of both there (_cuda_ms: the launches queued behind a spin wait, so
+     that the card runs them back to back, each on its own copy of the
+     inputs where they would fit the L2 cache (_rotating); a kernel under
+     0.2 ms also timed as before, launched as the host goes on one input
+     set, "ms_host_paced"), ptxas's
+     registers and spills of the Fr kernels, and the least time the card
+     could take (bound_ms), and
      Horner's time per double; *_add is timed at the fold's
      width and *_double at one lane; the one-step mixed
      add also with the mask a prefix of the lanes, as the reference's
@@ -76,9 +85,11 @@ at 12, G2 over Fp), phases print one JSON line each on stdout:
      split), a first prove, two timed proves with their stage times (solve,
      round-1 commits, Z, quotient, linearization and openings), one under
      torch.profiler, verify and a tampered public input rejected; the
-     path's launches as above, with fr_add, fr_sub and plonk_quotient on it,
-     the SRS as one *_fixed_base and one *_normalize launch, and no g2_*
-     entry;
+     path's launches as above, with fr_add, fr_sub, fr_batch_inv and
+     plonk_quotient on it, the SRS as one *_fixed_base and one *_normalize
+     launch, no g2_* entry, and the quotient's tables built once, by the
+     first prove (timed, "quotient_tables"), with one fr_batch_inv, one
+     fr_sub and at most 42 fr_mont_mul launches;
   5. the JSON line of all kernels (each with its launches on each of its
      curve's paths, and their sum; every kernel but *_double and
      *_add_mixed_masked ran on one);
@@ -226,19 +237,61 @@ def _curves() -> dict:
             "bls12_377": bls12_377.BLS12_377, "bw6_761": bw6_761.BW6_761}
 
 
-def _cuda_ms(fn, reps: int) -> float:
+# the SM clock that torch.cuda._sleep counts in (card_rates sets the card's
+# maximum: a slower clock only lengthens the wait)
+_SPIN_HZ = {"hz": 2.0e9}
+
+
+def _cuda_ms(fn, reps: int, paced: bool = False) -> float:
+    """Mean ms of one fn() on the card: CUDA events around `reps` calls
+    after a warm-up. The calls are queued behind a spin kernel
+    (torch.cuda._sleep) that lasts longer than the host takes to enqueue
+    them all (1.5x a timed call, at most 1 s), so the card runs them back
+    to back and the events time the card's work, not the host's launch
+    rate. paced=True is the method before (events around calls launched as
+    the host goes), kept to show how much of a short kernel's old figure
+    was the host."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if not paced:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wait = min(1.5 * reps * (time.perf_counter() - t0) + 2e-3, 1.0)
+        torch.cuda._sleep(int(wait * _SPIN_HZ["hz"]))
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+# the card's L2 cache: a timed kernel cycles through copies of its inputs
+# that move twice this between two uses of one copy (_rotating)
+L2_BYTES = 50 * 2**20
+
+
+def _rotating(run, args: list, nbytes: float):
+    """fn() for _cuda_ms: run(*copy) on copies of args in turn, as many as
+    make 2·L2_BYTES of traffic (nbytes a call) between two uses of one copy
+    (at most 16), so that each launch reads its inputs from device memory,
+    as the bound assumes, and not from L2 where the previous launch left
+    them."""
+    import math
+
+    c = min(16, max(1, math.ceil(2 * L2_BYTES / max(nbytes, 1))))
+    sets = [args] + [[a.clone() for a in args] for _ in range(c - 1)]
+    turn = [0]
+
+    def fn():
+        turn[0] = (turn[0] + 1) % c
+        return run(*sets[turn[0]])
+    return fn
 
 
 def _max_abs_err(a, b) -> int:
@@ -257,6 +310,7 @@ def card_rates() -> dict:
     mhz = float(_smi("clocks.max.sm").split()[0])
     rates = {"sms": sms, "max_sm_mhz": mhz, "hbm_bytes_per_s": HBM_BYTES_PER_S,
              "imad_per_s": sms * IMAD_PER_SM_CLOCK * mhz * 1e6}
+    _SPIN_HZ["hz"] = mhz * 1e6
     _say("card", **rates)
     return rates
 
@@ -302,6 +356,17 @@ def normalize_work(tc, inf, k: int) -> tuple:
     return 4 * n * (5 * tc.NP * tc.W + 1), products
 
 
+def batch_inv_products(q: int, x) -> int:
+    """Products that the batch inverse of the (W, n) array x needs, however
+    it is laid out on the card: Montgomery's trick over its nonzero
+    elements, 3 for each after the first (the running product, the inverse
+    and the inverse's update), and one Fermat inversion (the bits of q − 2
+    less one squarings, its ones less one products)."""
+    nonzero = int(x.ne(0).any(0).sum().item())
+    e = q - 2
+    return 3 * max(nonzero - 1, 0) + e.bit_length() - 1 + bin(e).count("1") - 1
+
+
 def comb_bound(rates: dict, tc, scalars, table, w: int, bits: int) -> tuple:
     """(bound_ms, bound_by, adds) of one *_fixed_base launch (comb_work)."""
     nbytes, products, adds = comb_work(tc, scalars, table, w, bits)
@@ -311,6 +376,40 @@ def comb_bound(rates: dict, tc, scalars, table, w: int, bits: int) -> tuple:
 def normalize_bound(rates: dict, tc, inf, k: int) -> tuple:
     """(bound_ms, bound_by) of one *_normalize launch (normalize_work)."""
     return _bound(rates, *normalize_work(tc, inf, k), tc.W)
+
+
+# (library stem, mangled kernel name) -> (registers, spill store bytes), from
+# ptxas -v in the build's logs (phase_build)
+_PTXAS: dict = {}
+
+
+def ptxas_kernels(lines: list) -> dict:
+    """{mangled kernel name: (registers, spill store bytes)} of a ptxas -v
+    log."""
+    out, cur = {}, None
+    for ln in lines:
+        if "Compiling entry function '" in ln:
+            cur = ln.split("'")[1]
+            out[cur] = [None, 0]
+        elif "Function properties for " in ln:
+            name = ln.split("Function properties for ")[1].strip()
+            cur = name if name in out else None
+        elif cur and "bytes spill stores" in ln:
+            out[cur][1] = int(ln.split("bytes spill stores")[0].split(",")[-1])
+        elif cur and "Used " in ln and " registers" in ln:
+            out[cur][0] = int(ln.split("Used ")[1].split(" registers")[0])
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def kernel_regs(lib: str, kernel: str):
+    """(registers, spill store bytes) of the non-template kernel `kernel`
+    (its C++ name) in library `lib`, or None where the log has no such
+    kernel (the templated group-law kernels)."""
+    tag = f"{len(kernel)}{kernel}"
+    for mangled, rs in _PTXAS.items():
+        if mangled[0] == lib and mangled[1].startswith("_Z" + tag):
+            return rs
+    return None
 
 
 def phase_build(seconds: float) -> None:
@@ -326,6 +425,7 @@ def phase_build(seconds: float) -> None:
         lines = open(path).read().splitlines() if os.path.exists(path) else []
         regs[stem] = [ln.split("ptxas info    : ")[-1] for ln in lines
                       if "registers" in ln or "spill" in ln]
+        _PTXAS.update({(stem, k): v for k, v in ptxas_kernels(lines).items()})
         path = os.path.join(out_dir, stem + ".seconds")
         each[stem] = float(open(path).read()) if os.path.exists(path) else None
     _say("build", seconds=seconds, nvcc_seconds=each, ptxas=regs)
@@ -362,7 +462,8 @@ def phase_kernels(device, name: str, rates: dict) -> list:
     from gnark_icicle_tpu_torch.ops.ec_t import TCurve, TCurve2, resident_lanes
     from gnark_icicle_tpu_torch.ops.field import field_for, ints_to_limbs32, to_lanes
     from gnark_icicle_tpu_torch.ops.field_t import (
-        QUOTIENT_CONSTS, QUOTIENT_INPUTS, TField, plonk_quotient_plain,
+        BATCH_INV_LANES, BATCH_INV_THREADS, QUOTIENT_CONSTS, QUOTIENT_INPUTS, QUOTIENT_PRODUCTS,
+        TField, plonk_quotient_plain,
     )
     from gnark_icicle_tpu_torch.ops.msm import (
         MSMKernel, pick_window, reduce_chunks, segment_length,
@@ -401,10 +502,15 @@ def phase_kernels(device, name: str, rates: dict) -> list:
         k = kc.KERNELS[prefix + kname]
         bound_ms, bound_by = _bound(rates, nbytes, products, words)
         row = {"shape": shape, "max_abs_err": err,
-               "ms": _cuda_ms(lambda: run(*args), REPS_KERNEL),
+               "ms": _cuda_ms(_rotating(run, args, nbytes), REPS_KERNEL),
                "plain_ms": (plain_ms if plain_ms is not None
                             else _cuda_ms(lambda: run_plain(*args), 2)),
                "bound_ms": bound_ms, "bound_by": bound_by, **extra}
+        if row["ms"] < 0.2:   # the method before, beside it: host-paced, one input set
+            row["ms_host_paced"] = _cuda_ms(lambda: run(*args), REPS_KERNEL, paced=True)
+        regs = kernel_regs(k.lib, "k_" + kname)
+        if regs is not None:
+            row["registers"], row["spill_bytes"] = regs
         first = next((r for r in results if r["name"] == k.name), None)
         if first is not None:
             first["max_abs_err"] = max(first["max_abs_err"], err)
@@ -450,12 +556,37 @@ def phase_kernels(device, name: str, rates: dict) -> list:
             return fn(list(E[:n_in - 2]), E[n_in - 2], E[n_in - 1], zh_, c)
         return run
 
-    run_q = quotient(tf.plonk_quotient)
+    # the kernel takes the constants from the host, as the path passes them
+    consts_host = consts.cpu()
+    run_q = quotient(lambda *args: tf.plonk_quotient(*args[:-1], consts_host))
     run_q_plain = quotient(lambda *args: plonk_quotient_plain(fr, *args))
+    # the bound at the reference's 21 products a row, so that rows before
+    # and after the kernel's 20 compare, and at the kernel's own count
+    q_bytes = (n_in + 1) * lane * m4 + 11 * lane
     record("plonk_quotient", _max_abs_err(run_q(q_in, zh, consts), run_q_plain(q_in, zh, consts)),
            f"{n_in} x ({fr.n32}, {m4})", [_rand_dev(fr, n_in, m4, device), zh, consts],
-           run_q, run_q_plain, (n_in + 1) * lane * m4 + 11 * lane, 21 * m4, fr.n32,
-           products_per_row=21)
+           run_q, run_q_plain, q_bytes, 21 * m4, fr.n32,
+           products_per_row=21, kernel_products_per_row=QUOTIENT_PRODUCTS,
+           kernel_products_bound_ms=_bound(rates, q_bytes, QUOTIENT_PRODUCTS * m4, fr.n32)[0])
+
+    # the batch inversion of the quotient's tables: edge values, zeros at
+    # the first and the last lane of threads, a thread all zeros and a last
+    # block whose threads have fewer than k lanes; then at the 4n rows
+    k, T = BATCH_INV_LANES, BATCH_INV_THREADS
+    nb = N_FR + 37
+    vals = _rand_fe(rng, R, nb)
+    for b, t in ((0, 5), (1, 0), (2, T - 1), (nb // (T * k), 0)):
+        for i in (0, k - 1):
+            if b * T * k + t + i * T < nb:
+                vals[b * T * k + t + i * T] = 0
+    for i in range(k):
+        vals[7 + i * T] = 0
+    xb = fr.encode(vals, device)
+    big_inv = _rand_dev(fr, 1, m4, device)[0]
+    big_inv[:, ::1021] = 0
+    record("fr_batch_inv", _max_abs_err(tf.mont_inv(xb), fr.mont_inv(xb)),
+           f"({fr.n32}, {m4}), k = {k}", [big_inv], tf.mont_inv, fr.mont_inv,
+           2 * lane * m4, batch_inv_products(R, big_inv), fr.n32, plain_once=True, k=k)
 
     ntt_rows(device, name, rates, record, shapes)
 
@@ -857,8 +988,8 @@ def ntt_rows(device, name: str, rates: dict, record, shapes: dict) -> None:
     )
     main["transforms"] = []
     for d, method, args, plain, table, scalings in cases:
-        run = (lambda d=d, method=method, args=args: getattr(d, method)(*args))
-        if _max_abs_err(run(), plain()) != 0:
+        run = getattr(d, method)
+        if _max_abs_err(run(*args), plain()) != 0:
             raise AssertionError(f"{name} {method} at 2^{d.log_n} differs from its passes' "
                                  "plain versions")
         n = d.n
@@ -868,7 +999,8 @@ def ntt_rows(device, name: str, rates: dict, record, shapes: dict) -> None:
         bound_ms, bound_by = _bound(rates, nbytes, (n // 2) * d.log_n + n * scalings, W)
         main["transforms"].append({
             "transform": method, "n": f"2^{d.log_n}", "passes": len(pass_split(d.log_n)),
-            "ms": _cuda_ms(run, REPS_KERNEL), "bound_ms": bound_ms, "bound_by": bound_by})
+            "ms": _cuda_ms(_rotating(run, list(args), nbytes), REPS_KERNEL),
+            "bound_ms": bound_ms, "bound_by": bound_by})
     torch.cuda.synchronize()
 
 
@@ -1010,9 +1142,31 @@ def _prove_path(device, name: str, system: str, cs, pub, sec, bad_pub, phase: st
         return transform(dom, *args, **kw)
 
     ntt.Domain._transform = counted
-    # setup builds its comb tables as a fresh process would (phase 2 and
-    # earlier paths built them on this card)
+    # each build of PLONK's quotient tables: its wall seconds on the card and
+    # its Fr launches (the first prove builds them; warm proves reuse them)
+    tables = []
+    plonk_prove = importlib.import_module("gnark_icicle_tpu_torch.backend.plonk.prove")
+    build_tables = plonk_prove._quotient_tables
+    fr_entries = ("fr_mont_mul", "fr_sub", "fr_batch_inv")
+
+    def timed_tables(ctx, *args):
+        before = len(plonk_prove._DOMAIN_TABLES)
+        counts = {e: kc.KERNELS[kc.CURVES[name] + e].launches for e in fr_entries}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = build_tables(ctx, *args)
+        torch.cuda.synchronize()
+        if len(plonk_prove._DOMAIN_TABLES) > before:
+            tables.append({"seconds": time.perf_counter() - t0,
+                           **{e: kc.KERNELS[kc.CURVES[name] + e].launches - c
+                              for e, c in counts.items()}})
+        return out
+
+    plonk_prove._quotient_tables = timed_tables
+    # setup builds its comb tables, and the first prove the quotient's, as a
+    # fresh process would (phase 2 and earlier paths built some on this card)
     fixed_base._TABLES.clear()
+    plonk_prove._DOMAIN_TABLES.clear()
     try:
         for k in kc.KERNELS.values():   # count this path's launches only
             k.launches = 0
@@ -1037,6 +1191,7 @@ def _prove_path(device, name: str, system: str, cs, pub, sec, bad_pub, phase: st
         warm.append(_warm_state(name))
     finally:
         ntt.Domain._transform = transform
+        plonk_prove._quotient_tables = build_tables
     peak = torch.cuda.max_memory_allocated()
     log.removeHandler(grab)
 
@@ -1051,8 +1206,10 @@ def _prove_path(device, name: str, system: str, cs, pub, sec, bad_pub, phase: st
     _say(phase, curve=curve.name, **size, wires=cs.nb_wires, domain_log_n=domain,
          **report, setup_s=t_setup, setup_split=setup_split, first_prove_s=t_first,
          proves=timed, profiled_prove=profiled, peak_device_bytes=peak,
-         verify_s=t_verify, verified=True, tampered_rejected=True)
-    per_transform = _check_launches(name, launches, phase, transforms, warm, WARM_PROVES)
+         verify_s=t_verify, verified=True, tampered_rejected=True,
+         **({"quotient_tables": tables} if system == "plonk" else {}))
+    per_transform = _check_launches(name, launches, phase, transforms, warm, WARM_PROVES,
+                                    tables)
     _say("launches", curve=curve.name, path=phase, **launches, transforms=len(transforms),
          passes_per_transform=per_transform,
          warm_prove={k: (warm[1][k] - warm[0][k]) / WARM_PROVES for k in warm[0]})
@@ -1077,15 +1234,23 @@ def _warm_state(name: str) -> dict:
     return {"domains": len(ntt._DOMAINS),
             "twiddle_tables": sum(len(d._tw) for d in ntt._DOMAINS.values()),
             "quotient_tables": len(plonk_prove._DOMAIN_TABLES),
-            **{e: kc.KERNELS[pre + e].launches for e in ("fr_mont_mul", "fr_sub", "ntt_pass")}}
+            **{e: kc.KERNELS[pre + e].launches
+               for e in ("fr_mont_mul", "fr_sub", "ntt_pass", "fr_batch_inv")}}
+
+
+# the Fr entries that only PLONK's path runs
+PLONK_FR = ("fr_add", "plonk_quotient", "fr_sub", "fr_batch_inv")
+# fr_mont_mul launches of one build of PLONK's quotient tables: _pow_table's
+# 2 a doubling up to 2^19 rows, then xs, dens and L1 one each
+TABLE_MONT_MULS = 42
 
 
 def _expectations(name: str, path: str) -> dict:
     """Each kernel entry of a curve (by C symbol) on one path: "ran" (at
     least one launch), "zero" (none) or "any". Fr: fr_mont_mul and ntt_pass
-    on every path; fr_add and plonk_quotient on PLONK's only, and fr_sub
-    there too (PLONK's quotient tables), no more on Groth16's (computeH's
-    pointwise rides ntt_pass). Groups: every entry ran but *_double (no
+    on every path; fr_add and plonk_quotient on PLONK's only, and fr_sub and
+    fr_batch_inv there too (PLONK's quotient tables), no more on Groth16's
+    (computeH's pointwise rides ntt_pass). Groups: every entry ran but *_double (no
     caller) and *_add, the fold of
     split buckets, which the Chain (groth16) never runs, the 2-chain always
     and PLONK's commitments where a bucket is split; PLONK has no G2 MSM, so
@@ -1105,7 +1270,7 @@ def _expectations(name: str, path: str) -> dict:
         e = k.name[len(pre):]
         g, _, op = e.partition("_")
         if g not in ("g1", "g2"):
-            out[k.name] = "ran" if plonk or e not in ("fr_add", "plonk_quotient", "fr_sub") else "zero"
+            out[k.name] = "ran" if plonk or e not in PLONK_FR else "zero"
         elif op in ("double", "add_mixed_masked") or (plonk and g == "g2"):
             out[k.name] = "zero"
         elif op == "add":
@@ -1118,16 +1283,19 @@ def _expectations(name: str, path: str) -> dict:
 
 
 def _check_launches(name: str, launches: dict, path: str, transforms: list, warm: list,
-                    warm_proves: int) -> dict:
+                    warm_proves: int, tables: list) -> dict:
     """The path's launches against _expectations; per MSM (one
     *_bucket_accumulate each) one combine, one Horner and at most one
     running-sums launch, so at most three; per fixed-base batch of setup
     one *_fixed_base and one *_normalize; per transform (`transforms`: the
     log_n of each) the passes of pass_split, at most three; warm proves
     (`warm`: _warm_state after the first prove and after the last) build no
-    domain table, and on Groth16 paths launch fr_mont_mul at most 6 times a
-    prove (the three conversions of a, b, c to Montgomery form and h's back)
-    and fr_sub never. Returns {log_n: passes a transform}."""
+    domain table and launch no fr_batch_inv, and on Groth16 paths launch
+    fr_mont_mul at most 6 times a prove (the three conversions of a, b, c to
+    Montgomery form and h's back) and fr_sub never; a PLONK path builds its
+    quotient tables once (`tables`: each build's launches), with one
+    fr_batch_inv, one fr_sub and at most TABLE_MONT_MULS fr_mont_mul
+    launches. Returns {log_n: passes a transform}."""
     from gnark_icicle_tpu_torch.ops import cuda as kc
     from gnark_icicle_tpu_torch.ops.ntt import pass_split
 
@@ -1163,6 +1331,12 @@ def _check_launches(name: str, launches: dict, path: str, transforms: list, warm
     if path != "plonk" and (delta["fr_mont_mul"] > 6 * warm_proves or delta["fr_sub"] != 0):
         bad.append(f"warm proves: {delta['fr_mont_mul']} fr_mont_mul, {delta['fr_sub']} fr_sub "
                    f"launches in {warm_proves}")
+    if delta["fr_batch_inv"] != 0:
+        bad.append(f"warm proves launched fr_batch_inv {delta['fr_batch_inv']} times")
+    if path == "plonk" and not (len(tables) == 1 and tables[0]["fr_batch_inv"] == 1
+                                and tables[0]["fr_sub"] == 1
+                                and tables[0]["fr_mont_mul"] <= TABLE_MONT_MULS):
+        bad.append(f"quotient table builds: {tables}")
     if bad:
         raise AssertionError(f"the {name} {path} path's launches are not the expected ones: {bad}")
     return per

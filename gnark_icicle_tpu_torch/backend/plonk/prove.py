@@ -4,8 +4,8 @@ linearized polynomial → batched KZG opening (gnark proof shape).
 Port of gnark_icicle_tpu/backend/plonk/prove.py (``prove`` :253, its device
 engine). Device work, on ``device`` (None: the first CUDA card; raises
 without one): the Lagrange → coefficient INTTs, the 4n coset NTTs
-(``Domain.coset_ntt_nat``), the quotient (``_quotient_tables`` :84, with the
-Fermat inversion on the card and cached per (q, n, device);
+(``Domain.coset_ntt_nat``), the quotient (``_quotient_tables`` :84, with its
+batch inversion one ``fr_batch_inv`` launch, cached per (q, n, device);
 ``_quotient_device`` :122 as one ``plonk_quotient`` launch over all 4n rows
 and one ``coset_intt_nat``), the linear combinations (``_linear_combo_dev``
 :223) and every KZG commitment (a G1 MSM). Host work, copied from the
@@ -84,7 +84,10 @@ def _quotient_tables(ctx: DeviceCtx, n: int, g: int, eta: int, q: int):
     """Device tables for the 4n coset: x-values g·ηⁱ and L1(x) as (W, 4n),
     and the period-4 cycle of 1/Z_H(x) as (W, 4) (the reference tiles it to
     4n rows; the values are the same). L1(x) = Z_H(x) / (n (x − 1)) takes
-    one Fermat inversion on the card. Cached per (q, n, device): they do not
+    one batch inversion (``TField.mont_inv``: one ``fr_batch_inv`` launch on
+    the card, where the reference's Fermat power took 379-554 products over
+    the array), so a build launches 1 ``fr_batch_inv``, 1 ``fr_sub`` and
+    2·log2(4n) + 3 ``fr_mont_mul``. Cached per (q, n, device): they do not
     depend on the proof."""
     key = (q, n, ctx.device)
     if key in _DOMAIN_TABLES:
@@ -111,8 +114,9 @@ def _quotient_device(ctx: DeviceCtx, dom4, ev: dict, n, beta, gamma, alpha,
     prove.go:771-1034), then one coset INTT."""
     F = ctx.fr
     xs, l1, zh_inv = _quotient_tables(ctx, n, g, eta, q)
+    # on the CPU: the kernel takes them by value (the plain version there too)
     consts = F.encode([beta % q, gamma % q, alpha % q, beta * k1 % q,
-                       beta * k2 % q, alpha * alpha % q, 1], ctx.device)
+                       beta * k2 % q, alpha * alpha % q, 1], "cpu")
     t_evals = TField(F).plonk_quotient([ev[k] for k in QUOTIENT_INPUTS], xs, l1,
                                        zh_inv, consts)
     return dom4.coset_intt_nat(t_evals)

@@ -35,8 +35,9 @@
 #include <cuda_runtime.h>
 
 // ---------------------------------------------------------------------------
-// moduli: N words, the words of p, INV = -p^-1 mod 2^32 and, for a base
-// field, BETA, the non-residue of Fp2 = Fp[u]/(u^2 - BETA)
+// moduli: N words, the words of p, INV = -p^-1 mod 2^32, ROOM4 = (4p < R =
+// 2^(32N)), which the lazy arithmetic below needs, and, for a base field,
+// BETA, the non-residue of Fp2 = Fp[u]/(u^2 - BETA)
 // ---------------------------------------------------------------------------
 
 struct FpP {
@@ -56,6 +57,7 @@ struct FpP {
     }
   }
   static constexpr uint32_t INV = 0xe4866389u;  // -p^-1 mod 2^32
+  static constexpr bool ROOM4 = true;
 };
 
 struct FrP {
@@ -74,6 +76,7 @@ struct FrP {
     }
   }
   static constexpr uint32_t INV = 0xefffffffu;
+  static constexpr bool ROOM4 = true;
 };
 
 struct Bls381Fp {
@@ -97,6 +100,7 @@ struct Bls381Fp {
     }
   }
   static constexpr uint32_t INV = 0xfffcfffdu;
+  static constexpr bool ROOM4 = true;
 };
 
 struct Bls381Fr {
@@ -115,6 +119,7 @@ struct Bls381Fr {
     }
   }
   static constexpr uint32_t INV = 0xffffffffu;
+  static constexpr bool ROOM4 = false;  // 4r > R: 255 bits in 8 words
 };
 
 struct Bls377Fp {
@@ -138,6 +143,7 @@ struct Bls377Fp {
     }
   }
   static constexpr uint32_t INV = 0xffffffffu;
+  static constexpr bool ROOM4 = true;
 };
 
 struct Bls377Fr {
@@ -156,6 +162,7 @@ struct Bls377Fr {
     }
   }
   static constexpr uint32_t INV = 0xffffffffu;
+  static constexpr bool ROOM4 = true;
 };
 
 struct Bw6Fp {
@@ -192,6 +199,7 @@ struct Bw6Fp {
     }
   }
   static constexpr uint32_t INV = 0x8fa798ddu;
+  static constexpr bool ROOM4 = true;
 };
 
 struct Bw6Fr {
@@ -200,6 +208,7 @@ struct Bw6Fr {
   static constexpr int N = 12;
   static __device__ __forceinline__ uint32_t mod(int i) { return Bls377Fp::mod(i); }
   static constexpr uint32_t INV = Bls377Fp::INV;
+  static constexpr bool ROOM4 = true;
 };
 
 // ---------------------------------------------------------------------------
@@ -270,45 +279,75 @@ __device__ __forceinline__ Elt<P> fmul_rolled(const Elt<P>& a, const Elt<P>& b) 
   return reduce_once<P>(t, t[N]);
 }
 
-// CIOS Montgomery product a * b * 2^-(32N) mod p. With a, b < p every outer
-// step leaves t < 2p, held in the N words of t plus the word t[N] (t[N + 1]
-// takes the carry of the product row). 2p < R for every field here (N is
-// ceil((bits + 1) / 32)), so t[N] is 0 at the end; reduce_once still reads it.
+// One outer step of CIOS on 64-bit temporaries: t = (t + a bi + m p) / 2^32
+// with m = t[0] INV mod 2^32, in the N words of t plus the word t[N] (t[N +
+// 1] takes the carry of the product row).
+template <class P>
+__device__ __forceinline__ void cios64_step(const Elt<P>& a, uint32_t bi, uint32_t (&t)[P::N + 2]) {
+  constexpr int N = P::N;
+  uint64_t c = 0;
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    uint64_t uv = (uint64_t)a.v[j] * bi + t[j] + c;
+    t[j] = (uint32_t)uv;
+    c = uv >> 32;
+  }
+  uint64_t uv = (uint64_t)t[N] + c;
+  t[N] = (uint32_t)uv;
+  t[N + 1] = (uint32_t)(uv >> 32);
+  const uint32_t m = t[0] * P::INV;
+  uv = (uint64_t)m * P::mod(0) + t[0];
+  c = uv >> 32;
+#pragma unroll
+  for (int j = 1; j < N; ++j) {
+    uv = (uint64_t)m * P::mod(j) + t[j] + c;
+    t[j - 1] = (uint32_t)uv;
+    c = uv >> 32;
+  }
+  uv = (uint64_t)t[N] + c;
+  t[N - 1] = (uint32_t)uv;
+  t[N] = t[N + 1] + (uint32_t)(uv >> 32);
+}
+
+// CIOS Montgomery product on 64-bit temporaries: t = a * b * 2^-(32N) + (a
+// multiple of p), below a * b / R + p. Every outer step leaves t below a +
+// p, and the step's sum stays below 2^32 (a + p), so with a + p < R nothing
+// overflows the N + 2 words. ROLL = 0 unrolls the outer loop; ROLL = U
+// rolls it, U steps a turn (b's words move down U a turn, so that no
+// register array is indexed by a loop variable): less code for the
+// scheduler to interleave, and so fewer registers live.
+template <class P, int ROLL = 0>
+__device__ __forceinline__ void cios64(const Elt<P>& a, const Elt<P>& b, uint32_t (&t)[P::N + 2]) {
+  constexpr int N = P::N;
+#pragma unroll
+  for (int j = 0; j < N + 2; ++j) t[j] = 0;
+  if constexpr (ROLL == 0) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) cios64_step<P>(a, b.v[i], t);
+  } else {
+    static_assert(N % ROLL == 0, "the rolled product takes ROLL words of b a turn");
+    Elt<P> bb = b;
+#pragma unroll 1
+    for (int i = 0; i < N; i += ROLL) {
+#pragma unroll
+      for (int k = 0; k < ROLL; ++k) cios64_step<P>(a, bb.v[k], t);
+#pragma unroll
+      for (int k = 0; k < N - ROLL; ++k) bb.v[k] = bb.v[k + ROLL];
+    }
+  }
+}
+
+// CIOS Montgomery product a * b * 2^-(32N) mod p. With a, b < p the result
+// of cios64 is below 2p; 2p < R for every field here (N is ceil((bits + 1) /
+// 32)), so t[N] is 0 at the end; reduce_once still reads it.
 template <class P>
 __device__ __forceinline__ Elt<P> fmul(const Elt<P>& a, const Elt<P>& b) {
   if constexpr (P::N >= 24) {
     return fmul_rolled<P>(a, b);
   } else {
-    constexpr int N = P::N;
-    uint32_t t[N + 2];
-#pragma unroll
-    for (int j = 0; j < N + 2; ++j) t[j] = 0;
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      uint64_t c = 0;
-#pragma unroll
-      for (int j = 0; j < N; ++j) {
-        uint64_t uv = (uint64_t)a.v[j] * b.v[i] + t[j] + c;
-        t[j] = (uint32_t)uv;
-        c = uv >> 32;
-      }
-      uint64_t uv = (uint64_t)t[N] + c;
-      t[N] = (uint32_t)uv;
-      t[N + 1] = (uint32_t)(uv >> 32);
-      const uint32_t m = t[0] * P::INV;
-      uv = (uint64_t)m * P::mod(0) + t[0];
-      c = uv >> 32;
-#pragma unroll
-      for (int j = 1; j < N; ++j) {
-        uv = (uint64_t)m * P::mod(j) + t[j] + c;
-        t[j - 1] = (uint32_t)uv;
-        c = uv >> 32;
-      }
-      uv = (uint64_t)t[N] + c;
-      t[N - 1] = (uint32_t)uv;
-      t[N] = t[N + 1] + (uint32_t)(uv >> 32);
-    }
-    return reduce_once<P>(t, t[N]);
+    uint32_t t[P::N + 2];
+    cios64<P>(a, b, t);
+    return reduce_once<P>(t, t[P::N]);
   }
 }
 
@@ -531,8 +570,9 @@ __device__ __forceinline__ Elt2<P> fneg(const Elt2<P>& a) {
 //
 // Values stay in [0, 2p) between operations and are made canonical once,
 // before they are stored, so stored limbs are the canonical ones of the
-// functions above. That is valid because 4p < R = 2^(32N) for every field
-// here (254/256, 381/384, 377/384, 761/768 bits). The product is CIOS on PTX
+// functions above. That is valid where 4p < R = 2^(32N) (ROOM4): every base
+// field here (254/256, 381/384, 377/384, 761/768 bits) and every scalar
+// field but BLS12-381's r (255/256). The product is CIOS on PTX
 // carry chains: mad.lo.cc / madc.lo.cc add the low halves of a row, mad.hi.cc
 // / madc.hi.cc the high halves one word up, so each 32x32 product costs two
 // instructions and no 64-bit temporaries. Off the card (the host build of
@@ -734,6 +774,59 @@ template <class P>
 __device__ __forceinline__ Elt<P> lcanon(const Elt<P>& x) {
   return reduce_once<P>(x.v, 0u);
 }
+
+// The lazy product on 64-bit temporaries (cios64, fmul's core without its
+// final subtraction): a, b < 2p -> below 2p, as lmul. Needs 3p < R (a + p <
+// R in cios64), which ROOM4 gives.
+template <class P, int ROLL = 0>
+__device__ __forceinline__ Elt<P> lmul64(const Elt<P>& a, const Elt<P>& b) {
+  static_assert(P::ROOM4, "lazy products need 4p < R");
+  uint32_t t[P::N + 2];
+  cios64<P, ROLL>(a, b, t);
+  Elt<P> r;
+#pragma unroll
+  for (int j = 0; j < P::N; ++j) r.v[j] = t[j];
+  return r;
+}
+
+// The arithmetic of a chain of products and sums that ends in one store
+// (plonk_quotient's row, the batch inversion's lanes), fixed at compile
+// time; the product on 64-bit temporaries (cios64, its outer loop rolled
+// ROLL steps a turn, or unrolled for ROLL = 0):
+//   LAZY: values in [0, 2p) between operations and canonical once, before
+//     the store (lmul64, ladd, lsub, lcanon). Only where ROOM4: a lazy sum
+//     below 4p must fit N words, and a lazy product's running value below
+//     a + p < 3p too.
+//   otherwise canonical throughout (the product's final subtraction, fadd,
+//     fsub), the only form BLS12-381's r allows.
+template <bool LAZY, int ROLL = 0>
+struct ChainOps {
+  template <class P>
+  static __device__ __forceinline__ Elt<P> mul(const Elt<P>& a, const Elt<P>& b) {
+    if constexpr (LAZY) {
+      return lmul64<P, ROLL>(a, b);
+    } else {
+      uint32_t t[P::N + 2];
+      cios64<P, ROLL>(a, b, t);
+      return reduce_once<P>(t, t[P::N]);
+    }
+  }
+  template <class P>
+  static __device__ __forceinline__ Elt<P> add(const Elt<P>& a, const Elt<P>& b) {
+    if constexpr (LAZY) return ladd(a, b);
+    else return fadd(a, b);
+  }
+  template <class P>
+  static __device__ __forceinline__ Elt<P> sub(const Elt<P>& a, const Elt<P>& b) {
+    if constexpr (LAZY) return lsub(a, b);
+    else return fsub(a, b);
+  }
+  template <class P>
+  static __device__ __forceinline__ Elt<P> canon(const Elt<P>& x) {
+    if constexpr (LAZY) return lcanon(x);
+    else return x;
+  }
+};
 
 template <class P>
 __device__ __forceinline__ Elt2<P> ladd(const Elt2<P>& a, const Elt2<P>& b) {
@@ -968,12 +1061,22 @@ __device__ __forceinline__ uint32_t pm2_word(int k) {
   return P::mod(k) - (borrow ? 1u : 0u);
 }
 
-// x^(p - 2), the inverse of x != 0 by Fermat, lazily (x < 2p in, < 2p out):
-// square and multiply from the top bit of p - 2. A thread inverts once for
-// its k lanes, so a window over the exponent would save few products a
-// lane; both loops stay rolled, so the product is inlined twice.
-template <class P>
-__device__ __forceinline__ Elt<P> lpow_pm2(const Elt<P>& x) {
+// the lazy PTX product as a chain's product (the normalization's Fermat
+// chain over Fp)
+struct LazyPtxMul {
+  template <class P>
+  static __device__ __forceinline__ Elt<P> mul(const Elt<P>& a, const Elt<P>& b) {
+    return lmul(a, b);
+  }
+};
+
+// x^(p - 2), the inverse of x != 0 by Fermat, in the product Ops::mul
+// (lazy: x < 2p in, < 2p out): square and multiply from the top bit of p -
+// 2. A thread inverts once for its k lanes, so a window over the exponent
+// would save few products a lane; both loops stay rolled, so the product
+// is inlined twice.
+template <class Ops, class P>
+__device__ __forceinline__ Elt<P> pow_pm2(const Elt<P>& x) {
   Elt<P> r = x;
   bool started = false;
 #pragma unroll 1
@@ -983,8 +1086,8 @@ __device__ __forceinline__ Elt<P> lpow_pm2(const Elt<P>& x) {
     for (int i = 31; i >= 0; --i) {
       const bool bit = (e >> i) & 1u;
       if (started) {
-        r = lmul(r, r);
-        if (bit) r = lmul(r, x);
+        r = Ops::mul(r, r);
+        if (bit) r = Ops::mul(r, x);
       }
       started = started || bit;
     }
@@ -1066,7 +1169,7 @@ __device__ __forceinline__ void normalize_lanes(const uint32_t* p, long long ld,
     fstore(run, ld, l, acc);
   }
   if (count <= 0) return;
-  B d = lmul(lpow_pm2(acc), word1);  // (the product)^-1 R^-1
+  B d = lmul(pow_pm2<LazyPtxMul>(acc), word1);  // (the product)^-1 R^-1
 #pragma unroll 1
   for (int i = count - 1; i >= 0; --i) {
     const long long l = first + i * stride;
@@ -1085,6 +1188,133 @@ __device__ __forceinline__ void normalize_lanes(const uint32_t* p, long long ld,
     }
     C::store(xy, ld, l, x);
     C::store(xy + plane, ld, l, y);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// PLONK's Fr chains (fr.cu k_plonk_quotient, k_fr_batch_inv): per-thread
+// steps, plain C++ (tests/test_torch_field_cuh.py runs them on the host), in
+// a chain arithmetic (ChainOps). The quotient is canonical on every curve,
+// its product rolled two steps a turn (QuotientOps); the batch inversion is
+// lazy where r leaves room (4r < R: BN254, BLS12-377 and BW6-761 r;
+// BLS12-381's 255 bits in 8 words leave none) and canonical elsewhere, its
+// product unrolled (ChainOps<P::ROOM4>). fr.cu says why.
+// ---------------------------------------------------------------------------
+
+// fload whose loads the compiler may neither merge with another load of the
+// same words nor move (each an asm volatile ld.global.nc on the card)
+template <class P>
+__device__ __forceinline__ Elt<P> fload_pinned(const uint32_t* base, long long ld, long long lane) {
+#if defined(__CUDA_ARCH__)
+  Elt<P> e;
+#pragma unroll
+  for (int k = 0; k < P::N; ++k)
+    asm volatile("ld.global.nc.u32 %0, [%1];" : "=r"(e.v[k]) : "l"(base + k * ld + lane));
+  return e;
+#else
+  return fload<P>(base, ld, lane);
+#endif
+}
+
+// the quotient's inputs, each (N, n) Montgomery, in this order
+enum { QA, QB, QC, QZ, QZW, QQK, QQL, QQR, QQM, QQO, QS1, QS2, QS3, QXS, QL1, Q_INPUTS };
+// the constants, columns of an (N, 7) table: beta, gamma, alpha, beta k1,
+// beta k2, alpha^2, one
+enum { CBETA, CGAMMA, CALPHA, CBK1, CBK2, CALPHA2, CONE, Q_CONSTS };
+
+struct QuotientIn {
+  const uint32_t* p[Q_INPUTS];
+  const uint32_t* zh_inv;  // (N, 4): 1/Z_H cycles with period 4 on the 4n coset
+  long long n;             // rows, the stride of every input
+};
+
+// the constants by value: a kernel parameter, so that the card reads their
+// words as operands from the constant bank and holds no register for them
+template <class P>
+struct QuotientConsts {
+  Elt<P> c[Q_CONSTS];
+};
+
+using QuotientOps = ChainOps<false, 2>;
+
+// Row l of T(x) = (gate + alpha perm + alpha^2 L1 (Z - 1)) / Z_H(x) on the
+// 4n coset, canonical: the function of gnark_icicle_tpu/backend/plonk/
+// prove.py:186-217 (_quotient_chunk_fn). The output is canonical, so any
+// algebra that gives the same field element gives the same limbs; the
+// reference's order is not kept. The row is a chain of products with little
+// to overlap, so the card hides its latency with warps, and warps need
+// registers: the terms are taken one after the other, each input loaded
+// where it is used and loaded again where it is used again (from L1 or L2),
+// so that at most the two permutation products are live beside the product
+// being formed. The compiler may keep the first load of an input for its
+// later uses and hoist loads ahead of their products (nothing is stored
+// before the end), so each input is loaded where it is written
+// (fload_pinned). The gate is taken as A (ql + qm B) + qr B + qo C + qk, 20
+// products a row, where the reference's ql A + (qm A) B + ... has 21.
+// (alpha^2 is the table's column CALPHA2, as the plain version takes it,
+// so that both compute one function of the table.)
+template <class P>
+__device__ __forceinline__ Elt<P> quotient_row(const QuotientIn& in, const QuotientConsts<P>& k,
+                                                long long l) {
+  using E = Elt<P>;
+  using Ops = QuotientOps;
+  auto ld = [&](int i) { return fload_pinned<P>(in.p[i], in.n, l); };
+  auto cst = [&](int i) { return k.c[i]; };
+  // one wire's factor w + c y + gamma of a permutation product
+  auto factor = [&](int w, int c, int y) {
+    return Ops::add(Ops::add(ld(w), Ops::mul(cst(c), ld(y))), cst(CGAMMA));
+  };
+  E lhs = factor(QA, CBETA, QXS);
+  lhs = Ops::mul(lhs, factor(QB, CBK1, QXS));
+  lhs = Ops::mul(lhs, factor(QC, CBK2, QXS));
+  lhs = Ops::mul(lhs, ld(QZ));
+  E rhs = factor(QA, CBETA, QS1);
+  rhs = Ops::mul(rhs, factor(QB, CBETA, QS2));
+  rhs = Ops::mul(rhs, factor(QC, CBETA, QS3));
+  E acc = Ops::sub(Ops::mul(rhs, ld(QZW)), lhs);  // perm
+  const E start = Ops::mul(ld(QL1), Ops::sub(ld(QZ), cst(CONE)));
+  acc = Ops::add(Ops::mul(cst(CALPHA), acc), Ops::mul(cst(CALPHA2), start));
+  acc = Ops::add(acc, Ops::mul(ld(QA), Ops::add(ld(QQL), Ops::mul(ld(QQM), ld(QB)))));
+  acc = Ops::add(acc, Ops::mul(ld(QQR), ld(QB)));
+  acc = Ops::add(Ops::add(acc, Ops::mul(ld(QQO), ld(QC))), ld(QQK));
+  return Ops::canon(Ops::mul(acc, fload<P>(in.zh_inv, 4, l & 3)));
+}
+
+// One thread's batch inversion: lanes first + i stride, i < count, of x
+// (stride ld) -> out, x^-1 in Montgomery form and canonical, 0 -> 0 (the
+// contract of the Fermat inversion, gnark_icicle_tpu/ops/field.py:330
+// LimbField.mont_inv). Montgomery's trick: the running products of the
+// lanes (a zero lane enters as the word 1, which is nonzero, so it poisons
+// no other lane) wait in out; one Fermat inversion of the last; then the
+// lanes from the last down, each taking its inverse from the product before
+// it. 3 products a lane after the thread's first, and one inversion (about
+// 1.5 bits products) a thread.
+template <class P>
+__device__ __forceinline__ void batch_inv_lanes(const uint32_t* x, long long ld, uint32_t* out,
+                                                long long first, long long stride, int count) {
+  using E = Elt<P>;
+  using Ops = ChainOps<P::ROOM4>;
+  E word1{};
+  word1.v[0] = 1u;
+  E acc{};
+#pragma unroll 1
+  for (int i = 0; i < count; ++i) {
+    const long long l = first + i * stride;
+    const E v = fload<P>(x, ld, l);
+    const E u = is_zero(v) ? word1 : v;
+    acc = i == 0 ? u : Ops::mul(acc, u);
+    fstore<P>(out, ld, l, acc);
+  }
+  if (count <= 0) return;
+  E d = pow_pm2<Ops>(acc);  // (the product)^-1
+#pragma unroll 1
+  for (int i = count - 1; i >= 0; --i) {
+    const long long l = first + i * stride;
+    const E v = fload<P>(x, ld, l);
+    const bool zero = is_zero(v);
+    const E di = i == 0 ? d : Ops::mul(d, fload<P>(out, ld, l - stride));
+    if (i > 0) d = Ops::mul(d, zero ? word1 : v);
+    fstore<P>(out, ld, l, zero ? E{} : Ops::canon(di));
   }
 }
 

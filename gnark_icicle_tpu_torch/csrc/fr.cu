@@ -1,8 +1,9 @@
 // Fr (scalar field) kernels: the elementwise Montgomery product, the
 // subtraction and the addition of PLONK's linear combinations, one NTT pass
-// of up to 11 radix-2 stages in shared memory, and PLONK's quotient on the 4n
-// coset. Built once per curve (field.cuh, CurveFr): BN254, BLS12-381 and
-// BLS12-377 r at 8 words, BW6-761 r at 12.
+// of up to 11 radix-2 stages in shared memory, PLONK's quotient on the 4n
+// coset and the batch inversion of its tables. Built once per curve
+// (field.cuh, CurveFr): BN254, BLS12-381 and BLS12-377 r at 8 words, BW6-761
+// r at 12.
 //
 // Replaces TPU kernel K1: gnark_icicle_tpu/ops/field_t.py:353 TField.mont_mul
 // (Pallas body _mul_kernel, :314), which carries every NTT butterfly stage
@@ -29,13 +30,44 @@
 // plonk_quotient is the row function of gnark_icicle_tpu/backend/plonk/
 // prove.py:176-218 (_quotient_chunk_fn: 21 Montgomery products and 16 adds
 // and subtractions a row, in jnp there; the reference's own products are K1)
-// in one pass, one thread a row. It reads 15 Fr values a row and writes one:
-// at 8 words, 2^19 rows move 256 MiB (0.08 ms at 3.35 TB/s) against 21 * 2N^2
-// = 2,688 multiply-adds of 32 bits a row (0.17 ms at the card's rate), so it
-// is bound by operations; in plain PyTorch it would be 21 passes of the
-// plain product over every 4n array. The reference's uint16 packing and row
-// chunks (prove.py:128-130, :178-181) existed for v5e's memory and are gone:
-// the sixteen 4n inputs fit the card.
+// in one pass, one thread a row (field.cuh quotient_row). It reads 15 Fr
+// values a row and writes one: at 8 words, 2^19 rows move 256 MiB (0.08 ms
+// at 3.35 TB/s) against 21 * 2N^2 = 2,688 multiply-adds of 32 bits a row
+// (0.17 ms at the card's rate), so it is bound by operations. A row is a
+// chain of products with little to overlap, so warps hide its latency and
+// registers decide the warps. Each choice below was measured against its
+// alternatives at 2^19 rows (NVIDIA H100 80GB HBM3, 700 W; PERF.md):
+// - __launch_bounds__(256, 3): 24 warps an SM at 8 words, at most 80
+//   registers (12-16 bytes spill); 4 blocks at 64 registers spill 92 bytes
+//   and run no faster, 2 blocks at 128 no slower;
+// - each input loaded where the row uses it, and loaded again where it is
+//   used again (field.cuh fload_pinned: the compiler may neither keep the
+//   first load nor hoist it), the terms one after the other;
+// - the 64-bit product with its outer loop rolled two steps a turn (fewer
+//   registers than unrolled: 0.37 against 0.50 ms; the PTX carry-chain
+//   product 0.62), the constants by value in the kernel's parameters, read
+//   as operands from the constant bank;
+// - 20 products a row, the gate taken as A (ql + qm B) + qr B + qo C + qk
+//   (the reference's 21: 5 % slower);
+// - canonical values throughout (field.cuh QuotientOps): lazy ones, where r
+//   leaves room (4r < R: BN254, BLS12-377, BW6-761 r; not BLS12-381's),
+//   ran 3.5 % slower on BN254 at these registers.
+// The reference's uint16 packing and row chunks (prove.py:128-130,
+// :178-181) existed for v5e's memory and are gone: the sixteen 4n inputs
+// fit the card.
+//
+// fr_batch_inv is the elementwise inverse (0 -> 0) over a (N, n) array,
+// which the PLONK quotient's tables take once per domain (the 4n values
+// n (x - 1)). The JAX package computes it as one Fermat power, a scan of
+// about 1.5 bits products over the whole array (LimbField.mont_inv, its
+// products K1), each a full read and write of the array. Here it is one
+// launch of Montgomery's trick over BINV_K lanes a thread (field.cuh
+// batch_inv_lanes): 3 products a lane and one Fermat chain a thread. The
+// function needs 3 products a nonzero element and one chain in all, its
+// bound; the time is a thread's chain of about 1.5 bits dependent
+// products, which k trades against the chains' work (k = 32 was fastest of
+// 8-64). Its values are lazy where r leaves room (5 % faster than canonical
+// on BN254).
 #include "field.cuh"
 
 using FrM = CurveFr;
@@ -63,46 +95,29 @@ __global__ void k_fr_add(const uint32_t* a, const uint32_t* b, uint32_t* out, lo
   fstore<FrM>(out, n, l, fadd(fload<FrM>(a, n, l), fload<FrM>(b, n, l)));
 }
 
-// the quotient's inputs, each (N, n) Montgomery, in this order
-enum { QA, QB, QC, QZ, QZW, QQK, QQL, QQR, QQM, QQO, QS1, QS2, QS3, QXS, QL1, Q_INPUTS };
-struct QuotientIn {
-  const uint32_t* p[Q_INPUTS];
-};
-// the constants, columns of an (N, 7) table: beta, gamma, alpha, beta k1,
-// beta k2, alpha^2, one
-enum { CBETA, CGAMMA, CALPHA, CBK1, CBK2, CALPHA2, CONE, Q_CONSTS };
+// at 8 words 3 blocks of 256 an SM (24 warps, at most 80 registers a
+// thread); BW6-761's 12-word row takes the registers it needs
+constexpr int Q_THREADS = 256;
+constexpr int Q_MIN_BLOCKS = FrM::N > 8 ? 1 : 3;
 
-// One row of T(x) Z_H(x) = gate + alpha perm + alpha^2 L1 (Z - 1), divided by
-// Z_H, on the coset: the reference's order of products and adds (prove.py
-// :191-217), so the result is its Montgomery value. 1/Z_H cycles with period
-// 4 on the 4n coset, so it is read from a (N, 4) table, column row mod 4.
-__global__ void k_plonk_quotient(QuotientIn in, const uint32_t* consts, const uint32_t* zh_inv,
-                                 uint32_t* out, long long n) {
+__global__ void __launch_bounds__(Q_THREADS, Q_MIN_BLOCKS)
+    k_plonk_quotient(const QuotientIn in, const QuotientConsts<FrM> k, uint32_t* out) {
   const long long l = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (l >= n) return;
-  auto ld = [&](int k) { return fload<FrM>(in.p[k], n, l); };
-  auto cst = [&](int k) { return fload<FrM>(consts, Q_CONSTS, k); };
-  const Fr A = ld(QA), B = ld(QB), C = ld(QC);
-  Fr gate = fmul(ld(QQL), A);
-  gate = fadd(gate, fmul(ld(QQR), B));
-  gate = fadd(gate, fmul(fmul(ld(QQM), A), B));
-  gate = fadd(gate, fmul(ld(QQO), C));
-  gate = fadd(gate, ld(QQK));
-  const Fr beta = cst(CBETA), gamma = cst(CGAMMA);
-  const Fr xs = ld(QXS);
-  Fr lhs = fadd(fadd(A, fmul(beta, xs)), gamma);
-  lhs = fmul(lhs, fadd(fadd(B, fmul(cst(CBK1), xs)), gamma));
-  lhs = fmul(lhs, fadd(fadd(C, fmul(cst(CBK2), xs)), gamma));
-  const Fr z = ld(QZ);
-  lhs = fmul(lhs, z);
-  Fr rhs = fadd(fadd(A, fmul(beta, ld(QS1))), gamma);
-  rhs = fmul(rhs, fadd(fadd(B, fmul(beta, ld(QS2))), gamma));
-  rhs = fmul(rhs, fadd(fadd(C, fmul(beta, ld(QS3))), gamma));
-  rhs = fmul(rhs, ld(QZW));
-  const Fr perm = fsub(rhs, lhs);
-  const Fr start = fmul(ld(QL1), fsub(z, cst(CONE)));
-  const Fr num = fadd(gate, fadd(fmul(cst(CALPHA), perm), fmul(cst(CALPHA2), start)));
-  fstore<FrM>(out, n, l, fmul(num, fload<FrM>(zh_inv, 4, l & 3)));
+  if (l >= in.n) return;
+  fstore<FrM>(out, in.n, l, quotient_row<FrM>(in, k, l));
+}
+
+// The batch inversion, one launch: block b's thread t takes the BINV_K
+// lanes b BINV_T BINV_K + t + i BINV_T, so that at each step a warp touches
+// 32 neighbouring lanes (field.cuh batch_inv_lanes)
+constexpr int BINV_T = 64, BINV_K = 32;
+
+__global__ void __launch_bounds__(BINV_T) k_fr_batch_inv(const uint32_t* x, uint32_t* out,
+                                                         long long n) {
+  const long long first = (long long)blockIdx.x * BINV_T * BINV_K + threadIdx.x;
+  if (first >= n) return;
+  const long long rest = (n - first + BINV_T - 1) / BINV_T;
+  batch_inv_lanes<FrM>(x, n, out, first, BINV_T, rest < BINV_K ? (int)rest : BINV_K);
 }
 
 // One pass of an NTT: block blk loads its tile (field.cuh ntt_index) with the
@@ -149,14 +164,29 @@ extern "C" int ENTRY(fr_add)(const void* a, const void* b, void* out, long long 
   return (int)cudaGetLastError();
 }
 
-// in: a host array of the Q_INPUTS device pointers, in the enum's order
+// in: a host array of the Q_INPUTS device pointers, in the enum's order;
+// consts: HOST memory, the (N, Q_CONSTS) limb-major table (passed by value)
 extern "C" int ENTRY(plonk_quotient)(const void* const* in, const void* consts, const void* zh_inv,
                                      void* out, long long n, void* stream) {
   QuotientIn q;
   for (int k = 0; k < Q_INPUTS; ++k) q.p[k] = (const uint32_t*)in[k];
+  q.zh_inv = (const uint32_t*)zh_inv;
+  q.n = n;
+  QuotientConsts<FrM> c;
+  const uint32_t* h = (const uint32_t*)consts;
+  for (int i = 0; i < Q_CONSTS; ++i)
+    for (int j = 0; j < FrM::N; ++j) c.c[i].v[j] = h[j * Q_CONSTS + i];
   if (n > 0)
-    k_plonk_quotient<<<n_blocks(n, 256), 256, 0, (cudaStream_t)stream>>>(
-        q, (const uint32_t*)consts, (const uint32_t*)zh_inv, (uint32_t*)out, n);
+    k_plonk_quotient<<<n_blocks(n, Q_THREADS), Q_THREADS, 0, (cudaStream_t)stream>>>(
+        q, c, (uint32_t*)out);
+  return (int)cudaGetLastError();
+}
+
+// x, out: (N, n)
+extern "C" int ENTRY(fr_batch_inv)(const void* x, void* out, long long n, void* stream) {
+  if (n > 0)
+    k_fr_batch_inv<<<n_blocks(n, BINV_T * BINV_K), BINV_T, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)x, (uint32_t*)out, n);
   return (int)cudaGetLastError();
 }
 

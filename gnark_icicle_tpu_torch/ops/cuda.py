@@ -56,6 +56,7 @@ SIGNATURES = {
         "fr_sub": [_P, _P, _P, _I64, _P],
         "fr_add": [_P, _P, _P, _I64, _P],
         "plonk_quotient": [_P, _P, _P, _P, _I64, _P],
+        "fr_batch_inv": [_P, _P, _I64, _P],
         "ntt_pass": [_P, _P, _P, _P, _P, _P, _I64, _P, _I64, _I64, _I32, _I32, _I32,
                      _I32, _I32, _P],
     },

@@ -1,5 +1,5 @@
 """Fr arithmetic on the card, with its plain twins: the Montgomery product,
-subtraction and addition, powers and inverses, and PLONK's fused quotient.
+subtraction and addition, the batch inverse, and PLONK's fused quotient.
 
 Port of gnark_icicle_tpu/ops/field_t.py ``TField`` (:320), whose
 ``mont_mul`` (:353) is TPU kernel K1. Here it is ``csrc/fr.cu``
@@ -9,11 +9,13 @@ of its coset INTT, ``ops/ntt.py``), and ``fr_add`` because PLONK's linear
 combinations run on the card (gnark_icicle_tpu/backend/plonk/prove.py:223).
 The NTT's entry of the same source, ``ntt_pass``, has its wrapper in
 ``ops/ntt.py``.
-``mont_pow``/``mont_inv`` are square and multiply over ``fr_mont_mul``
-launches (LimbField.mont_pow :292, about 380 launches for an inverse).
-``plonk_quotient`` is PLONK's row function on the 4n coset
-(``_quotient_chunk_fn``, backend/plonk/prove.py:165-218), 21 products a row
-in one launch (:func:`plonk_quotient_plain` is its twin). Operands are
+``mont_inv`` (LimbField.mont_inv :330, a Fermat power there: 379-554
+products over the whole array) is one ``fr_batch_inv`` launch: Montgomery's
+trick over ``BATCH_INV_LANES`` lanes a thread, one Fermat inversion each; its plain twin is ``Field.mont_inv``, whose canonical
+result is the same limbs. ``plonk_quotient`` is PLONK's row function on the
+4n coset (``_quotient_chunk_fn``, backend/plonk/prove.py:165-218), 20
+products a row in one launch (:func:`plonk_quotient_plain` is its twin, the
+reference's 21 in its order). Operands are
 ``(W, n)`` int32 Montgomery tensors (``ops/field.py``); ``b`` of ``mont_mul``
 may be one ``(W, 1)`` column that broadcasts. The kernels are built for the
 scalar fields of BN254, BLS12-381 and BLS12-377 (W = 8) and BW6-761
@@ -31,13 +33,14 @@ import torch
 
 from ..curves import bls12_377, bls12_381, bn254, bw6_761
 from .cuda import Kernel, is_cuda, require, stream
-from .field import Field, pow_by_squaring
+from .field import Field
 
 _K1 = "gnark_icicle_tpu/ops/field_t.py:353"
 # scalar-field modulus -> {entry: Kernel} of its curve
 FR_KERNELS = {
     q: {name: Kernel("fr", curve, name, _K1)
-        for name in ("fr_mont_mul", "fr_sub", "fr_add", "plonk_quotient", "ntt_pass")}
+        for name in ("fr_mont_mul", "fr_sub", "fr_add", "plonk_quotient", "ntt_pass",
+                     "fr_batch_inv")}
     for q, curve in ((bn254.R, "bn254"), (bls12_381.R, "bls12_381"),
                      (bls12_377.R, "bls12_377"), (bw6_761.R, "bw6_761"))
 }
@@ -46,6 +49,13 @@ QUOTIENT_INPUTS = ("a", "b", "c", "z", "zw", "qk", "ql", "qr", "qm", "qo",
                    "s1", "s2", "s3")
 # the columns of its (W, 7) constant table
 QUOTIENT_CONSTS = ("beta", "gamma", "alpha", "beta_k1", "beta_k2", "alpha2", "one")
+# products a row of plonk_quotient's kernel (csrc/field.cuh quotient_row,
+# the gate factored); the reference's row function has 21
+QUOTIENT_PRODUCTS = 20
+# fr_batch_inv (csrc/fr.cu): threads a block (BINV_T) and lanes a thread
+# (BINV_K), one Fermat chain for each thread's lanes
+BATCH_INV_THREADS = 64
+BATCH_INV_LANES = 32
 
 
 def check_lanes(W: int, *ts):
@@ -99,25 +109,33 @@ class TField:
             return self.F.add(a, b)
         return self._elementwise("fr_add", a, b)
 
-    def mont_pow(self, a: torch.Tensor, e: int) -> torch.Tensor:
-        """a^e, each product one ``mont_mul`` (a launch on the card)."""
-        return pow_by_squaring(self.mont_mul, self.F.ones, a, e)
-
     def mont_inv(self, a: torch.Tensor) -> torch.Tensor:
-        """a^(p-2): 0 maps to 0 (LimbField.mont_inv :330)."""
-        return self.mont_pow(a, self.F.modulus - 2)
+        """The elementwise inverse of a (W, n) Montgomery array, 0 mapping to
+        0 (LimbField.mont_inv :330): on the card one ``fr_batch_inv``
+        launch, Montgomery's trick over BATCH_INV_LANES lanes a thread; on
+        the CPU the Fermat power ``Field.mont_inv``."""
+        if not is_cuda(a):
+            return self.F.mont_inv(a)
+        check_lanes(self.F.n32, a)
+        out = torch.empty_like(a)
+        fr_kernels(self.F.modulus)["fr_batch_inv"].launch(
+            a.data_ptr(), out.data_ptr(), a.shape[1], stream(a))
+        return out
 
     def plonk_quotient(self, evals, xs, l1, zh_inv, consts) -> torch.Tensor:
         """PLONK's quotient numerator over Z_H on the 4n coset, row by row.
 
         evals: the 13 (W, m) arrays of QUOTIENT_INPUTS; xs, l1: (W, m) coset
         points and L1 there; zh_inv: (W, 4) the cycle of 1/Z_H (row i takes
-        column i mod 4); consts: (W, 7), the columns of QUOTIENT_CONSTS. All
-        Montgomery; returns (W, m)."""
+        column i mod 4); consts: (W, 7), the columns of QUOTIENT_CONSTS, on
+        the CPU or on the arrays' device (the kernel takes them by value: a
+        CPU table spares a copy back from the card). All Montgomery; returns
+        (W, m)."""
         ins = list(evals) + [xs, l1]
-        if not is_cuda(*ins, zh_inv, consts):
+        if not is_cuda(*ins, zh_inv):
             return plonk_quotient_plain(self.F, evals, xs, l1, zh_inv, consts)
         W = self.F.n32
+        consts = consts.cpu()
         check_lanes(W, *ins, zh_inv, consts)
         m = xs.shape[1]
         require(len(evals) == len(QUOTIENT_INPUTS)

@@ -24,7 +24,9 @@ from gnark_icicle_tpu_torch.backend import groth16, plonk
 from gnark_icicle_tpu_torch.frontend import Circuit, Public, Secret, compile_circuit
 from gnark_icicle_tpu_torch.ops.ec_t import TCurve, TCurve2
 from gnark_icicle_tpu_torch.ops.field import field_for
-from gnark_icicle_tpu_torch.ops.field_t import QUOTIENT_INPUTS, TField, plonk_quotient_plain
+from gnark_icicle_tpu_torch.ops.field_t import (
+    BATCH_INV_LANES, BATCH_INV_THREADS, QUOTIENT_INPUTS, TField, plonk_quotient_plain,
+)
 from gnark_icicle_tpu_torch.ops.msm import msm_host
 from gnark_icicle_tpu_torch.ops.ntt import (
     domain_for, ntt_pass, ntt_pass_plain, pass_split, split_stages,
@@ -65,8 +67,11 @@ def test_fr_kernels_match_plain(cuda_device, name):
 
 @pytest.mark.parametrize("name", NAMES)
 def test_fr_add_quotient_and_inverse_match_plain(cuda_device, name):
-    """fr_add, plonk_quotient (inputs led by 0, 1, p − 1 and p − 2 in every
-    array) and mont_inv on the card against their plain versions."""
+    """fr_add, plonk_quotient (inputs led by 0, 1, p − 1, p − 2 and values
+    near R in every array) and mont_inv (fr_batch_inv: zeros at the first
+    and the last lane of threads, a thread all zeros, a last block of
+    threads with fewer than BATCH_INV_LANES lanes) on the card against
+    their plain versions."""
     R = CURVES[name].fr.modulus
     F = field_for(R)
     tf = TField(F)
@@ -74,7 +79,7 @@ def test_fr_add_quotient_and_inverse_match_plain(cuda_device, name):
 
     def arr(seed):
         vals = rand_ints(seed, R, m)
-        vals[3] = R - 2
+        vals[3:6] = [R - 2, (F.R - 1) % R, F.R % R]
         return F.encode(vals, cuda_device)
 
     a, b = arr(63), arr(64)
@@ -84,10 +89,44 @@ def test_fr_add_quotient_and_inverse_match_plain(cuda_device, name):
     xs, l1 = arr(230), arr(231)
     zh = F.encode(rand_ints(232, R, 4, edge=False), cuda_device)
     consts = F.encode(rand_ints(233, R, 6, edge=False) + [1], cuda_device)
-    assert torch.equal(tf.plonk_quotient(evals, xs, l1, zh, consts),
-                       plonk_quotient_plain(F, evals, xs, l1, zh, consts))
-    small = a[:, :64].contiguous()
-    assert torch.equal(tf.mont_inv(small), F.mont_inv(small))
+    want = plonk_quotient_plain(F, evals, xs, l1, zh, consts)
+    assert torch.equal(tf.plonk_quotient(evals, xs, l1, zh, consts), want)
+    assert torch.equal(tf.plonk_quotient(evals, xs, l1, zh, consts.cpu()), want)
+    T, k = BATCH_INV_THREADS, BATCH_INV_LANES
+    z = rand_ints(65, R, 2 * T * k + 37)
+    z[3:6] = [R - 2, (F.R - 1) % R, F.R % R]
+    for t in (5, T + 2, T - 1):
+        z[t] = z[t + (k - 1) * T] = 0
+    for i in range(k):
+        z[7 + i * T] = 0
+    x = F.encode(z, cuda_device)
+    assert torch.equal(tf.mont_inv(x), F.mont_inv(x))
+
+
+def test_fr_chains_never_fall_back(cuda_device, monkeypatch):
+    """plonk_quotient and mont_inv on CUDA tensors launch their kernels
+    (fr_batch_inv, plonk_quotient) and never their plain versions, which
+    raise here."""
+    from gnark_icicle_tpu_torch.ops import field_t
+    from gnark_icicle_tpu_torch.ops.cuda import KERNELS
+
+    R = CURVES["bn254"].fr.modulus
+    F = field_for(R)
+
+    def boom(*args, **kw):
+        raise AssertionError("a plain version ran on CUDA tensors")
+
+    monkeypatch.setattr(field_t, "plonk_quotient_plain", boom)
+    monkeypatch.setattr(F, "mont_inv", boom)
+    tf = TField(F)
+    xs = F.encode(rand_ints(66, R, 256), cuda_device)
+    inv, quot = KERNELS["fr_batch_inv"], KERNELS["plonk_quotient"]
+    before = (inv.launches, quot.launches)
+    tf.mont_inv(xs)
+    tf.plonk_quotient([xs] * len(QUOTIENT_INPUTS), xs, xs, F.encode([1, 2, 3, 4], cuda_device),
+                      F.encode(rand_ints(67, R, 6, edge=False) + [1], cuda_device))
+    torch.cuda.synchronize()
+    assert (inv.launches, quot.launches) == (before[0] + 1, before[1] + 1)
 
 
 @pytest.mark.parametrize("name", NAMES)

@@ -260,6 +260,63 @@ template <class E, class RD, class WR> void norm_ops(RD rd, WR wr) {
   }
 }
 
+// "quot n <Q_INPUTS planes of n elements> <Q_CONSTS constants> <4 values
+// of 1/Z_H>": k_plonk_quotient's rows one after another; prints the n
+// outputs
+void quot_rows(long long n) {
+  using P = CurveFr;
+  std::vector<std::vector<uint32_t>> planes(Q_INPUTS, std::vector<uint32_t>(P::N * n));
+  for (int k = 0; k < Q_INPUTS; ++k)
+    for (long long i = 0; i < n; ++i) fstore<P>(planes[k].data(), n, i, rd<P>());
+  QuotientConsts<P> consts;
+  for (int k = 0; k < Q_CONSTS; ++k) consts.c[k] = rd<P>();
+  std::vector<uint32_t> zh(P::N * 4);
+  for (int k = 0; k < 4; ++k) fstore<P>(zh.data(), 4, k, rd<P>());
+  QuotientIn in;
+  for (int k = 0; k < Q_INPUTS; ++k) in.p[k] = planes[k].data();
+  in.zh_inv = zh.data();
+  in.n = n;
+  for (long long l = 0; l < n; ++l) wr(quotient_row<P>(in, consts, l));
+  printf("\n");
+}
+
+// "binv n k T <n elements>": k_fr_batch_inv's threads one after another (T
+// threads a block, k lanes a thread); prints the n outputs
+void binv_rows(long long n, int k, int T) {
+  using P = CurveFr;
+  std::vector<uint32_t> x(P::N * n), out(P::N * n);
+  for (long long i = 0; i < n; ++i) fstore<P>(x.data(), n, i, rd<P>());
+  for (long long b = 0; b * T * k < n; ++b)
+    for (int t = 0; t < T; ++t) {
+      const long long first = b * T * k + t;
+      if (first >= n) continue;
+      const long long rest = (n - first + T - 1) / T;
+      batch_inv_lanes<P>(x.data(), n, out.data(), first, T, rest < k ? (int)rest : k);
+    }
+  for (long long i = 0; i < n; ++i) wr(fload<P>(out.data(), n, i));
+  printf("\n");
+}
+
+// "room": ROOM4 of this build's Fp and Fr; then the chain ops above
+void chain_ops() {
+  std::string op;
+  while (std::cin >> op && op != "end") {
+    if (op == "room") {
+      printf("%d %d\n", (int)CurveFp::ROOM4, (int)CurveFr::ROOM4);
+      continue;
+    }
+    long long n;
+    std::cin >> std::dec >> n;
+    if (op == "quot") {
+      quot_rows(n);
+    } else {
+      int k, T;
+      std::cin >> k >> T;
+      binv_rows(n, k, T);
+    }
+  }
+}
+
 int main() {
   std::string which;
   while (std::cin >> which) {
@@ -270,6 +327,7 @@ int main() {
     else if (which == "b3g1") b3_ops<Elt<CurveFp>, G1B3>(rd<CurveFp>, wr<CurveFp>);
     else if (which == "rg1") reduce_ops<Elt<CurveFp>, G1B3>(rd<CurveFp>, wr<CurveFp>);
     else if (which == "dig") digit_ops();
+    else if (which == "chain") chain_ops();
     else if (which == "ng1") norm_ops<Elt<CurveFp>>(rd<CurveFp>, wr<CurveFp>);
 #if defined(CURVE_BW6_761)  // BW6-761 has no Fp2; its G2 over Fp runs the g1 law
     else if (which == "g2") group_ops<Elt<CurveFp>, TwistB3>(rd<CurveFp>, wr<CurveFp>);
@@ -298,13 +356,15 @@ def host_build(tmp_path_factory):
     d = tmp_path_factory.mktemp("field_cuh")
     (d / "cuda_runtime.h").write_text(STUB)
     (d / "driver.cpp").write_text(DRIVER)
-    exes = {}
-    for name in CURVES:
-        exe = d / f"driver_{name}"
-        subprocess.run([gxx, "-O1", "-std=c++17", f"-DCURVE_{name.upper()}",
-                        "-I", str(d), "-I", CSRC, "-o", str(exe), str(d / "driver.cpp")],
-                       check=True, capture_output=True, timeout=120)
-        exes[name] = exe
+    exes = {name: d / f"driver_{name}" for name in CURVES}
+    procs = {name: subprocess.Popen([gxx, "-O1", "-std=c++17", f"-DCURVE_{name.upper()}",
+                                     "-I", str(d), "-I", CSRC, "-o", str(exe),
+                                     str(d / "driver.cpp")],
+                                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+             for name, exe in exes.items()}   # the four builds at once
+    for name, proc in procs.items():
+        out = proc.communicate(timeout=120)[0].decode()
+        assert proc.returncode == 0, f"g++ failed for {name}:\n{out}"
     return exes
 
 
@@ -701,3 +761,86 @@ def test_normalize_lanes_match_plain(host_build, name, group):
             line = got[c * lanes + i].split()
             assert int(line[-1]) == inf[i]
             assert _ints(" ".join(line[:-1]), n) == _words_of(xy[:, :, i])
+
+
+@pytest.mark.parametrize("name", sorted(CURVES))
+def test_room4_flags_match_moduli(host_build, name):
+    """ROOM4 (4p < R, which the lazy chains need) of the build's Fp and Fr:
+    set for every field but BLS12-381's r."""
+    got = _run(host_build[name], ["chain", "room", "end"])[0].split()
+    for flag, fld in zip(got, (CURVES[name].fp, CURVES[name].fr), strict=True):
+        q = fld.modulus
+        assert int(flag) == int(4 * q < 1 << (32 * words_for(q)))
+
+
+def _quotient_ints(v: list, c: list, zh: int, q: int) -> int:
+    """PLONK's quotient row on plain values (backend/plonk/prove.py
+    :186-217): v the 15 inputs in QUOTIENT_INPUTS + (xs, l1) order, c the
+    7 constants."""
+    A, B, C, z, zw, qk, ql, qr, qm, qo, s1, s2, s3, xs, l1 = v
+    beta, gamma, alpha, bk1, bk2, alpha2, one = c
+    gate = ql * A + qr * B + qm * A * B + qo * C + qk
+    lhs = (A + beta * xs + gamma) * (B + bk1 * xs + gamma) * (C + bk2 * xs + gamma) * z
+    rhs = (A + beta * s1 + gamma) * (B + beta * s2 + gamma) * (C + beta * s3 + gamma) * zw
+    return (gate + alpha * (rhs - lhs) + alpha2 * l1 * (z - one)) * zh % q
+
+
+@pytest.mark.parametrize("name", sorted(CURVES))
+def test_quotient_row_matches_plain_and_ints(host_build, name):
+    """k_plonk_quotient's rows (field.cuh quotient_row: canonical, the gate
+    factored, 20 products) against plonk_quotient_plain (the reference's
+    21 in its order) limb for limb and against Python integers: every input
+    holds 0, 1, r − 1, r − 2 and values near R on rows of its own."""
+    from gnark_icicle_tpu_torch.ops.field import field_for
+    from gnark_icicle_tpu_torch.ops.field_t import (
+        QUOTIENT_CONSTS, QUOTIENT_INPUTS, plonk_quotient_plain,
+    )
+
+    q = CURVES[name].fr.modulus
+    n = words_for(q)
+    R = 1 << (32 * n)
+    F = field_for(q)
+    rng = random.Random(43)
+    rows, n_in = 64, len(QUOTIENT_INPUTS) + 2
+    edge = [0, 1, q - 1, q - 2, (R - 1) % q, R % q]
+    mont = [edge[i % 6:] + edge[:i % 6] + [rng.randrange(q) for _ in range(rows - 6)]
+            for i in range(n_in)]
+    consts = [rng.randrange(q) for _ in range(len(QUOTIENT_CONSTS) - 1)] + [R % q]
+    zh = [rng.randrange(q) for _ in range(4)]
+    rinv = pow(R, -1, q)
+    line = (f"quot {rows} " + " ".join(_words(w, n) for plane in mont for w in plane) + " "
+            + " ".join(_words(w, n) for w in consts + zh))
+    want = [_quotient_ints([p[i] * rinv % q for p in mont], [c * rinv % q for c in consts],
+                           zh[i % 4] * rinv % q, q) for i in range(rows)]
+    dev = "cpu"
+    plain = plonk_quotient_plain(
+        F, [F.encode_plain(p, dev) for p in mont[:-2]], F.encode_plain(mont[-2], dev),
+        F.encode_plain(mont[-1], dev), F.encode_plain(zh, dev), F.encode_plain(consts, dev))
+    plain_words = F.decode_plain(plain)
+    assert [w * rinv % q for w in plain_words] == want
+    got = _run(host_build[name], ["chain", line, "end"])[0]
+    assert _ints(got, n) == plain_words
+
+
+@pytest.mark.parametrize("name", sorted(CURVES))
+def test_batch_inv_lanes_match_pow(host_build, name):
+    """k_fr_batch_inv's threads (field.cuh batch_inv_lanes: Montgomery's
+    trick over k lanes, one Fermat chain a thread; lazy where r has room)
+    against pow(x, -1, r) in Montgomery form, 0 -> 0:
+    zeros at the first and the last lane of threads, a thread all zeros,
+    the last block's threads with fewer than k lanes, and 1, r − 1, r − 2
+    and values near R."""
+    q = CURVES[name].fr.modulus
+    n = words_for(q)
+    R = 1 << (32 * n)
+    rng = random.Random(47)
+    T, k, lanes = 4, 5, 47          # blocks of 20 lanes; the last has 7
+    vals = [rng.randrange(1, q) for _ in range(lanes)]
+    vals[2:8] = [1, q - 1, q - 2, (R - 1) % q, R % q, 2]
+    zeros = {0, 16, 22, 38, 43, 46} | {1 + 4 * i for i in range(k)}   # thread (0, 1): all
+    for i in zeros:
+        vals[i] = 0
+    words = " ".join(_words(v, n) for v in vals)
+    got = _run(host_build[name], ["chain", f"binv {lanes} {k} {T} {words}", "end"])[0]
+    rinv = pow(R, -1, q)
+    assert _ints(got, n) == [0 if v == 0 else pow(v * rinv % q, -1, q) * R % q for v in vals]

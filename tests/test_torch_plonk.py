@@ -34,6 +34,7 @@ port's setup runs on BN254 only; the card runs it on every curve
 
 import contextlib
 import dataclasses
+import importlib
 import random
 
 import numpy as np
@@ -169,8 +170,12 @@ def test_coset_transforms_match_reference(curve, log_n=5):
 
 @pytest.mark.parametrize("curve", ["bn254", "bw6_761"])
 def test_mont_inv_matches_limbfield(curve):
+    """The port's batch inverse (``TField.mont_inv``: ``fr_batch_inv`` on the
+    card, its plain version here) against the JAX ``LimbField.mont_inv``,
+    zeros inside and at the end included."""
     q = CURVES[curve].fr.modulus
     vals = rand_ints(11, q, 12)        # 0, 1, q − 1 and random values
+    vals[5], vals[6], vals[-1] = 0, q - 2, 0
     F = field_for(q)
     x = F.encode(vals, "cpu")
     got = TField(F).mont_inv(x)
@@ -238,6 +243,35 @@ def test_quotient_matches_jax_device_engine():
     want = ref_quotient(rctx, rctx.domain(5, coset=True), ref_ev, n, beta, gamma, alpha,
                         k1, k2, ref.fr.multiplicative_generator, ref.fr.root_of_unity(5), q)
     np.testing.assert_array_equal(lanes_to_ref(t), np.asarray(want))
+
+
+@pytest.mark.parametrize("log_n", [3, 4])
+def test_quotient_tables_match_reference(monkeypatch, log_n):
+    """BN254: the port's quotient tables (xs, L1 and the cycle of 1/Z_H,
+    ``_quotient_tables``, its batch inverse the plain version on the CPU)
+    against the JAX package's ``_quotient_tables`` on a coset shift from a
+    numpy seed, limb for limb (the JAX tables tile 1/Z_H to 4n rows). Both
+    packages cache the tables per (q, n), so the test gives each a fresh
+    cache."""
+    from gnark_icicle_tpu.device import DeviceCtx as RefCtx
+
+    ref_prove = importlib.import_module("gnark_icicle_tpu.backend.plonk.prove")
+    port_prove = importlib.import_module("gnark_icicle_tpu_torch.backend.plonk.prove")
+    monkeypatch.setattr(ref_prove, "_DOMAIN_TABLES", {})
+    monkeypatch.setattr(port_prove, "_DOMAIN_TABLES", {})
+    curve = CURVES["bn254"]
+    q = curve.fr.modulus
+    n = 1 << log_n
+    g = rand_ints(70 + log_n, q, 1, edge=False)[0]
+    eta = curve.fr.root_of_unity(log_n + 2)
+    xs, l1, zh_inv = port_prove._quotient_tables(DeviceCtx(curve, "cpu"), n, g, eta, q)
+    want = ref_prove._quotient_tables(RefCtx(ref_curve("bn254")), None, n, g, eta, q)
+    for got, ref in zip((xs, l1), want[:2], strict=True):
+        np.testing.assert_array_equal(lanes_to_ref(got), np.asarray(ref).astype(np.int32))
+    np.testing.assert_array_equal(np.tile(lanes_to_ref(zh_inv), (n, 1)),
+                                  np.asarray(want[2]).astype(np.int32))
+    F = field_for(q)
+    assert F.decode(xs) == [g * pow(eta, i, q) % q for i in range(4 * n)]
 
 
 def test_plonk_quotient_plain_cycles_zh_by_row():
