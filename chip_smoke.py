@@ -9,8 +9,10 @@ at 12, G2 over Fp), phases print one JSON line each on stdout:
   1. build: compile every (CUDA source, curve) pair in
      gnark_icicle_tpu_torch/csrc/ (BW6-761 builds no g2.cu), all nvcc
      processes at once, and report each one's seconds and ptxas's registers
-     and spills; the Chain circuits of phases 4 and plonk are compiled
-     (host Python) while nvcc runs;
+     and spills; the circuits of phases 4, plonk and bsb22 are compiled
+     (host Python, a spawned process each) while nvcc runs, each R1CS
+     solved once there, so that its solver schedule (about 25 s at 2^17)
+     is built with it and not by its first prove;
   2. kernels: each kernel entry against its plain PyTorch version on the
      card, bit-equal (Fr product, subtraction and addition at 2^16 lanes;
      PLONK's quotient at 2^16 rows, every input holding 0, 1, p - 1, p - 2
@@ -28,15 +30,17 @@ at 12, G2 over Fp), phases print one JSON line each on stdout:
      the lanes of a skewed 2^12-point MSM, whose long runs are split, the
      folded segments held to the unsplit runs in affine form; the bucket
      reduction's running sums and combine and Horner with edge
-     coordinates, identity buckets and a window with one bucket used), then
+     coordinates, identity buckets and a window with one bucket used; Horner
+     also over M_BATCH = 3 problems, one all identity), then
      again at the shapes its curve's path gives it (the 2^17 Chain prove,
      the reduction at W = 17, B = 2^15; for BW6-761 the outer proof of the
-     2-chain, W = 33, B = 2^11 and W = 36, B = 2^10), with CUDA-event times
+     2-chain, W = 33, B = 2^11 and W = 36, B = 2^10; the first of them
+     also over the M_BATCH problems of a batched prove, M·W windows, Horner
+     one warp a problem, and G1's bucket accumulation at the batched
+     prove's A/B1/K batch of three padded wire tables), with CUDA-event times
      of both there (_cuda_ms: the launches queued behind a spin wait, so
      that the card runs them back to back, each on its own copy of the
-     inputs where they would fit the L2 cache (_rotating); a kernel under
-     0.2 ms also timed as before, launched as the host goes on one input
-     set, "ms_host_paced"), ptxas's
+     inputs where they would fit the L2 cache (_rotating)), ptxas's
      registers and spills of the Fr kernels, and the least time the card
      could take (bound_ms), and
      Horner's time per double; *_add is timed at the fold's
@@ -52,10 +56,13 @@ at 12, G2 over Fp), phases print one JSON line each on stdout:
   3. msm: G1 and G2 MSMs (2^12 and 2^10 points; BW6-761 2^10 and 2^10)
      against the host oracle of the port's curves/, in affine form, and a
      skewed G1 MSM (scalars mostly 0 and 1) whose digit-1 run is longer than
-     a lane takes, so that the MSM splits it;
+     a lane takes, so that the MSM splits it; then msm_batch of three
+     problems on G1 and G2, with one table shared by them and one a
+     problem (one skewed problem split), each problem equal to its own msm
+     call and the host oracle, and the batch one launch set;
   4. groth16: the 2^17-step Chain circuit (bench.py's rollup-scale
      benchmark) on BN254, BLS12-381 and BLS12-377: compile, setup
-     (host/points split), a first prove, two timed proves with solve /
+     (host/points split), a first prove, one timed prove with solve /
      computeH / MSM phase times, one prove under torch.profiler (device busy
      share, device time by kernel); the port's verifier accepts the proof
      and rejects a tampered public input. The kernels' launch counts are set
@@ -73,7 +80,7 @@ at 12, G2 over Fp), phases print one JSON line each on stdout:
   2chain: the BW6-761 outer proof that phase 4's BLS12-377 proof verifies
      (gnark's native 2-chain): the in-circuit Groth16 verifier of std/
      compiled over BW6-761's r (BLS12-377's p), then setup, a first prove,
-     two timed proves and a profiled one on the card, verify, and the inner
+     one timed prove and a profiled one on the card, verify, and the inner
      public input + 1 rejected; launch counts as in phase 4, *_add included
      (its MSMs split the top windows' buckets), and setup's G1 batch and its
      G2 batch over Fp both on the g1 entries (two *_fixed_base, two
@@ -82,7 +89,7 @@ at 12, G2 over Fp), phases print one JSON line each on stdout:
      transforms, the fused quotient) on each curve's SCS Chain
      (bench.py:359 bench_plonk): 2^17 gates on BN254 and BLS12-381 (a 2^19
      coset), 2^10 on BLS12-377 and BW6-761: setup (SRS, host and commit
-     split), a first prove, two timed proves with their stage times (solve,
+     split), a first prove, one timed prove with their stage times (solve,
      round-1 commits, Z, quotient, linearization and openings), one under
      torch.profiler, verify and a tampered public input rejected; the
      path's launches as above, with fr_add, fr_sub, fr_batch_inv and
@@ -90,9 +97,25 @@ at 12, G2 over Fp), phases print one JSON line each on stdout:
      launch, no g2_* entry, and the quotient's tables built once, by the
      first prove (timed, "quotient_tables"), with one fr_batch_inv, one
      fr_sub and at most 42 fr_mont_mul launches;
+  Each path of phases 4, 2chain and plonk ends with one warm prove with
+     batch_msm=True under the timed prove's rng: the proof must be
+     the same, and its G1 MSMs fewer launch sets (the Chain's A, B1 and K
+     one msm_batch, Z alone; PLONK's round-1 and round-3 commits one each);
+     its stage times, peak device bytes and launches are printed;
+  bsb22: the full-width Chain with one api.commit (over the secret input
+     and two intermediate values) on BN254 and BLS12-381, through Groth16
+     and PLONK with the "sha256" commitment hash: setup, a first and a warm
+     prove, verify, a tampered commitment, proof of knowledge and public
+     input rejected, the Pedersen commit and proof of knowledge timed; and
+     BLS12-377 Groth16 with ("mimc", BW6-761's r) on a small Chain;
+  checkpoint: BN254's Chain Groth16 and PLONK provers with checkpoint_dir in
+     a temporary directory: a fresh prove, a resume after deleting the last
+     stage and a full resume, each under the rng of an uninterrupted prove
+     of the path: each equals it and verifies; the seconds saved;
   5. the JSON line of all kernels (each with its launches on each of its
-     curve's paths, and their sum; every kernel but *_double and
-     *_add_mixed_masked ran on one);
+     curve's paths, the batched proves, bsb22 and checkpoint included, and
+     their sum; every kernel but *_double and *_add_mixed_masked ran on
+     one);
   6. the card's name and power limit from nvidia-smi.
 The last line is {"ok": true, "device": {...}}. Any failure raises: the
 script exits non-zero and prints no such line. It needs one CUDA card and
@@ -120,6 +143,7 @@ CHAIN_LOG = {"bn254": 17, "bls12_381": 17, "bls12_377": 17}
 # their PLONK entries have a path
 PLONK_LOG = {"bn254": 17, "bls12_381": 17, "bls12_377": 10, "bw6_761": 10}
 REPS_KERNEL = 20    # timed launches per kernel
+M_BATCH = 3         # problems of the batched MSMs (A, B1 and K of a Chain prove)
 N_FR = 1 << 16      # lanes of the Fr kernel checks
 N_EC = 1 << 14      # lanes of the group-law kernel checks
 # points of the MSM checks
@@ -134,7 +158,10 @@ def _path_shapes(log_n: int, msm_points: int, table_rows: int, fr_bits: int,
     stage (windows·2^(c-1) lanes); the G2 MSM (B2 over the wires, g2_msm
     points and rows) the G2 bucket accumulation's; each window size c of the
     path's MSMs (the largest one's and the wires') a bucket reduction and
-    Horner of W = ⌈bits / c⌉ + 1 windows of B = 2^(c-1) buckets."""
+    Horner of W = ⌈bits / c⌉ + 1 windows of B = 2^(c-1) buckets; the batched
+    prove's G1 batch (A, B1 and K) takes the wires' rows (g2_msm) padded as
+    the prover pads them (backend/groth16/prove.py _pad_rows)."""
+    from gnark_icicle_tpu_torch.backend.groth16.prove import _pad_rows
     from gnark_icicle_tpu_torch.ops.msm import pick_window
 
     c = pick_window(msm_points)
@@ -148,6 +175,7 @@ def _path_shapes(log_n: int, msm_points: int, table_rows: int, fr_bits: int,
             "wave": windows * B,               # one wave of the reference
             # (W, B, c) of the bucket reduction and Horner
             "reduce": [(-(-fr_bits // k) + 1, 1 << (k - 1), k) for k in cs],
+            "batch": _pad_rows(g2_msm),        # the batched prove's A/B1/K rows
             "ladder": ladder}                  # setup's fixed-base ladders
 
 
@@ -220,8 +248,13 @@ def comb_scalars(rng, r: int, n: int) -> list:
     return vals + [rng.randrange(r) for _ in range(n - len(vals))]
 
 
+# the run's start (main sets it): each phase line carries its seconds since
+_START = {"t": None}
+
+
 def _say(phase: str, **kv) -> None:
-    print(json.dumps({"phase": phase, **kv}), flush=True)
+    at = {} if _START["t"] is None else {"at_s": time.perf_counter() - _START["t"]}
+    print(json.dumps({"phase": phase, **kv, **at}), flush=True)
 
 
 def _smi(query: str) -> str:
@@ -242,27 +275,24 @@ def _curves() -> dict:
 _SPIN_HZ = {"hz": 2.0e9}
 
 
-def _cuda_ms(fn, reps: int, paced: bool = False) -> float:
+def _cuda_ms(fn, reps: int) -> float:
     """Mean ms of one fn() on the card: CUDA events around `reps` calls
     after a warm-up. The calls are queued behind a spin kernel
     (torch.cuda._sleep) that lasts longer than the host takes to enqueue
     them all (1.5x a timed call, at most 1 s), so the card runs them back
     to back and the events time the card's work, not the host's launch
-    rate. paced=True is the method before (events around calls launched as
-    the host goes), kept to show how much of a short kernel's old figure
-    was the host."""
+    rate."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    if not paced:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wait = min(1.5 * reps * (time.perf_counter() - t0) + 2e-3, 1.0)
-        torch.cuda._sleep(int(wait * _SPIN_HZ["hz"]))
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wait = min(1.5 * reps * (time.perf_counter() - t0) + 2e-3, 1.0)
+    torch.cuda._sleep(int(wait * _SPIN_HZ["hz"]))
     start.record()
     for _ in range(reps):
         fn()
@@ -506,8 +536,6 @@ def phase_kernels(device, name: str, rates: dict) -> list:
                "plain_ms": (plain_ms if plain_ms is not None
                             else _cuda_ms(lambda: run_plain(*args), 2)),
                "bound_ms": bound_ms, "bound_by": bound_by, **extra}
-        if row["ms"] < 0.2:   # the method before, beside it: host-paced, one input set
-            row["ms_host_paced"] = _cuda_ms(lambda: run(*args), REPS_KERNEL, paced=True)
         regs = kernel_regs(k.lib, "k_" + kname)
         if regs is not None:
             row["registers"], row["spill_bytes"] = regs
@@ -688,7 +716,9 @@ def phase_kernels(device, name: str, rates: dict) -> list:
             p − 1, p − 2 and near R, identity buckets (every 5th and the
             first 16), a window with one bucket used; (M, V) = (16, 1), (8,
             8) and (1, 512: four chunks a combine thread); Horner at W = 5
-            (one window sum the identity) and W = 1, c = 4."""
+            (one window sum the identity) and W = 1, c = 4, and at W = 5
+            over M_BATCH problems (one all identity, one of edge
+            coordinates)."""
             errs = []
             edge = fp.encode(_rand_fe(rng, P, 32), device)
             for W_, B_, V in ((3, 16, 1), (3, 64, 8), (2, 512, 512)):
@@ -706,63 +736,82 @@ def phase_kernels(device, name: str, rates: dict) -> list:
                 want = tc.reduce_combine_plain(T, A, W_, V, M)
                 errs += [_max_abs_err(tc.reduce_combine(T, A, W_, V, M), want),
                          _max_abs_err(tc.bucket_reduce(S, W_, V), want)]
-            for W_ in (5, 1):
-                S = _rand_dev(fp, tc.planes, W_, device)
+            for W_, M_ in ((5, 1), (1, 1), (5, M_BATCH)):
+                S = _rand_dev(fp, tc.planes, M_ * W_, device)
                 S[..., W_ // 2:W_ // 2 + 1] = tc.identity(1, device)
-                want = tc.horner_plain(S, 4)
-                errs.append(_max_abs_err(tc.horner(S, 4), want))
+                if M_ > 1:     # a problem all identity, a problem of edge coordinates
+                    S[..., W_:2 * W_] = tc.identity(W_, device)
+                    S[..., 2 * W_:3 * W_] = edge[:, :tc.planes * W_].reshape(
+                        fp.n32, tc.planes, W_).permute(1, 0, 2)
+                want = tc.horner_plain(S, 4, M_)
+                errs.append(_max_abs_err(tc.horner(S, 4, M_), want))
             return max(errs)
 
         def reduction_path(check_err: int, timed: bool) -> None:
             """The reduction and Horner at each (W, B, c) of the path's
-            MSMs, V from reduce_chunks: kernels against plain versions on
+            MSMs, V from reduce_chunks, and the first of them again over the
+            M_BATCH problems of a batched prove (msm_batch: M·W global
+            windows, Horner one warp a problem; G2, which the batched proves
+            do not batch, Horner alone): kernels against plain versions on
             random coordinates (every 97th bucket the identity); timed with
             the bound where timed, else checked only."""
             pt = 3 * coord                  # bytes of one projective point
-            for W_, B_, c_ in shapes["reduce"]:
-                V = reduce_chunks(W_, B_, resident_lanes(device))
-                M = B_ // V
-                S = rand_points(W_ * B_)
-                S[..., ::97] = tc.identity(S[..., ::97].shape[2], device)
-                info = f"W={W_}, B={B_}, V={V}, M={M}"
-                if M > 1:
-                    adds = W_ * V * 2 * (M - 1)
-                    if timed:
-                        record(f"{tag}_bucket_reduce", check_err, info, [S],
-                               lambda S: tc.reduce_runs(S, M),
-                               lambda S: tc.reduce_runs_plain(S, M),
-                               W_ * B_ * pt + 2 * W_ * V * pt,
-                               adds * PRODUCTS["add"] * per_product, fp.n32,
-                               plain_once=True, adds=adds)
-                    elif _max_abs_err(tc.reduce_runs(S, M), tc.reduce_runs_plain(S, M)):
-                        raise AssertionError(f"{prefix}{tag}_bucket_reduce differs ({info})")
-                    TA = tc.reduce_runs(S, M)
-                    T, A = TA[:tc.planes], TA[tc.planes:]
-                else:
-                    T = A = S
-                ca, cd = combine_counts(V, M)
-                combine = (lambda T, A: tc.reduce_combine(T, A, W_, V, M),
-                           lambda T, A: tc.reduce_combine_plain(T, A, W_, V, M))
-                if timed:
-                    record(f"{tag}_reduce_combine", check_err, info, [T, A], *combine,
-                           (2 if M > 1 else 1) * W_ * V * pt + W_ * pt,
-                           W_ * (ca * PRODUCTS["add"] + cd * PRODUCTS["double"]) * per_product,
-                           fp.n32, plain_once=True, adds=W_ * ca, doubles=W_ * cd)
-                elif _max_abs_err(combine[0](T, A), combine[1](T, A)):
-                    raise AssertionError(f"{prefix}{tag}_reduce_combine differs ({info})")
-                Sw = tc.reduce_combine(T, A, W_, V, M)
-                rounds = c_ * (W_ - 1)
-                h_products = ((W_ - 1) * PRODUCTS["add"] + rounds * PRODUCTS["double"]) * per_product
-                run = (lambda S: tc.horner(S, c_))
-                if not timed:
-                    if _max_abs_err(run(Sw), tc.horner_plain(Sw, c_)):
-                        raise AssertionError(f"{prefix}{tag}_horner differs ({info})")
-                    continue
-                row = record(f"{tag}_horner", check_err, f"W={W_}, c={c_}", [Sw],
-                             run, lambda S: tc.horner_plain(S, c_), (W_ + 1) * pt,
-                             h_products, fp.n32, plain_once=True, doubles=rounds,
-                             adds=W_ - 1)
-                row["per_double_us"] = row["ms"] * 1e3 / max(rounds, 1)
+            for i, (W1, B_, c_) in enumerate(shapes["reduce"]):
+                for Mp in ((1, M_BATCH) if i == 0 else (1,)):
+                    W_ = Mp * W1
+                    if Mp > 1 and tag != "g1":
+                        # the batched proves batch G1 only: G2 takes the
+                        # batched Horner (one warp a problem) alone
+                        Sw = rand_points(W_)
+                        Sw[..., ::5] = tc.identity(Sw[..., ::5].shape[2], device)
+                        info = f"W={W1}, c={c_}, {Mp} problems"
+                    else:
+                        V = reduce_chunks(W_, B_, resident_lanes(device))
+                        M = B_ // V
+                        S = rand_points(W_ * B_)
+                        S[..., ::97] = tc.identity(S[..., ::97].shape[2], device)
+                        info = f"W={W_}, B={B_}, V={V}, M={M}" + (f", {Mp} problems" if Mp > 1
+                                                                   else "")
+                        if M > 1:
+                            adds = W_ * V * 2 * (M - 1)
+                            if timed:
+                                record(f"{tag}_bucket_reduce", check_err, info, [S],
+                                       lambda S: tc.reduce_runs(S, M),
+                                       lambda S: tc.reduce_runs_plain(S, M),
+                                       W_ * B_ * pt + 2 * W_ * V * pt,
+                                       adds * PRODUCTS["add"] * per_product, fp.n32,
+                                       plain_once=True, adds=adds)
+                            elif _max_abs_err(tc.reduce_runs(S, M), tc.reduce_runs_plain(S, M)):
+                                raise AssertionError(f"{prefix}{tag}_bucket_reduce differs ({info})")
+                            TA = tc.reduce_runs(S, M)
+                            T, A = TA[:tc.planes], TA[tc.planes:]
+                        else:
+                            T = A = S
+                        ca, cd = combine_counts(V, M)
+                        combine = (lambda T, A: tc.reduce_combine(T, A, W_, V, M),
+                                   lambda T, A: tc.reduce_combine_plain(T, A, W_, V, M))
+                        if timed:
+                            record(f"{tag}_reduce_combine", check_err, info, [T, A], *combine,
+                                   (2 if M > 1 else 1) * W_ * V * pt + W_ * pt,
+                                   W_ * (ca * PRODUCTS["add"] + cd * PRODUCTS["double"])
+                                   * per_product, fp.n32, plain_once=True, adds=W_ * ca,
+                                   doubles=W_ * cd)
+                        elif _max_abs_err(combine[0](T, A), combine[1](T, A)):
+                            raise AssertionError(f"{prefix}{tag}_reduce_combine differs ({info})")
+                        Sw = tc.reduce_combine(T, A, W_, V, M)
+                    rounds = c_ * (W1 - 1)
+                    h_products = Mp * ((W1 - 1) * PRODUCTS["add"]
+                                       + rounds * PRODUCTS["double"]) * per_product
+                    run = (lambda S: tc.horner(S, c_, Mp))
+                    run_plain = (lambda S: tc.horner_plain(S, c_, Mp))
+                    if not timed:
+                        if _max_abs_err(run(Sw), run_plain(Sw)):
+                            raise AssertionError(f"{prefix}{tag}_horner differs ({info})")
+                        continue
+                    row = record(f"{tag}_horner", check_err, f"W={W1}, c={c_}, M={Mp}", [Sw],
+                                 run, run_plain, (W_ + Mp) * pt, h_products, fp.n32,
+                                 plain_once=True, doubles=rounds, adds=W1 - 1, problems=Mp)
+                    row["per_double_us"] = row["ms"] * 1e3 / max(rounds, 1)
 
         # curve points: the fold regroups the sum, which only the group law
         # on the curve leaves unchanged
@@ -875,6 +924,28 @@ def phase_kernels(device, name: str, rates: dict) -> list:
                adds * PRODUCTS["add_mixed_masked"] * per_product, fp.n32,
                longest=int(count[0].item()), segment=lanes_msm[8],
                split_runs=0 if lanes_msm[5] is None else int((lanes_msm[5] > 1).sum().item()))
+        if tag == "g1":
+            # the batched prove's G1 batch (A, B1 and K over the padded wires,
+            # msm_batch over one table a problem): the M_BATCH problems' runs
+            nb_ = shapes["batch"]
+            c_b = pick_window(nb_)
+            sc_b = torch.stack([_rand_dev(fr, 1, nb_, device)[0] for _ in range(M_BATCH)])
+            ob, sb, st_b, cn_b, _, _ = kern._runs_batch(
+                torch.zeros((M_BATCH, nb_), dtype=torch.bool, device=device), sc_b, c_b, False)
+            seg_b = segment_length(M_BATCH * nb_, c_b, R.bit_length(), resident_lanes(device))
+            start_b, count_b, _, nseg_b = kern._segments(st_b, cn_b, seg_b)
+            adds_b = int(count_b.sum().item())
+            record(f"{tag}_bucket_accumulate", skew_err,
+                   f"{count_b.shape[0]} lanes, {adds_b} points, {M_BATCH} problems of "
+                   f"{nb_} table rows",
+                   [tc.identity(count_b.shape[0], device),
+                    _rand_dev(fp, 2, M_BATCH * nb_, device).reshape(-1, M_BATCH * nb_).T
+                    .contiguous(), ob, sb, start_b, count_b],
+                   bucket(tc.bucket_accumulate), bucket(tc.bucket_accumulate_plain),
+                   adds_b * 8 + M_BATCH * nb_ * 2 * coord + count_b.shape[0] * (12 + 3 * coord),
+                   adds_b * PRODUCTS["add_mixed_masked"] * per_product, fp.n32,
+                   longest=int(count_b[0].item()), segment=seg_b, problems=M_BATCH,
+                   split_runs=0 if nseg_b is None else int((nseg_b > 1).sum().item()))
         # add: the fold's first round on this MSM (a pair of segments of a
         # split run a lane), one lane where no run is split; double: one
         # lane, Horner's shape, which now runs in *_horner
@@ -1022,9 +1093,16 @@ def phase_msm(ctx, name: str) -> None:
     """G1 and G2 MSMs (N_MSM points) against the host oracle:
     Σ s_i·(k_i·G) = (Σ s_i·k_i)·G, one scalar product on curves/; then a
     skewed G1 MSM: scalars mostly 0 and 1, every 8th random, so that window
-    0's digit-1 run outgrows a lane (segment_length) and is split."""
+    0's digit-1 run outgrows a lane (segment_length) and is split; then
+    msm_batch of M_BATCH problems on G1 and G2, with one table shared by them
+    and one a problem, each problem held to its own msm call and the host
+    oracle in affine form (a skewed problem's run split)."""
+    import importlib
+
+    import torch
+
     from gnark_icicle_tpu_torch.ops.ec_t import resident_lanes
-    from gnark_icicle_tpu_torch.ops.msm import msm_host, pick_window, segment_length
+    from gnark_icicle_tpu_torch.ops.msm import MSMKernel, msm_host, pick_window, segment_length
 
     curve = ctx.curve
     rng = random.Random(11)
@@ -1056,6 +1134,58 @@ def phase_msm(ctx, name: str) -> None:
                                  "from the host oracle")
         _say("msm", curve=curve.name, group=tag, points=n, equal=True, seconds=seconds,
              **extra)
+    # msm_batch: M_BATCH problems through one launch set, a table shared by
+    # them or one a problem; problem 1 random, problem 2 skewed (its digit-1
+    # run split), each against its own msm call and the host oracle
+    kc = importlib.import_module("gnark_icicle_tpu_torch.ops.cuda")
+    for tag, group, tc in (("g1", curve.g1, ctx.g1), ("g2", curve.g2, ctx.g2)):
+        n = N_MSM[name][tag]
+        kern = MSMKernel(tc, q.bit_length())
+        c = pick_window(n)
+        for table in ("shared", "per_problem"):
+            sets = [_chain_points(group, rng.randrange(1, q), rng.randrange(1, q), n, q)
+                    for _ in range(M_BATCH if table == "per_problem" else 1)]
+            pts = [pt for pts_, _ in sets for pt in pts_]
+            logs = [lg for _, logs_ in sets for lg in logs_] * (M_BATCH // len(sets))
+            scal = [[rng.randrange(q) for _ in range(n)] for _ in range(M_BATCH)]
+            scal[2] = [s if i % 8 == 0 else rng.choice((0, 1, 1)) for i, s in enumerate(scal[2])]
+            tab, inf_rows = (ctx.g1_points if tag == "g1" else ctx.g2_points)(pts)
+            inf = inf_rows.reshape(-1, n).expand(M_BATCH, n).contiguous()
+            sc = torch.stack([ctx.fr_plain(v) for v in scal])
+            seg = segment_length(M_BATCH * n, c, q.bit_length(), resident_lanes(ctx.device))
+            starts = {k.name: k.launches for k in kc.KERNELS.values()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = tc.to_affine_host(kern.msm_batch(tab, inf, sc, c))
+            seconds = time.perf_counter() - t0
+            ran = {k.name[len(kc.CURVES[name]):]: k.launches - starts[k.name]
+                   for k in kc.KERNELS.values() if k.launches != starts[k.name]}
+            _check_one_set(f"{curve.name} {tag} msm_batch", ran, tc.GROUP)
+            for m in range(M_BATCH):
+                t_m = tab[m * n:(m + 1) * n] if table == "per_problem" else tab
+                want = group.scalar_mul(group.generator, sum(
+                    s * k for s, k in zip(scal[m], logs[m * n:(m + 1) * n])) % q)
+                if tag == "g2" and ctx.g2_fp2 and want is not None:
+                    want = ((want[0].c0, want[0].c1), (want[1].c0, want[1].c1))
+                if not got[m] == tc.to_affine_host(kern.msm(t_m, inf[m], sc[m], c))[0] == want:
+                    raise AssertionError(f"{curve.name} {tag} msm_batch problem {m} ({table}) "
+                                         "differs from its msm and the host oracle")
+            ones = sum(1 for s, pt in zip(scal[2], pts[-n:] if table == "per_problem" else pts)
+                       if s == 1 and pt is not None)
+            if ones <= seg:
+                raise AssertionError("the skewed problem of msm_batch has no run longer than a lane")
+            _say("msm_batch", curve=curve.name, group=tag, problems=M_BATCH, points=n,
+                 table=table, equal=True, seconds=seconds, digit_1_run=ones, segment=seg,
+                 launches=ran)
+
+
+def _check_one_set(label: str, ran: dict, fam: str) -> None:
+    """ran (unprefixed entry -> launches) is one MSM launch set of group
+    family fam: one *_bucket_accumulate, *_reduce_combine and *_horner, at
+    most one *_bucket_reduce."""
+    if not (ran.get(f"{fam}_bucket_accumulate") == ran.get(f"{fam}_reduce_combine")
+            == ran.get(f"{fam}_horner") == 1 and ran.get(f"{fam}_bucket_reduce", 0) <= 1):
+        raise AssertionError(f"{label} is not one launch set: {ran}")
 
 
 def _profiled(run) -> dict:
@@ -1092,7 +1222,7 @@ def _profiled(run) -> dict:
 
 def _prove_path(device, name: str, system: str, cs, pub, sec, bad_pub, phase: str,
                 **report) -> tuple:
-    """Setup, a first prove, two timed proves and one under torch.profiler
+    """Setup, a first prove, one timed prove and one under torch.profiler
     for one compiled circuit on one curve with one proof system ("groth16"
     or "plonk": the port's backend of that name), then verify and a
     tampered public input. The curve's launch counts are set to 0 just
@@ -1179,21 +1309,36 @@ def _prove_path(device, name: str, system: str, cs, pub, sec, bad_pub, phase: st
         backend.prove(cs, pk, pub, sec, curve, rng=rng, device=device)
         t_first = time.perf_counter() - t0
         warm = [_warm_state(name)]
-        timed = []
-        for _ in range(2):
-            phases.clear()
-            t0 = time.perf_counter()
-            proof = backend.prove(cs, pk, pub, sec, curve, rng=rng, device=device)
-            timed.append({"seconds": time.perf_counter() - t0, **dict(phases)})
+        phases.clear()
+        t0 = time.perf_counter()    # under a fresh rng, for the batched prove
+        proof = backend.prove(cs, pk, pub, sec, curve, device=device,
+                              rng=random.Random(BATCH_RNG))
+        timed = [{"seconds": time.perf_counter() - t0, **dict(phases)}]
         profiled = _profiled(lambda: backend.prove(cs, pk, pub, sec, curve, rng=rng,
                                                    device=device))
         launches = {k.name: k.launches for k in kc.KERNELS.values() if k.curve == name}
         warm.append(_warm_state(name))
+        peak = torch.cuda.max_memory_allocated()
+        path_transforms = list(transforms)   # the batched prove's are not the path's
+        # one warm prove with batch_msm=True under the timed prove's rng:
+        # the same proof, and its own launches and peak bytes
+        for k in kc.KERNELS.values():
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        phases.clear()
+        t0 = time.perf_counter()
+        proof_b = backend.prove(cs, pk, pub, sec, curve, rng=random.Random(BATCH_RNG),
+                                device=device, batch_msm=True)
+        batched = {"seconds": time.perf_counter() - t0, **dict(phases),
+                   "peak_device_bytes": torch.cuda.max_memory_allocated()}
+        launches_b = {k.name: k.launches for k in kc.KERNELS.values() if k.curve == name}
     finally:
         ntt.Domain._transform = transform
         plonk_prove._quotient_tables = build_tables
-    peak = torch.cuda.max_memory_allocated()
     log.removeHandler(grab)
+    if _fields(proof_b) != _fields(proof):
+        raise AssertionError(f"the {name} {phase} proof with batch_msm=True differs")
+    _check_batched(name, phase, launches_b)
 
     t0 = time.perf_counter()
     backend.verify(proof, vk, pub, curve)
@@ -1208,16 +1353,55 @@ def _prove_path(device, name: str, system: str, cs, pub, sec, bad_pub, phase: st
          proves=timed, profiled_prove=profiled, peak_device_bytes=peak,
          verify_s=t_verify, verified=True, tampered_rejected=True,
          **({"quotient_tables": tables} if system == "plonk" else {}))
-    per_transform = _check_launches(name, launches, phase, transforms, warm, WARM_PROVES,
+    per_transform = _check_launches(name, launches, phase, path_transforms, warm, WARM_PROVES,
                                     tables)
-    _say("launches", curve=curve.name, path=phase, **launches, transforms=len(transforms),
+    _say("launches", curve=curve.name, path=phase, **launches, transforms=len(path_transforms),
          passes_per_transform=per_transform,
          warm_prove={k: (warm[1][k] - warm[0][k]) / WARM_PROVES for k in warm[0]})
-    return launches, vk, proof
+    _say(f"{phase}_batched", curve=curve.name, byte_equal=True, prove=batched,
+         launches={k: v for k, v in launches_b.items() if v})
+    return launches, vk, proof, pk, launches_b
 
 
-# proves after the first in _prove_path: two timed, one profiled
-WARM_PROVES = 3
+# the rng of the timed prove and of the batched prove beside it
+BATCH_RNG = 3
+
+
+def _fields(obj) -> dict:
+    """A key's or proof's public fields (host ints and points: BW6-761's
+    by raw coordinates)."""
+    import dataclasses
+
+    return {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)
+            if not f.name.startswith("_")}
+
+
+# G1 MSMs of a batched prove (batch_msm=True): the Chain's A, B1 and K pad to
+# one size (one msm_batch), Z is alone; BW6-761's G2 (B2) runs the g1
+# entries too; PLONK's round-1 and round-3 commits are one msm_batch each,
+# beside Z's, the linearization's and the two openings' commits
+BATCHED_G1_MSMS = {"groth16": 2, "2chain": 3, "plonk": 6}
+
+
+def _check_batched(name: str, path: str, launches: dict) -> None:
+    """The batched prove's MSMs: BATCHED_G1_MSMS launch sets of G1 (one
+    *_bucket_accumulate, *_reduce_combine and *_horner each, at most one
+    *_bucket_reduce) and on the Chain's curves one of G2 (B2)."""
+    from gnark_icicle_tpu_torch.ops import cuda as kc
+
+    pre = kc.CURVES[name]
+    want = {"g1": BATCHED_G1_MSMS[path], "g2": 1 if path == "groth16" else 0}
+    for g, m in want.items():
+        got = {e: launches.get(f"{pre}{g}_{e}", 0)
+               for e in ("bucket_accumulate", "reduce_combine", "horner", "bucket_reduce")}
+        if not (got["bucket_accumulate"] == got["reduce_combine"] == got["horner"] == m
+                and got["bucket_reduce"] <= m):
+            raise AssertionError(f"the {name} {path} batched prove ran {got} {g} launches "
+                                 f"for {m} MSMs")
+
+
+# proves after the first in _prove_path: one timed, one profiled
+WARM_PROVES = 2
 
 
 def _warm_state(name: str) -> dict:
@@ -1382,19 +1566,21 @@ def plonk_circuit(name: str) -> tuple:
 
 def phase_groth16(device, name: str, compiled: tuple) -> tuple:
     """_prove_path on one curve's compiled Chain (chain_circuit). Returns
-    (launches, vk, proof, public inputs)."""
+    (launches, vk, proof, public inputs, pk, the batched prove's launches)."""
     cs, t_compile, v = compiled
     q = _curves()[name].fr.modulus
-    launches, vk, proof = _prove_path(device, name, "groth16", cs, [v], [3], [(v + 1) % q],
-                                      "groth16", compile_s=t_compile)
-    return launches, vk, proof, [v]
+    launches, vk, proof, pk, batched = _prove_path(device, name, "groth16", cs, [v], [3],
+                                                   [(v + 1) % q], "groth16",
+                                                   compile_s=t_compile)
+    return launches, vk, proof, [v], pk, batched
 
 
-def phase_2chain(device, inner_vk, inner_proof, inner_pub) -> dict:
+def phase_2chain(device, inner_vk, inner_proof, inner_pub) -> tuple:
     """The BW6-761 outer proof that the BLS12-377 proof of phase 4 verifies:
     the circuit OuterG16 of tools/run_2chain_device.py, compiled over
     BW6-761's r (= BLS12-377's p) with the port's std/ gadgets, then
-    _prove_path; the tampered input is the inner public value + 1."""
+    _prove_path; the tampered input is the inner public value + 1. Returns
+    (launches, the batched prove's launches)."""
     from gnark_icicle_tpu_torch.curves import bls12_377
     from gnark_icicle_tpu_torch.frontend import Circuit, Public, Secret, compile_circuit
     from gnark_icicle_tpu_torch.std.recursion.native_groth16 import (
@@ -1421,19 +1607,305 @@ def phase_2chain(device, inner_vk, inner_proof, inner_pub) -> dict:
                      pr.bs[1].c1, pr.krs[0], pr.krs[1]])
     opub, osec = w.witness_values(bls12_377.P)
     bad = [(inner_pub[0] + 1) % bls12_377.R]
-    launches, _, _ = _prove_path(device, "bw6_761", "groth16", cs, opub, osec, bad, "2chain",
-                                 compile_s=t_compile)
-    return launches
+    launches, _, _, _, batched = _prove_path(device, "bw6_761", "groth16", cs, opub, osec, bad,
+                                             "2chain", compile_s=t_compile)
+    return launches, batched
 
 
-def phase_plonk(device, name: str, compiled: tuple) -> dict:
+def phase_plonk(device, name: str, compiled: tuple) -> tuple:
     """_prove_path with the port's PLONK on one curve's compiled SCS Chain
-    (plonk_circuit). Returns the path's launches."""
+    (plonk_circuit). Returns (launches, vk, proof, pk, the batched prove's
+    launches)."""
     cs, t_compile, v = compiled
     q = _curves()[name].fr.modulus
-    launches, _, _ = _prove_path(device, name, "plonk", cs, [v], [3], [(v + 1) % q],
-                                 "plonk", compile_s=t_compile)
-    return launches
+    launches, vk, proof, pk, batched = _prove_path(device, name, "plonk", cs, [v], [3],
+                                                   [(v + 1) % q], "plonk", compile_s=t_compile)
+    return launches, vk, proof, pk, batched
+
+
+# phase bsb22: the Chain's curves that carry a BSB22 commitment at full width
+BSB22_CURVES = ("bn254", "bls12_381")
+BSB22_SMALL_STEPS = 40      # BLS12-377's small circuit with the 2-chain's hash
+
+
+def _commit_chain(name: str, steps: int, builder: str) -> tuple:
+    """_chain's circuit with one api.commit over the secret input and two
+    intermediate values (after a quarter and half of the steps): (cs,
+    compile seconds, public output)."""
+    from gnark_icicle_tpu_torch.frontend import Circuit, Public, Secret, compile_circuit
+
+    q = _curves()[name].fr.modulus
+
+    class CommitChain(Circuit):
+        x = Secret()
+        out = Public()
+
+        def define(self, api):
+            v = self.x
+            kept = []
+            for i in range(steps):
+                v = api.add(api.mul(v, v), v, i)
+                if i in (steps // 4, steps // 2):
+                    kept.append(v)
+            api.assert_is_different(api.commit(self.x, *kept), 0)
+            api.assert_is_equal(v, self.out)
+
+    t0 = time.perf_counter()
+    cs = compile_circuit(q, CommitChain, builder=builder)
+    t_compile = time.perf_counter() - t0
+    v = 3
+    for i in range(steps):
+        v = (v * v + v + i) % q
+    return cs, t_compile, v
+
+
+# the native solver's schedule of an R1CS, built by its first solve (about
+# 25 s at 2^17) and left out of its pickle; small beside the R1CS (its
+# staging arrays, which the first solve also builds, are quick to rebuild
+# and as large as the R1CS, so they stay behind)
+SOLVER_CACHES = ("_levels_cache", "_native_sched_cache")
+
+
+def _compile_job(job: tuple) -> tuple:
+    """One circuit of the run, by (kind, curve): _chain's tuple and, for an
+    R1CS, its solver caches (SOLVER_CACHES) from one solve of its witness.
+    Kinds: "groth16" (chain_circuit), "plonk" (plonk_circuit),
+    "bsb22_groth16" and "bsb22_plonk" (the same Chains with a commitment,
+    _commit_chain)."""
+    from gnark_icicle_tpu_torch.constraint.solver import solve
+
+    os.nice(10)     # nvcc first: the build is the longer job
+    kind, name = job
+    system = kind.rsplit("_", 1)[-1]
+    if kind.startswith("bsb22_"):
+        steps = ((1 << CHAIN_LOG[name]) - 2 if system == "groth16"
+                 else ((1 << PLONK_LOG[name]) - 16) // 3)
+        out = _commit_chain(name, steps, "r1cs" if system == "groth16" else "scs")
+    else:
+        out = (chain_circuit if kind == "groth16" else plonk_circuit)(name)
+    caches = {}
+    if system == "groth16":
+        solve(out[0], [out[2]], [3])
+        caches = {k: v for k, v in vars(out[0]).items() if k in SOLVER_CACHES}
+    return out + (caches,)
+
+
+def compile_circuits(jobs: list) -> list:
+    """The circuits of the run (host Python, while nvcc runs), each in a
+    process of its own (spawned, at most one a core): the compiles and the
+    R1CS solver schedules are CPU-bound and independent, and each schedule
+    would otherwise be built by its circuit's first prove. The native
+    solver is built first, once. Returns _chain's tuples in job order."""
+    import multiprocessing
+
+    from gnark_icicle_tpu_torch import native
+
+    native.get_lib()
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(min(len(jobs), os.cpu_count() or 1)) as pool:
+        done = pool.map(_compile_job, jobs)
+    for cs, _, _, caches in done:
+        vars(cs).update(caches)
+    return [d[:3] for d in done]
+
+
+def _zero_counts() -> None:
+    """Every kernel's launch count to 0, just before a path runs."""
+    from gnark_icicle_tpu_torch.ops import cuda as kc
+
+    for k in kc.KERNELS.values():
+        k.launches = 0
+
+
+def _counts(name: str) -> dict:
+    """The launch counts of one curve's kernels, just after a path ran."""
+    from gnark_icicle_tpu_torch.ops import cuda as kc
+
+    return {k.name: k.launches for k in kc.KERNELS.values() if k.curve == name}
+
+
+def _check_msm_launches(name: str, launches: dict, label: str) -> None:
+    """Every MSM of a run is one launch set: per *_bucket_accumulate one
+    *_reduce_combine and one *_horner, at most one *_bucket_reduce; no
+    *_double and no *_add_mixed_masked (no caller on any path)."""
+    from gnark_icicle_tpu_torch.ops import cuda as kc
+
+    pre = kc.CURVES[name]
+    for g in ("g1", "g2"):
+        get = {e: launches.get(f"{pre}{g}_{e}", 0) for e in
+               ("bucket_accumulate", "reduce_combine", "horner", "bucket_reduce", "double",
+                "add_mixed_masked")}
+        if not (get["bucket_accumulate"] == get["reduce_combine"] == get["horner"]
+                and get["bucket_reduce"] <= get["bucket_accumulate"]
+                and get["double"] == get["add_mixed_masked"] == 0):
+            raise AssertionError(f"{label}: {g} launches {get}")
+
+
+def _tamper_rejected(backend, proof, vk, pub, curve, **kw) -> dict:
+    """A tampered commitment, proof of knowledge (Groth16) and public input:
+    each must be rejected."""
+    import dataclasses
+
+    g1 = curve.g1
+    groth = hasattr(proof, "commitment_pok")
+    field = "commitments" if groth else "bsb22_commitments"
+    cases = {"commitment": (dataclasses.replace(
+        proof, **{field: [g1.add(getattr(proof, field)[0], g1.generator)]}), pub),
+        "public_input": (proof, [(pub[0] + 1) % curve.fr.modulus])}
+    if groth:
+        cases["proof_of_knowledge"] = (dataclasses.replace(
+            proof, commitment_pok=g1.add(proof.commitment_pok, g1.generator)), pub)
+    for kind, (bad, bad_pub) in cases.items():
+        if backend.is_valid(bad, vk, bad_pub, curve, **kw):
+            raise AssertionError(f"the verifier accepted a tampered {kind}")
+    return {kind: True for kind in cases}
+
+
+def phase_bsb22(device, name: str, compiled: dict) -> dict:
+    """BSB22 commitments on the card: the full-width Chain with one
+    api.commit (_compile_job's "bsb22_*") through Groth16 and PLONK with the "sha256"
+    commitment hash: setup, a first prove and a warm prove, verify, and a
+    tampered commitment, proof of knowledge and public input rejected; the
+    Pedersen commit and proof of knowledge timed on the committed count, and
+    every MSM one launch set. Returns {path: launches}."""
+    import importlib
+
+    from gnark_icicle_tpu_torch.backend import pedersen
+
+    curve = _curves()[name]
+    out = {}
+    for system, (cs, t_compile, v) in compiled.items():
+        backend = importlib.import_module(f"gnark_icicle_tpu_torch.backend.{system}")
+        _zero_counts()
+        t0 = time.perf_counter()
+        pk, vk = backend.setup(cs, curve, rng=random.Random(1), device=device)
+        t_setup = time.perf_counter() - t0
+        stages, phases = [], []
+        grab = _StageLog(system, phases)
+        t0 = time.perf_counter()
+        backend.prove(cs, pk, [v], [3], curve, rng=random.Random(2), device=device)
+        t_first = time.perf_counter() - t0
+        phases.clear()
+        t0 = time.perf_counter()
+        proof = backend.prove(cs, pk, [v], [3], curve, rng=random.Random(3), device=device)
+        stages = {"seconds": time.perf_counter() - t0, **dict(phases)}
+        grab.close()
+        launches = _counts(name)
+        _check_msm_launches(name, launches, f"{name} bsb22 {system}")
+        backend.verify(proof, vk, [v], curve)
+        rejected = _tamper_rejected(backend, proof, vk, [v], curve)
+        extra = {}
+        if system == "groth16":
+            rng = random.Random(4)
+            key = pk.commitment_keys[0]
+            vals = [rng.randrange(curve.fr.modulus) for _ in key.basis]
+            t0 = time.perf_counter()
+            pedersen.commit(curve, key, vals)
+            t_commit = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            pedersen.prove_knowledge(curve, key, vals)
+            extra = {"pedersen_committed": len(vals), "pedersen_commit_s": t_commit,
+                     "pedersen_pok_s": time.perf_counter() - t0}
+        size = ({"constraints": cs.nb_constraints} if system == "groth16"
+                else {"gates": cs.nb_gates})
+        _say("bsb22", curve=curve.name, system=system, **size, commitments=len(cs.commitments),
+             compile_s=t_compile, setup_s=t_setup, first_prove_s=t_first, warm_prove=stages,
+             verified=True, rejected=rejected, **extra,
+             launches={k: c for k, c in launches.items() if c})
+        out[f"bsb22_{system}"] = launches
+    return out
+
+
+def phase_bsb22_mimc(device) -> dict:
+    """BLS12-377 Groth16 with the 2-chain's commitment hash, ("mimc",
+    BW6-761's r), on a small Chain with a commitment: setup, prove, verify
+    with that hash, a tampered public input rejected. Returns {path:
+    launches}."""
+    from gnark_icicle_tpu_torch.backend import groth16
+
+    curve = _curves()["bls12_377"]
+    h = ("mimc", _curves()["bw6_761"].fr.modulus)
+    cs, t_compile, v = _commit_chain("bls12_377", BSB22_SMALL_STEPS, "r1cs")
+    _zero_counts()
+    pk, vk = groth16.setup(cs, curve, rng=random.Random(1), device=device)
+    t0 = time.perf_counter()
+    proof = groth16.prove(cs, pk, [v], [3], curve, rng=random.Random(2), device=device,
+                          commitment_hash=h)
+    t_prove = time.perf_counter() - t0
+    launches = _counts("bls12_377")
+    _check_msm_launches("bls12_377", launches, "bls12_377 bsb22 mimc")
+    groth16.verify(proof, vk, [v], curve, commitment_hash=h)
+    if groth16.is_valid(proof, vk, [(v + 1) % curve.fr.modulus], curve):
+        raise AssertionError("the verifier accepted a tampered public input")
+    _say("bsb22", curve=curve.name, system="groth16", commitment_hash="mimc(bw6-761 r)",
+         constraints=cs.nb_constraints, prove_s=t_prove, verified=True,
+         tampered_rejected=True, launches={k: c for k, c in launches.items() if c})
+    return {"bsb22_mimc": launches}
+
+
+class _StageLog:
+    """Collects "<system> prove: <stage> took=<s>s" log lines into a list
+    of (stage, seconds) while open."""
+
+    def __init__(self, system: str, into: list):
+        self.system, self.into = system, into
+        self.log = logging.getLogger("gnark_icicle_tpu")
+        self.log.setLevel(logging.INFO)
+        outer = self
+
+        class Grab(logging.Handler):
+            def emit(self, record):
+                msg = record.getMessage()
+                if msg.startswith(f"{outer.system} prove: ") and "took=" in msg \
+                        and "curve=" not in msg:
+                    key, secs = msg.split(": ", 1)[1].rsplit(" took=", 1)
+                    outer.into.append((key.strip(), float(secs.rstrip("s"))))
+
+        self.handler = Grab(level=logging.INFO)
+        self.log.addHandler(self.handler)
+
+    def close(self):
+        self.log.removeHandler(self.handler)
+
+
+def phase_checkpoint(device, name: str, runs: dict) -> dict:
+    """checkpoint_dir in both provers on the card: for Groth16 and PLONK on
+    the curve's Chain (runs: {system: (cs, pk, vk, public, secret, the
+    uninterrupted proof under random.Random(BATCH_RNG))}), a fresh prove
+    into a temporary directory, a resume after the last stage's file is
+    deleted, and a full resume, each under that rng: each verifies and
+    equals the uninterrupted proof; the seconds each resume saves. Returns
+    {path: launches}."""
+    import importlib
+    import tempfile
+
+    curve = _curves()[name]
+    last = {"groth16": "msms.pkl", "plonk": "quotient.pkl"}
+    out = {}
+    for system, (cs, pk, vk, pub, sec, want) in runs.items():
+        backend = importlib.import_module(f"gnark_icicle_tpu_torch.backend.{system}")
+        _zero_counts()
+        times = {}
+        with tempfile.TemporaryDirectory() as d:
+            for step in ("fresh", "partial_resume", "full_resume"):
+                if step == "partial_resume":
+                    os.unlink(os.path.join(d, last[system]))
+                t0 = time.perf_counter()
+                proof = backend.prove(cs, pk, pub, sec, curve, rng=random.Random(BATCH_RNG),
+                                      device=device, checkpoint_dir=d)
+                times[f"{step}_s"] = time.perf_counter() - t0
+                if _fields(proof) != _fields(want):
+                    raise AssertionError(f"the {system} {step} proof differs from the "
+                                         "uninterrupted one")
+                backend.verify(proof, vk, pub, curve)
+            files = {f: os.path.getsize(os.path.join(d, f)) for f in sorted(os.listdir(d))}
+        launches = _counts(name)
+        _say("checkpoint", curve=curve.name, system=system, stage_files=files, **times,
+             saved_partial_s=times["fresh_s"] - times["partial_resume_s"],
+             saved_full_s=times["fresh_s"] - times["full_resume_s"], byte_equal=True,
+             verified=True, launches={k: c for k, c in launches.items() if c})
+        out[f"checkpoint_{system}"] = launches
+    return out
 
 
 def main() -> int:
@@ -1446,7 +1918,7 @@ def main() -> int:
 
     from gnark_icicle_tpu_torch.ops import cuda as kc
 
-    t_start = time.perf_counter()
+    t_start = _START["t"] = time.perf_counter()
     device = torch.device("cuda", 0)
     # nvcc runs in processes of its own: compile the Chain circuits (host
     # Python) meanwhile, and re-raise a failed build after
@@ -1461,8 +1933,14 @@ def main() -> int:
 
     builder = threading.Thread(target=run_build)
     builder.start()
-    compiled = {name: chain_circuit(name) for name in CHAIN_CURVES}
-    compiled_scs = {name: plonk_circuit(name) for name in CURVE_NAMES}
+    jobs = ([("groth16", name) for name in CHAIN_CURVES] + [("plonk", name) for name in CURVE_NAMES]
+            + [(f"bsb22_{system}", name) for name in BSB22_CURVES
+               for system in ("groth16", "plonk")])
+    done = dict(zip(jobs, compile_circuits(jobs)))
+    compiled = {name: done["groth16", name] for name in CHAIN_CURVES}
+    compiled_scs = {name: done["plonk", name] for name in CURVE_NAMES}
+    compiled_bsb22 = {name: {system: done[f"bsb22_{system}", name]
+                             for system in ("groth16", "plonk")} for name in BSB22_CURVES}
     builder.join()
     if "error" in build:
         raise build["error"]
@@ -1473,17 +1951,34 @@ def main() -> int:
         kernels += phase_kernels(device, name, rates)
     for name in CURVE_NAMES:
         phase_msm(DeviceCtx(_curves()[name], device), name)
-    paths, inner = [], None     # (curve, path, launches)
+    # (curve, path, launches): the paths of _expectations, then the others
+    paths, extra, inner, ck_runs = [], [], None, {}
     for name in CHAIN_CURVES:
-        counts, vk, proof, pub = phase_groth16(device, name, compiled[name])
+        counts, vk, proof, pub, pk, batched = phase_groth16(device, name, compiled[name])
         paths.append((name, "groth16", counts))
+        extra.append((name, "groth16_batched", batched))
         if name == "bls12_377":
             inner = (vk, proof, pub)
-    paths.append(("bw6_761", "2chain", phase_2chain(device, *inner)))
+        if name == "bn254":
+            ck_runs["groth16"] = (compiled[name][0], pk, vk, pub, [3], proof)
+    counts, batched = phase_2chain(device, *inner)
+    paths.append(("bw6_761", "2chain", counts))
+    extra.append(("bw6_761", "2chain_batched", batched))
     for name in CURVE_NAMES:
-        paths.append((name, "plonk", phase_plonk(device, name, compiled_scs[name])))
+        counts, vk, proof, pk, batched = phase_plonk(device, name, compiled_scs[name])
+        paths.append((name, "plonk", counts))
+        extra.append((name, "plonk_batched", batched))
+        if name == "bn254":
+            ck_runs["plonk"] = (compiled_scs[name][0], pk, vk, [compiled_scs[name][2]], [3],
+                                proof)
+    for name in BSB22_CURVES:
+        extra += [(name, path, c) for path, c in
+                  phase_bsb22(device, name, compiled_bsb22[name]).items()]
+    extra += [("bls12_377", path, c) for path, c in phase_bsb22_mimc(device).items()]
+    extra += [("bn254", path, c) for path, c in
+              phase_checkpoint(device, "bn254", ck_runs).items()]
     for k in kernels:
-        k["launches_by_path"] = {path: counts[k["name"]] for curve, path, counts in paths
+        k["launches_by_path"] = {path: counts[k["name"]] for curve, path, counts in paths + extra
                                  if curve == k["curve"]}
         k["launches"] = sum(k["launches_by_path"].values())
     # every kernel ran on a path of its curve, but those that a path of the

@@ -10,23 +10,38 @@ device phase :371-555, ``_compute_h`` :31-90) with ``_assemble_proof``
   the device, bit-reversed)  →
   MSMs A, B1, K, Z over G1 and B2 over G2  →  r, s blinding (host).
 
-Each phase's wall time is logged (the port's ``logger``) after the device
-has finished it. Not ported yet: BSB22 commitments, checkpoints, a
-device mesh and the host engine; asking for one raises NotImplementedError.
+BSB22 commitments (the placeholder hint's override :199-246, the folded
+proofs of knowledge :313-330, K without the committed wires :410-425),
+checkpoints (``_Checkpoint`` :134-185: stages solve, h, msms) and the
+batched MSM branch (:484-526, the keyword ``batch_msm``) are the
+reference's. Each phase's wall time is logged (the port's ``logger``) after
+the device has finished it. Not ported yet: a device mesh and the host
+engine; asking for one raises NotImplementedError.
 """
 
 from __future__ import annotations
 
+import hashlib
+import os
+import pickle
 import secrets
 import time
 
 import numpy as np
+import torch
 
+from ...constraint import hints as hintlib
 from ...constraint.solver import solve, solved_u32
 from ...device import DeviceCtx
+from ...io.serialize import g1_to_bytes
 from ...logger import logger
 from ...ops.field_t import TField
 from ...ops.msm import pick_window
+from .. import pedersen
+from ..hash_to_field import (
+    COMMITMENT_DST, G16_FOLD_DST, evm_commitment_hash, hash_to_fr, mimc_commitment_hash,
+    serialize_commitment,
+)
 from .keys import Proof, ProvingKey
 
 
@@ -59,27 +74,153 @@ def _compute_h(ctx: DeviceCtx, a, b, c, log_n: int):
     return tf.from_mont(h_rev)                   # plain = MSM scalar format
 
 
+class _Checkpoint:
+    """Stage checkpointing for preemptible accelerators. Copied from
+    gnark_icicle_tpu/backend/groth16/prove.py:134-185: stages solve → h →
+    msms (PLONK: solve, round1, round2, quotient); blinding is always fresh
+    so a resumed proof is still randomized. Artifacts are bound to the
+    proving task (a sha256 of the constraint count, domain, hash mode and
+    witness) and dropped on mismatch. The port saves host objects only
+    (ints, numpy, CPU tensors), so a resumed run loads on any device."""
+
+    def __init__(self, directory, binding: bytes):
+        self.dir = directory
+        os.makedirs(directory, exist_ok=True)
+        self.binding = binding
+        tag_path = self._p("binding")
+        if os.path.exists(tag_path):
+            with open(tag_path, "rb") as f:
+                if f.read() != binding:  # different proving task: start over
+                    for name in os.listdir(directory):
+                        os.unlink(os.path.join(directory, name))
+        with open(tag_path, "wb") as f:
+            f.write(binding)
+
+    def _p(self, name):
+        return os.path.join(self.dir, name)
+
+    def load(self, name):
+        path = self._p(name + ".pkl")
+        if not os.path.exists(path):
+            return None
+        with open(path, "rb") as f:
+            return pickle.load(f)
+
+    def save(self, name, obj):
+        tmp = self._p(name + ".tmp")
+        with open(tmp, "wb") as f:
+            pickle.dump(obj, f, protocol=pickle.HIGHEST_PROTOCOL)
+        os.replace(tmp, self._p(name + ".pkl"))  # atomic vs preemption
+
+    def has(self, name) -> bool:
+        return os.path.exists(self._p(name + ".pkl"))
+
+
+def _pad_rows(n: int) -> int:
+    """The padded row count of an MSM operand in the batched branch
+    (gnark_icicle_tpu/parallel/pipeline.py:54 ``_pad_msm_inputs``):
+    multiples of 64 below 4,096 rows, of 1,024 above. The padding decides
+    which operands share one ``msm_batch``."""
+    base = 64 if n < 4096 else 1024
+    return n + (-n) % base
+
+
+def _batched_g1_msms(ctx: DeviceCtx, ops: list) -> dict:
+    """The G1 MSMs of a prove, grouped by padded size as the reference
+    groups them (prove.py:484-526): ops is [(name, (table, inf), scalars)];
+    each operand is padded to ``_pad_rows`` with infinity rows and zero
+    scalars, a group of one takes ``msm``, a larger one ``msm_batch`` over
+    its problems' tables stacked row-wise. Returns {name: (3, W, 1)}."""
+    groups: dict = {}
+    for name, (table, inf), scal in ops:
+        n = scal.shape[1]
+        pad = _pad_rows(n) - n
+        if pad:
+            table = torch.cat([table, table.new_zeros((pad, table.shape[1]))])
+            inf = torch.cat([inf, inf.new_ones(pad)])
+            scal = torch.nn.functional.pad(scal, (0, pad))
+        groups.setdefault(n + pad, []).append((name, table, inf, scal))
+    out = {}
+    for n_pad, grp in groups.items():
+        c = pick_window(n_pad)
+        if len(grp) == 1:
+            name, table, inf, scal = grp[0]
+            out[name] = ctx.msm_g1.msm(table, inf, scal, c)
+            continue
+        res = ctx.msm_g1.msm_batch(torch.cat([g[1] for g in grp]),
+                                   torch.stack([g[2] for g in grp]),
+                                   torch.stack([g[3] for g in grp]), c)
+        for m, g in enumerate(grp):
+            out[g[0]] = res[..., m:m + 1]
+    return out
+
+
+def _bsb22_override(cs, pk, curve, commitment_hash, commitment_pts, committed_values):
+    """The BSB22 placeholder hint's replacement (prove.py:199-246, ≙
+    solver.OverrideHint in prove.go:82-108): the Pedersen commitment of the
+    committed private values, its point kept in commitment_pts, and the
+    commitment wire's value its hash under ``commitment_hash``."""
+    q = curve.fr.modulus
+    fr_bytes = (q.bit_length() + 7) // 8
+
+    def bsb22_override(qmod, inputs):
+        i = int(inputs[0])
+        cinfo = cs.commitments[i]
+        rest = inputs[1:]
+        hashed = rest[:len(cinfo.public_and_commitment_committed)]
+        committed_values[i] = [v % qmod for v in rest[len(hashed):]]
+        cm = pedersen.commit(curve, pk.commitment_keys[i], committed_values[i])
+        commitment_pts[i] = cm
+        if isinstance(commitment_hash, tuple) and commitment_hash[0] == "mimc":
+            # recursion-friendly proof: the outer circuit replays this hash
+            # natively (≙ recursion.NewShort via WithProverHashToFieldFunction)
+            return [mimc_commitment_hash(commitment_hash[1], qmod, curve.fp.modulus, cm,
+                                         hashed)]
+        if isinstance(commitment_hash, tuple) and commitment_hash[0] == "evm":
+            # Solidity-verifier-friendly proof: plain digest % r
+            return [evm_commitment_hash(commitment_hash[1], qmod, cm, hashed)]
+        msg = serialize_commitment(g1_to_bytes(curve, cm, compressed=False), hashed, fr_bytes)
+        return [hash_to_fr(msg, COMMITMENT_DST, qmod)[0]]
+
+    return {hintlib.BSB22_PLACEHOLDER: bsb22_override}
+
+
+def _binding(cs, pk, q, commitment_hash, public_values, secret_values) -> bytes:
+    """The checkpoint's task binding, the reference's bytes (prove.py:249-262)."""
+    nb = (q.bit_length() + 7) // 8  # Fr width (48 bytes on BW6-761)
+    return hashlib.sha256(
+        b"g16ck" + cs.nb_constraints.to_bytes(8, "big")
+        + pk.domain_log_n.to_bytes(2, "big")
+        + repr(commitment_hash).encode()
+        + b"".join(int(v % q).to_bytes(nb, "big") for v in public_values)
+        + b"|sec|"
+        + b"".join(int(v % q).to_bytes(nb, "big") for v in secret_values)
+    ).digest()
+
+
 def prove(cs, pk: ProvingKey, public_values, secret_values, curve,
           rng=None, checkpoint_dir: str | None = None,
           engine: str = "device", mesh=None,
-          commitment_hash="sha256", device=None) -> Proof:
+          commitment_hash="sha256", device=None, batch_msm: bool = False) -> Proof:
     """Generate a Groth16 proof (≙ groth16.Prove, accelerated path).
 
-    The arguments are the reference's (``commitment_hash`` is read only by
-    the commitment path, not ported yet); ``device`` is the torch device of
-    the run (default: the first CUDA card; raises without one). rng supplies the
+    The arguments are the reference's; ``device`` is the torch device of the
+    run (default: the first CUDA card; raises without one). rng supplies the
     blinding r, s exactly as in the reference, so one rng gives one proof.
+    commitment_hash: the BSB22 commitment hash, "sha256" (gnark's RFC 9380
+    path), ("mimc", outer_modulus) or ("evm", "sha256" | "keccak256").
+    checkpoint_dir: persist the stages solve, h and msms there, so that a
+    preempted run resumes from the last one done.
+    batch_msm: run the G1 MSMs of one padded size as one ``msm_batch``
+    (A, B1 and K on the Chain; the JAX package's ``GNARK_TPU_BATCH_MSM=1``);
+    the proof is the same.
     """
-    if checkpoint_dir is not None:
-        raise NotImplementedError("prove checkpoints are not ported yet")
     if mesh is not None:
         raise NotImplementedError("a device mesh is not ported yet")
     if engine != "device":
         raise NotImplementedError(
             "only engine='device' is ported; the host engine is "
             "gnark_icicle_tpu's")
-    if cs.commitments:
-        raise NotImplementedError("BSB22 commitments are not ported yet")
     log = logger()
     t_start = time.perf_counter()
     q = curve.fr.modulus
@@ -88,44 +229,105 @@ def prove(cs, pk: ProvingKey, public_values, secret_values, curve,
         lambda m: secrets.randbelow(m - 1) + 1
     )
 
-    res = solve(cs, public_values, secret_values)
+    commitment_pts = [None] * len(cs.commitments)
+    committed_values = [None] * len(cs.commitments)
+    overrides = (_bsb22_override(cs, pk, curve, commitment_hash, commitment_pts,
+                                 committed_values) if cs.commitments else None)
+    ck = None
+    if checkpoint_dir is not None:
+        ck = _Checkpoint(checkpoint_dir, _binding(cs, pk, q, commitment_hash, public_values,
+                                                  secret_values))
+
+    res = None
+    if ck is not None:
+        saved = ck.load("solve")
+        if saved is not None:
+            res, commitment_pts, committed_values = saved
+    if res is None:
+        res = solve(cs, public_values, secret_values, hint_overrides=overrides)
+        if ck is not None:
+            ck.save("solve", (res, commitment_pts, committed_values))
     t_solved = time.perf_counter()
     log.info("groth16 prove: solve took=%.3fs", t_solved - t_start)
 
+    # proofs of knowledge, folded with the G16-BSB22 challenge
+    # (prove.py:313-330, ≙ prove.go:121-141)
+    commitment_pok = None
+    if cs.commitments:
+        fr_bytes = (q.bit_length() + 7) // 8
+        poks = [pedersen.prove_knowledge(curve, pk.commitment_keys[i], committed_values[i])
+                for i in range(len(cs.commitments))]
+        # the commitment wires only (res.wires would make every wire an int)
+        words = solved_u32(res, "wires", ctx.fr.n32)
+        msg = b"".join(int.from_bytes(words[c.commitment_index].astype("<u4").tobytes(),
+                                      "little").to_bytes(fr_bytes, "big")
+                       for c in cs.commitments)
+        challenge = hash_to_fr(msg, G16_FOLD_DST, q)[0]
+        commitment_pok = pedersen.fold_proofs(curve, poks, challenge)
+        log.info("groth16 prove: commitments took=%.3fs", time.perf_counter() - t_solved)
+    t_com = time.perf_counter()
+
     log_n = pk.domain_log_n
     W = ctx.fr.n32
-    h = _compute_h(ctx, solved_u32(res, "a", W), solved_u32(res, "b", W),
-                   solved_u32(res, "c", W), log_n)
+    msms = ck.load("msms") if ck is not None else None
+    h = None
+    if msms is None:
+        h = ck.load("h") if ck is not None else None
+        if h is None:
+            h = _compute_h(ctx, solved_u32(res, "a", W), solved_u32(res, "b", W),
+                           solved_u32(res, "c", W), log_n)
+            if ck is not None:
+                ck.save("h", h.cpu())
+        h = h.to(ctx.device)
     ctx.sync()
     t_h = time.perf_counter()
-    log.info("groth16 prove: computeH took=%.3fs", t_h - t_solved)
+    log.info("groth16 prove: computeH took=%.3fs", t_h - t_com)
 
-    dev = pk.device_arrays(ctx)
-    t_pk = time.perf_counter()
-    log.info("groth16 prove: pk staging took=%.3fs", t_pk - t_h)
-    wires = ctx.fr_scalars(solved_u32(res, "wires", W))
-    priv = wires[:, cs.nb_public:].contiguous()
-
-    def msm(kern, pts, scal):
-        table, inf = pts
-        return kern.msm(table, inf, scal, pick_window(scal.shape[1]))
-
-    ar_dev = msm(ctx.msm_g1, dev["a"], wires)
-    bs1_dev = msm(ctx.msm_g1, dev["b1"], wires)
-    bs2_dev = msm(ctx.msm_g2, dev["b2"], wires)
-    krs_parts = []
-    if priv.shape[1] > 0:
-        krs_parts.append(msm(ctx.msm_g1, dev["k"], priv))
-    krs_parts.append(msm(ctx.msm_g1, dev["z"], h))
-    ar_msm, bs1_msm = ctx.g1_to_host(ar_dev), ctx.g1_to_host(bs1_dev)
-    bs2_msm = ctx.g2_to_host(bs2_dev)
-    krs_msm = [ctx.g1_to_host(p) for p in krs_parts]
-    log.info("groth16 prove: msms took=%.3fs", time.perf_counter() - t_pk)
+    if msms is None:
+        dev = pk.device_arrays(ctx)
+        t_pk = time.perf_counter()
+        log.info("groth16 prove: pk staging took=%.3fs", t_pk - t_h)
+        wires = ctx.fr_scalars(solved_u32(res, "wires", W))
+        if cs.commitments:
+            # pk.K excludes the commitment wires and the committed private
+            # wires (their K points became vk.K entries and Pedersen bases)
+            excluded = {c.commitment_index for c in cs.commitments}
+            for c in cs.commitments:
+                excluded.update(c.private_committed)
+            k_idx = torch.tensor([w for w in range(cs.nb_public, wires.shape[1])
+                                  if w not in excluded], dtype=torch.int64, device=ctx.device)
+            priv = wires.index_select(1, k_idx)
+        else:
+            priv = wires[:, cs.nb_public:].contiguous()
+        out = _g1_msms(ctx, dev, wires, priv, h, batch_msm)
+        table, inf = dev["b2"]
+        bs2_dev = ctx.msm_g2.msm(table, inf, wires, pick_window(wires.shape[1]))
+        krs_parts = [out[k] for k in ("k", "z") if k in out]
+        msms = (ctx.g1_to_host(out["ar"]), ctx.g1_to_host(out["bs1"]),
+                ctx.g2_to_host(bs2_dev), [ctx.g1_to_host(p) for p in krs_parts])
+        if ck is not None:
+            ck.save("msms", msms)
+        log.info("groth16 prove: msms took=%.3fs", time.perf_counter() - t_pk)
+    ar_msm, bs1_msm, bs2_msm, krs_msm = msms
 
     return _assemble_proof(
         cs, pk, curve, q, rand, ar_msm, bs1_msm, bs2_msm, krs_msm,
-        [], None, logger, t_start, str(ctx.device),
+        commitment_pts, commitment_pok, logger, t_start, str(ctx.device),
     )
+
+
+def _g1_msms(ctx: DeviceCtx, dev: dict, wires, priv, h, batch_msm: bool) -> dict:
+    """The G1 MSMs A, B1, K (where there are private wires) and Z:
+    {name: (3, W, 1)}, one ``msm`` each or, with batch_msm, grouped by
+    padded size (``_batched_g1_msms``)."""
+    ops = [("ar", dev["a"], wires), ("bs1", dev["b1"], wires)]
+    if priv.shape[1] > 0:
+        ops.append(("k", dev["k"], priv))
+    ops.append(("z", dev["z"], h))
+    if batch_msm:
+        return _batched_g1_msms(ctx, ops)
+    return {name: ctx.msm_g1.msm(table, inf, scal, pick_window(scal.shape[1]))
+            for name, (table, inf), scal in ops}
 
 
 def _assemble_proof(cs, pk, curve, q, rand, ar_msm, bs1_msm, bs2_msm,

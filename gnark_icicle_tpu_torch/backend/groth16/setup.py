@@ -6,8 +6,8 @@ Port of gnark_icicle_tpu/backend/groth16/setup.py (``qap_evaluations`` :25,
 algebra is copied unchanged, as is the order in which the rng is drawn, so
 that the same rng gives the same keys as the reference. The batch scalar multiplications run on the
 fixed-base ladder (``ops/fixed_base.py``); all the G1 products of the proving
-key (A, B, K and Z) share one ladder run. Circuits with BSB22 commitments
-are not supported yet. ``curve`` is one of the port's curves (BN254,
+key (A, B, K, Z and the BSB22 Pedersen bases, :99-113 and :173-226) share
+one ladder run. ``curve`` is one of the port's curves (BN254,
 BLS12-381, BLS12-377, BW6-761); the scalar bits, the ladders and the key's
 points follow it, and BW6-761's G2 points keep their Fp coordinates.
 """
@@ -23,6 +23,7 @@ from ...logger import logger
 from ...ops.ec import _batch_inv
 from ...ops.fixed_base import batch_scalar_mul_host
 from ...ops.ntt import bitrev_indices
+from ..pedersen import PedersenProvingKey, PedersenVerifyingKey
 from .keys import ProvingKey, VerifyingKey
 
 
@@ -87,9 +88,6 @@ def setup(cs, curve, rng=None, engine: str = "auto", device=None):
         raise NotImplementedError(
             "only the device engine is ported; the host engine is "
             "gnark_icicle_tpu's")
-    if cs.commitments:
-        raise NotImplementedError(
-            "BSB22 commitments are not ported yet: use gnark_icicle_tpu")
     q = curve.fr.modulus
     assert q == cs.q, "constraint system field != curve scalar field"
     rand = rng.randrange if rng is not None else (
@@ -112,13 +110,30 @@ def setup(cs, curve, rng=None, engine: str = "auto", device=None):
     A, B, C, z_tau = qap_evaluations(cs, tau, n, omega)
     inv_gamma = pow(gamma, -1, q)
     inv_delta = pow(delta, -1, q)
+    # K-scalar partitioning (≙ setup.go:143-196): public wires AND
+    # commitment wires go to vk.K (γ-scaled — the verifier injects their
+    # values), committed private wires become the per-commitment Pedersen
+    # bases (also γ-scaled), everything else is pk.K (δ-scaled).
     nb_pub = cs.nb_public
+    commitment_wires = [c.commitment_index for c in cs.commitments]
+    private_committed = [list(c.private_committed) for c in cs.commitments]
+    committed_set = set(commitment_wires)
+    for pc in private_committed:
+        committed_set.update(pc)
 
     def k_scalar(k, inv):
         return (beta * A[k] + alpha * B[k] + C[k]) * inv % q
 
     vk_k_scalars = [k_scalar(k, inv_gamma) for k in range(nb_pub)]
-    pk_k_scalars = [k_scalar(k, inv_delta) for k in range(nb_pub, cs.nb_wires)]
+    vk_k_scalars += [k_scalar(w, inv_gamma) for w in commitment_wires]
+    ck_k_scalars = [[k_scalar(w, inv_gamma) for w in pc] for pc in private_committed]
+    pk_k_scalars = [k_scalar(k, inv_delta) for k in range(nb_pub, cs.nb_wires)
+                    if k not in committed_set]
+    # the Pedersen keys' randomness, drawn as the reference draws it
+    # (setup.py:150-163): the shared G2 point's scalar, then one σ a commitment
+    c_g2_scalar = rand(q) if cs.commitments else None
+    sigmas = [rand(q) for _ in cs.commitments]
+    ck_sigma_scalars = [[s * sigma % q for s in sc] for sc, sigma in zip(ck_k_scalars, sigmas)]
     # Z points: τ^i·Z(τ)/δ for i < n-1 — stored bit-reversed
     zd = z_tau * inv_delta % q
     z_scalars = [0] * (n - 1)
@@ -139,10 +154,29 @@ def setup(cs, curve, rng=None, engine: str = "auto", device=None):
             return [grp.scalar_mul(base, s) for s in scalars]
         return batch_scalar_mul_host(tc, grp, base, scalars, bits, dev, times=split)
 
-    sizes = [len(A), len(B), len(pk_k_scalars), len(z_scalars)]
-    g1_all = batch(ctx.g1, g1, G1, A + B + pk_k_scalars + z_scalars)
-    cut = [sum(sizes[:i]) for i in range(5)]
-    g1_a, g1_b, g1_k, g1_z = (g1_all[cut[i]:cut[i + 1]] for i in range(4))
+    # one G1 batch: A, B, K, Z and the Pedersen bases (plain and σ-scaled)
+    parts = [A, B, pk_k_scalars, z_scalars] + ck_k_scalars + ck_sigma_scalars
+    g1_all = batch(ctx.g1, g1, G1, [s for part in parts for s in part])
+    cut = [0]
+    for part in parts:
+        cut.append(cut[-1] + len(part))
+    g1_parts = [g1_all[cut[i]:cut[i + 1]] for i in range(len(parts))]
+    g1_a, g1_b, g1_k, g1_z = g1_parts[:4]
+    nc = len(cs.commitments)
+    ck_pks = [PedersenProvingKey(basis=g1_parts[4 + i], basis_exp_sigma=g1_parts[4 + nc + i])
+              for i in range(nc)]
+    ck_vks = []
+    if cs.commitments:
+        c_g2 = g2.scalar_mul(G2, c_g2_scalar)   # ≙ curve.RandomOnG2 (setup.go:293)
+        ck_vks = [PedersenVerifyingKey(g=c_g2, g_sigma_neg=g2.scalar_mul(c_g2, (q - sigma) % q))
+                  for sigma in sigmas]
+    # verifier-side committed-wire indices into the extended public witness
+    # (≙ GetPublicAndCommitmentCommitted, constraint/commitment.go:53-74)
+    cw_pos = {w: i for i, w in enumerate(commitment_wires)}
+    pub_and_com_committed = [
+        [w if w < nb_pub else nb_pub + cw_pos[w] for w in c.public_and_commitment_committed]
+        for c in cs.commitments
+    ]
     g2_b = batch(ctx.g2, g2, G2, B)
     t_keys = time.perf_counter()
 
@@ -158,7 +192,7 @@ def setup(cs, curve, rng=None, engine: str = "auto", device=None):
         g1_k=g1_k,
         g1_z=_bit_reverse_list(g1_z, n),
         domain_log_n=log_n,
-        commitment_keys=[],
+        commitment_keys=ck_pks,
     )
     vk = VerifyingKey(
         g1_alpha=pk.g1_alpha,
@@ -167,8 +201,8 @@ def setup(cs, curve, rng=None, engine: str = "auto", device=None):
         g2_delta=pk.g2_delta,
         g1_k=batch(ctx.g1, g1, G1, vk_k_scalars),
         nb_public=nb_pub,
-        commitment_keys=[],
-        public_and_commitment_committed=[],
+        commitment_keys=ck_vks,
+        public_and_commitment_committed=pub_and_com_committed,
     )
     parts = {"host algebra": t_host - t0, "points": time.perf_counter() - t_host, **split,
              "keys": time.perf_counter() - t_keys}

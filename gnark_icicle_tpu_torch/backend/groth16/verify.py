@@ -4,8 +4,8 @@ Copied from gnark_icicle_tpu/backend/groth16/verify.py (:1-121): that module
 cannot be imported without JAX, because its package ``__init__`` imports the
 JAX prover. The body runs on the host over the port's key and proof classes
 and the curve's own pairing (the port's ``curves/pairing.py`` for its
-curves). The BSB22 commitment branch (:57-98) raises NotImplementedError:
-its pedersen and hash_to_field modules are not ported yet.
+curves), its BSB22 commitment branch (:57-98) over the port's copies of
+``pedersen`` and ``hash_to_field``.
 """
 
 from __future__ import annotations
@@ -51,10 +51,52 @@ def verify(proof: Proof, vk: VerifyingKey, public_values, curve,
 
     xs = [1] + [int(v) % q for v in public_values]
 
-    # BSB22 (≙ verify.go:82-115 solveCommitmentWire +
-    # pedersen.BatchVerifyMultiVk) is not ported yet.
+    # BSB22: re-derive each commitment wire value from the proof's
+    # commitment point + the committed public values, then check the folded
+    # Pedersen proof of knowledge (≙ verify.go:82-115 solveCommitmentWire +
+    # pedersen.BatchVerifyMultiVk).
     if vk.commitment_keys:
-        raise NotImplementedError("BSB22 commitments are not ported yet")
+        from .. import pedersen
+        from ..hash_to_field import (
+            COMMITMENT_DST, G16_FOLD_DST, hash_to_fr, mimc_commitment_hash,
+            serialize_commitment,
+        )
+        from ...io.serialize import g1_to_bytes
+
+        if len(proof.commitments) != len(vk.commitment_keys):
+            raise VerificationError("wrong number of commitments in proof")
+        fr_bytes = (q.bit_length() + 7) // 8
+        for i, committed_idx in enumerate(vk.public_and_commitment_committed):
+            if (isinstance(commitment_hash, tuple)
+                    and commitment_hash[0] == "mimc"):
+                xs.append(mimc_commitment_hash(
+                    commitment_hash[1], q, curve.fp.modulus,
+                    proof.commitments[i], [xs[j] for j in committed_idx]))
+                continue
+            if (isinstance(commitment_hash, tuple)
+                    and commitment_hash[0] == "evm"):
+                from ..hash_to_field import evm_commitment_hash
+
+                xs.append(evm_commitment_hash(
+                    commitment_hash[1], q, proof.commitments[i],
+                    [xs[j] for j in committed_idx]))
+                continue
+            msg = serialize_commitment(
+                g1_to_bytes(curve, proof.commitments[i], compressed=False),
+                [xs[j] for j in committed_idx],
+                fr_bytes,
+            )
+            xs.append(hash_to_fr(msg, COMMITMENT_DST, q)[0])
+        challenge_msg = b"".join(
+            int(v).to_bytes(fr_bytes, "big")
+            for v in xs[vk.nb_public:]
+        )
+        challenge = hash_to_fr(challenge_msg, G16_FOLD_DST, q)[0]
+        if not pedersen.batch_verify_multi_vk(
+            curve, vk.commitment_keys, proof.commitments,
+            proof.commitment_pok, challenge,
+        ):
+            raise VerificationError("commitment proof of knowledge invalid")
     elif proof.commitments:
         raise VerificationError("proof carries unexpected commitments")
 

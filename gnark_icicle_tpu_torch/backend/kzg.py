@@ -6,8 +6,8 @@ the powers on the fixed-base ladder, ``ops/fixed_base.py``, the K6 role),
 ``KZG.commit`` (:91), ``commit_mont`` (:98) and ``open`` (:154), each commit
 one G1 MSM (``ops/msm.py``: the bucket accumulation, reduction and Horner
 kernels). ``verify`` (:169) and ``batch_verify_same_point`` (:183) are host
-pairings, copied. ``commit_batch``/``commit_mont_batch`` (:111, :127) need
-``msm_batch``, which is not ported yet: they raise NotImplementedError.
+pairings, copied. ``commit_batch``/``commit_mont_batch`` (:111, :127) are one
+``msm_batch`` over the shared SRS table (``_commit_scal_batch`` :141).
 
 Every device entry runs on ``device`` (None: the first CUDA card, raising
 without one; ``"cpu"`` runs the plain versions). Verify-only callers never
@@ -18,6 +18,8 @@ from __future__ import annotations
 
 import secrets
 from dataclasses import dataclass, field
+
+import torch
 
 from ..device import DeviceCtx
 from ..ops.cuda import resolve_device
@@ -132,11 +134,33 @@ class KZG:
         res = self.ctx.msm_g1.msm(table, inf, scal, pick_window(n))
         return self.ctx.g1_to_host(res)
 
+    # -- batched commits (one msm_batch for M polynomials) -------------------
     def commit_batch(self, coeffs_list) -> list:
-        raise NotImplementedError("batched commits need msm_batch, which is not ported yet")
+        """[p_m(τ)]₁ for M equal-length coefficient lists through one
+        ``msm_batch`` over the shared SRS table (PLONK's a/b/c group)."""
+        ns = {len(c) for c in coeffs_list}
+        assert len(ns) == 1, "commit_batch needs equal-length polynomials"
+        n = ns.pop()
+        if n == 0:
+            return [None] * len(coeffs_list)
+        return self._commit_scal_batch(
+            torch.stack([self.ctx.fr_plain(c) for c in coeffs_list]), n)
 
     def commit_mont_batch(self, mont_list) -> list:
-        raise NotImplementedError("batched commits need msm_batch, which is not ported yet")
+        """Batched ``commit_mont``: M device Montgomery (Wr, n) tensors of
+        one width (PLONK's three quotient shards)."""
+        n = mont_list[0].shape[1]
+        assert all(m.shape[1] == n for m in mont_list), "commit_mont_batch needs one width"
+        tf = TField(self.ctx.fr)
+        return self._commit_scal_batch(
+            torch.stack([tf.from_mont(m.contiguous()) for m in mont_list]), n)
+
+    def _commit_scal_batch(self, scal, n):
+        assert n <= len(self.srs.g1_powers), "SRS too small"
+        table, inf = self.srs.device_points(self.ctx, n)
+        M = scal.shape[0]
+        res = self.ctx.msm_g1.msm_batch(table, inf.expand(M, n), scal, pick_window(n))
+        return [self.ctx.g1_to_host(res[..., m:m + 1]) for m in range(M)]
 
     # -- open ------------------------------------------------------------------
     def open(self, coeffs: list, z: int):

@@ -16,25 +16,34 @@ product, Fiat-Shamir, blinding and the openings' synthetic division
 
 The reference packs the 4n arrays as uint16 and cuts the quotient into row
 chunks to fit v5e memory (:128-130, :178-181, :341-347); an H100 holds them,
-so neither is ported. Each stage's wall time is logged (``plonk prove:
-<stage> took=``) after the device has finished it. Not ported yet, and
-raising NotImplementedError: ``checkpoint_dir``, BSB22 commitments, a
-``commitment_hash`` other than "sha256", ``fs_hash="mimc"`` and
-``engine="host"``; the port does not read ``GNARK_TPU_BATCH_MSM``.
+so neither is ported. BSB22 commitments (the PI2 polynomial committed by
+KZG in the placeholder hint's override :350-400, α binding them :506, the
+Qk injection :516-, the Qcp terms in the quotient and the linearization),
+``commitment_hash`` "sha256" or ("mimc", m), ``fs_hash="mimc"``,
+checkpoints (stages solve, round1, round2, quotient) and the batched commits
+(:441-446, :578-581, the keyword ``batch_msm``; the JAX package reads
+``GNARK_TPU_BATCH_MSM``) are the reference's. Each stage's wall time is
+logged (``plonk prove: <stage> took=``) after the device has finished it.
+Not ported yet, and raising NotImplementedError: ``engine="host"``.
 """
 
 from __future__ import annotations
 
+import hashlib
 import secrets
 import time
 
 import torch
 
+from ...constraint import hints as hintlib
 from ...constraint.scs import solve_scs
 from ...device import DeviceCtx
+from ...io.serialize import g1_to_bytes
 from ...logger import logger
 from ...ops.field_t import QUOTIENT_INPUTS, TField
 from ...ops.ntt import _pow_table
+from ..groth16.prove import _Checkpoint
+from ..hash_to_field import hash_to_fr, mimc_commitment_hash
 from ..kzg import KZG
 from ..transcript import kzg_fold_challenge, make_transcript
 from .keys import Proof, ProvingKey
@@ -148,30 +157,51 @@ def _linear_combo_dev(ctx: DeviceCtx, terms, length: int, q: int):
     return acc
 
 
+def _binding(cs, pk, q, fs_hash, commitment_hash, public_values, secret_values) -> bytes:
+    """The checkpoint's task binding, the reference's bytes (prove.py:286-299;
+    a value wider than 32 bytes, BW6-761's r, takes its Fr width)."""
+    nb = max(32, (q.bit_length() + 7) // 8)
+    return hashlib.sha256(
+        b"plonkck" + cs.nb_gates.to_bytes(8, "big")
+        + pk.log_n.to_bytes(2, "big")
+        + fs_hash.encode() + repr(commitment_hash).encode()
+        + b"".join(int(v).to_bytes(nb, "big") for v in public_values)
+        + b"|sec|"
+        + b"".join(int(v % q).to_bytes(nb, "big") for v in secret_values)
+    ).digest()
+
+
 def prove(cs, pk: ProvingKey, public_values, secret_values, curve, rng=None,
           checkpoint_dir: str | None = None, fs_hash: str = "sha256",
-          engine: str = "device", commitment_hash="sha256", device=None) -> Proof:
+          engine: str = "device", commitment_hash="sha256", device=None,
+          batch_msm: bool = False) -> Proof:
     """PLONK prove (≙ the reference's device engine). rng supplies the
     blinding as in the reference, so one rng gives one proof; ``device`` is
-    the torch device of the run."""
-    if checkpoint_dir is not None:
-        raise NotImplementedError("prove checkpoints are not ported yet")
+    the torch device of the run.
+
+    checkpoint_dir: persist the stages solve, round1, round2 and quotient
+    there, so that a preempted run resumes from the last one done.
+    fs_hash: the Fiat-Shamir hash, "sha256" (gnark's bytes) or "mimc".
+    commitment_hash: the BSB22 commitment hash, "sha256" (RFC 9380, DST
+    "BSB22-Plonk") or ("mimc", outer_modulus).
+    batch_msm: commit round 1's a, b, c and round 3's three quotient shards
+    each as one ``msm_batch`` (the JAX package's ``GNARK_TPU_BATCH_MSM=1``);
+    the proof is the same."""
     if engine != "device":
         raise NotImplementedError(
             "only engine='device' is ported; the host engine is "
             "gnark_icicle_tpu's")
-    if cs.commitments:
-        raise NotImplementedError("BSB22 commitments are not ported yet")
-    if commitment_hash != "sha256":
-        raise NotImplementedError("only the sha256 commitment hash is ported")
     q = curve.fr.modulus
-    ts = make_transcript(q, list(CHALLENGES), fs_hash)
     ctx = DeviceCtx(curve, device)  # resolves the device before any work
     rand = rng.randrange if rng is not None else (
         lambda m: secrets.randbelow(m - 1) + 1
     )
     vk = pk.vk
     assert vk is not None, "ProvingKey.vk required (rebuild keys via setup)"
+    ck = None
+    if checkpoint_dir is not None:
+        ck = _Checkpoint(checkpoint_dir, _binding(cs, pk, q, fs_hash, commitment_hash,
+                                                  public_values, secret_values))
     log_n = pk.log_n
     n = 1 << log_n
     omega = curve.fr.root_of_unity(log_n)
@@ -203,25 +233,77 @@ def prove(cs, pk: ProvingKey, public_values, secret_values, curve, rng=None,
         logger().info("plonk prove: %s took=%.3fs", stage, now - _t["last"])
         _t["last"] = now
 
-    # ---- stage 1: solve + wire polynomials (prove.py:410-456) --------------
-    wires, av, bv, cv = solve_scs(cs, public_values, secret_values)
+    # ---- stage 1: solve + wire polynomials (prove.py:350-456) --------------
+    # BSB22: the placeholder hint becomes a KZG commitment to the PI2 column
+    # polynomial (≙ the instance's bsb22Hint, prove.go:291-320)
+    commitment_info = cs.commitments
+    bsb22_coms = [None] * len(commitment_info)
+    pi2_coeffs = [None] * len(commitment_info)
+    commitment_vals = [None] * len(commitment_info)
+    overrides = None
+    if commitment_info:
+        def bsb22_override(qmod, inputs):
+            i = int(inputs[0])
+            cinfo = commitment_info[i]
+            pi2 = [0] * n
+            for gi, vv in zip(cinfo.committed, inputs[1:]):
+                pi2[gi] = vv % qmod
+            # blind at rows whose qcp is 0 (the commitment row and the last
+            # row, ≙ prove.go:305-309)
+            pi2[cinfo.commitment_index] = rand(qmod)
+            if n - 1 not in set(cinfo.committed) and n - 1 != cinfo.commitment_index:
+                pi2[n - 1] = rand(qmod)
+            coeffs = evals_to_coeffs(pi2)
+            com = kzg.commit(coeffs)
+            bsb22_coms[i] = com
+            pi2_coeffs[i] = coeffs
+            if isinstance(commitment_hash, tuple) and commitment_hash[0] == "mimc":
+                # recursion-friendly: PLONK absorbs only the commitment point
+                val = mimc_commitment_hash(commitment_hash[1], qmod, curve.fp.modulus,
+                                           com, [])
+            else:
+                val = hash_to_fr(g1_to_bytes(curve, com, compressed=False),
+                                 b"BSB22-Plonk", qmod)[0]
+            commitment_vals[i] = val
+            return [val]
+
+        overrides = {hintlib.BSB22_PLACEHOLDER: bsb22_override}
+
+    solved = ck.load("solve") if ck is not None else None
+    if solved is not None:
+        wires, av, bv, cv, bsb22_coms, pi2_coeffs, commitment_vals = solved
+    else:
+        wires, av, bv, cv = solve_scs(cs, public_values, secret_values,
+                                      hint_overrides=overrides)
+        if ck is not None:
+            ck.save("solve", (wires, av, bv, cv, bsb22_coms, pi2_coeffs, commitment_vals))
     _mark("solve")
     av += [0] * (n - len(av))
     bv += [0] * (n - len(bv))
     cv += [0] * (n - len(cv))
 
+    ts = make_transcript(q, list(CHALLENGES), fs_hash)
     bind_public_data(ts, curve, vk, public_values)
 
     def blind(coeffs, degree):
         bs = [rand(q) for _ in range(degree + 1)]
         return _add_poly(coeffs, _mul_zh(bs, n, q), q)
 
-    a_coeffs = blind(evals_to_coeffs(av), 1)
-    b_coeffs = blind(evals_to_coeffs(bv), 1)
-    c_coeffs = blind(evals_to_coeffs(cv), 1)
-    a_com = kzg.commit(a_coeffs)
-    b_com = kzg.commit(b_coeffs)
-    c_com = kzg.commit(c_coeffs)
+    round1 = ck.load("round1") if ck is not None else None
+    if round1 is not None:
+        a_coeffs, b_coeffs, c_coeffs, a_com, b_com, c_com = round1
+    else:
+        a_coeffs = blind(evals_to_coeffs(av), 1)
+        b_coeffs = blind(evals_to_coeffs(bv), 1)
+        c_coeffs = blind(evals_to_coeffs(cv), 1)
+        if batch_msm:
+            a_com, b_com, c_com = kzg.commit_batch([a_coeffs, b_coeffs, c_coeffs])
+        else:
+            a_com = kzg.commit(a_coeffs)
+            b_com = kzg.commit(b_coeffs)
+            c_com = kzg.commit(c_coeffs)
+        if ck is not None:
+            ck.save("round1", (a_coeffs, b_coeffs, c_coeffs, a_com, b_com, c_com))
     _mark("round1 wire commits")
     for cm in (a_com, b_com, c_com):
         ts.bind_point(b"gamma", curve, cm)
@@ -263,9 +345,17 @@ def prove(cs, pk: ProvingKey, public_values, secret_values, curve, rng=None,
             zv[j + 1] = pnum[j] * inv % q
             inv = inv * dens[j] % q
 
-    z_coeffs = blind(evals_to_coeffs(zv), 2)
-    z_com = kzg.commit(z_coeffs)
+    round2 = ck.load("round2") if ck is not None else None
+    if round2 is not None:
+        z_coeffs, z_com = round2
+    else:
+        z_coeffs = blind(evals_to_coeffs(zv), 2)
+        z_com = kzg.commit(z_coeffs)
+        if ck is not None:
+            ck.save("round2", (z_coeffs, z_com))
     _mark("round2 Z")
+    for cm in bsb22_coms:  # α binds the BSB22 commitments (≙ prove.go:471)
+        ts.bind_point(b"alpha", curve, cm)
     ts.bind_point(b"alpha", curve, z_com)
     alpha = ts.challenge(b"alpha")
 
@@ -274,6 +364,11 @@ def prove(cs, pk: ProvingKey, public_values, secret_values, curve, rng=None,
     qk_full = list(cs.qc) + [0] * (n - cs.nb_gates)
     for j, pv in enumerate(public_values):
         qk_full[j] = (qk_full[j] + pv) % q
+    for i, cinfo in enumerate(commitment_info):
+        # the commitment hash enters Qk like a public input (≙ completeQk
+        # placing commitmentVal at the commitment row, prove.go:381-383)
+        ci = cinfo.commitment_index
+        qk_full[ci] = (qk_full[ci] + commitment_vals[i]) % q
     qk_full_coeffs = evals_to_coeffs(qk_full)
 
     # z(ωX) coefficient scaling with a running power
@@ -284,34 +379,45 @@ def prove(cs, pk: ProvingKey, public_values, secret_values, curve, rng=None,
         wp = wp * omega % q
 
     shard = n + 2
-    ev = {
-        "a": coset4_evals_dev(a_coeffs),
-        "b": coset4_evals_dev(b_coeffs),
-        "c": coset4_evals_dev(c_coeffs),
-        "z": coset4_evals_dev(z_coeffs),
-        "zw": coset4_evals_dev(zw_coeffs),
-        "qk": coset4_evals_dev(qk_full_coeffs),
-    }
-    for name in ("ql", "qr", "qm", "qo", "s1", "s2", "s3"):
-        ev[name] = coset4_evals_dev(pk.trace_coeffs[name])
-    t_mont = _quotient_device(
-        ctx, dom4, ev, n, beta, gamma, alpha, k1, k2,
-        curve.fr.multiplicative_generator,
-        curve.fr.root_of_unity(log_n + 2), q,
-    )
-    ev.clear()  # free the 4n coset evals
-    t_coeffs = decode(t_mont)
-    # T has degree ≤ 3n+5; split into 3 shards of n+2
-    t1 = t_coeffs[:shard]
-    t2 = t_coeffs[shard : 2 * shard]
-    t3 = t_coeffs[2 * shard : 3 * shard]
-    for c in t_coeffs[3 * shard :]:
-        assert c == 0, "quotient degree overflow — identity violated"
-    h_coms = (
-        kzg.commit_mont(t_mont[:, :shard]),
-        kzg.commit_mont(t_mont[:, shard : 2 * shard]),
-        kzg.commit_mont(t_mont[:, 2 * shard : 3 * shard]),
-    )
+    quo = ck.load("quotient") if ck is not None else None
+    if quo is not None:
+        t1, t2, t3, h_coms = quo
+    else:
+        ev = {
+            "a": coset4_evals_dev(a_coeffs),
+            "b": coset4_evals_dev(b_coeffs),
+            "c": coset4_evals_dev(c_coeffs),
+            "z": coset4_evals_dev(z_coeffs),
+            "zw": coset4_evals_dev(zw_coeffs),
+            "qk": coset4_evals_dev(qk_full_coeffs),
+        }
+        # BSB22: the gate's Σ qcp_i·PI2_i rides Qk's evals (the reference adds
+        # it to the gate, prove.py:200-202; the sum is the same)
+        for i in range(len(commitment_info)):
+            ev["qk"] = tf.add(ev["qk"], tf.mont_mul(
+                coset4_evals_dev(pk.trace_coeffs[f"qcp{i}"]), coset4_evals_dev(pi2_coeffs[i])))
+        for name in ("ql", "qr", "qm", "qo", "s1", "s2", "s3"):
+            ev[name] = coset4_evals_dev(pk.trace_coeffs[name])
+        t_mont = _quotient_device(
+            ctx, dom4, ev, n, beta, gamma, alpha, k1, k2,
+            curve.fr.multiplicative_generator,
+            curve.fr.root_of_unity(log_n + 2), q,
+        )
+        ev.clear()  # free the 4n coset evals
+        t_coeffs = decode(t_mont)
+        # T has degree ≤ 3n+5; split into 3 shards of n+2
+        t1 = t_coeffs[:shard]
+        t2 = t_coeffs[shard : 2 * shard]
+        t3 = t_coeffs[2 * shard : 3 * shard]
+        for c in t_coeffs[3 * shard :]:
+            assert c == 0, "quotient degree overflow — identity violated"
+        shards = [t_mont[:, k * shard:(k + 1) * shard] for k in range(3)]
+        if batch_msm:
+            h_coms = tuple(kzg.commit_mont_batch(shards))
+        else:
+            h_coms = tuple(kzg.commit_mont(t) for t in shards)
+        if ck is not None:
+            ck.save("quotient", (t1, t2, t3, h_coms))
     _mark("round3 quotient")
     for cm in h_coms:
         ts.bind_point(b"zeta", curve, cm)
@@ -323,6 +429,8 @@ def prove(cs, pk: ProvingKey, public_values, secret_values, curve, rng=None,
     o_z = _eval_poly(c_coeffs, zeta, q)
     s1_z = _eval_poly(pk.trace_coeffs["s1"], zeta, q)
     s2_z = _eval_poly(pk.trace_coeffs["s2"], zeta, q)
+    qcp_z = [_eval_poly(pk.trace_coeffs[f"qcp{i}"], zeta, q)
+             for i in range(len(commitment_info))]
     zeta_w = zeta * omega % q
     zu = _eval_poly(z_coeffs, zeta_w, q)
     _, z_shifted_h = kzg.open(z_coeffs, zeta_w)
@@ -345,6 +453,10 @@ def prove(cs, pk: ProvingKey, public_values, secret_values, curve, rng=None,
         (pk.trace_coeffs["qm"], rl),
         (pk.trace_coeffs["qo"], o_z),
         (pk.trace_coeffs["qk"], 1),
+    ]
+    for i in range(len(commitment_info)):
+        lin_terms.append((pi2_coeffs[i], qcp_z[i]))
+    lin_terms += [
         (pk.trace_coeffs["s3"], s1_coef),
         (z_coeffs, z_coef),
         (t1, (-zh_z) % q),
@@ -362,6 +474,10 @@ def prove(cs, pk: ProvingKey, public_values, secret_values, curve, rng=None,
     digests = [lin_com, a_com, b_com, c_com,
                vk.commitments["s1"], vk.commitments["s2"]]
     claimed = [lin_z, l_z, r_z, o_z, s1_z, s2_z]
+    for i in range(len(commitment_info)):
+        polys.append(pk.trace_coeffs[f"qcp{i}"])
+        digests.append(vk.commitments[f"qcp{i}"])
+        claimed.append(qcp_z[i])
 
     gamma_kzg = kzg_fold_challenge(fs_hash, curve, q, zeta, digests,
                                    claimed, zu)
@@ -378,5 +494,5 @@ def prove(cs, pk: ProvingKey, public_values, secret_values, curve, rng=None,
         lro=(a_com, b_com, c_com), z_com=z_com, h_coms=h_coms,
         batch_h=batch_h, batch_claimed=claimed,
         z_shifted_h=z_shifted_h, z_shifted_claimed=zu,
-        bsb22_commitments=[],
+        bsb22_commitments=bsb22_coms,
     )

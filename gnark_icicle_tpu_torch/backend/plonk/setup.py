@@ -7,8 +7,9 @@ branch :121-128) with ``build_permutation`` (:24) and ``_next_pow2_log``
 first, ``kzg.unsafe_srs``), so one rng gives the reference's keys. The SRS
 powers run on the fixed-base ladder, each column's INTT on the NTT stage
 kernel and each commitment on the G1 MSM of ``device`` (None: the first
-CUDA card; raises without one). Not ported yet, and raising
-NotImplementedError: BSB22 commitments and ``engine="host"``.
+CUDA card; raises without one). A circuit's BSB22 commitments add one Qcp
+column each (:89-95), committed as the others are. Not ported yet, and
+raising NotImplementedError: ``engine="host"``.
 """
 
 from __future__ import annotations
@@ -75,8 +76,6 @@ def setup(cs, curve, srs: SRS | None = None, rng=None,
         raise NotImplementedError(
             "only the device engine is ported; the host engine is "
             "gnark_icicle_tpu's")
-    if cs.commitments:
-        raise NotImplementedError("BSB22 commitments are not ported yet")
     ctx = DeviceCtx(curve, device)  # resolves the device before any work
     t0 = time.perf_counter()
     q = curve.fr.modulus
@@ -104,6 +103,12 @@ def setup(cs, curve, srs: SRS | None = None, rng=None,
         "ql": pad(cs.ql), "qr": pad(cs.qr), "qm": pad(cs.qm),
         "qo": pad(cs.qo), "qk": pad(cs.qc),
     }
+    # BSB22 Qcp columns: 1 at each COMMITTED row (≙ setup.go:193-201)
+    for i, cinfo in enumerate(cs.commitments):
+        col = [0] * n
+        for gi in cinfo.committed:
+            col[gi] = 1
+        cols[f"qcp{i}"] = col
 
     # σ columns as field elements: position p -> coset tag · ω^(p mod n)
     omega_pows = [1] * n

@@ -7,12 +7,13 @@ point, replay the Fiat-Shamir transcript, compute PI(ζ), check the claimed
 linearized-poly opening, rebuild the linearized-polynomial digest from the
 vk/proof commitments, fold the batch opening with the KZG γ challenge and
 check both openings — two pairing checks on the host oracle path. The BSB22
-branch (:94-110) needs ``hash_to_field``, which is not ported yet: a key or
-proof with commitments raises NotImplementedError.
+branch (:94-110) runs over the port's copy of ``hash_to_field``.
 """
 
 from __future__ import annotations
 
+from ...io.serialize import g1_to_bytes
+from ..hash_to_field import hash_to_fr, mimc_commitment_hash
 from ..kzg import KZG, SRS
 from ..transcript import make_transcript, kzg_fold_challenge
 from .keys import VerifyingKey, Proof
@@ -92,7 +93,19 @@ def verify(proof: Proof, vk: VerifyingKey, public_values, curve,
     # point and add it like a public input (≙ verify.go:173-195 with DST
     # "BSB22-Plonk"; our commitment indexes are absolute gate rows)
     if nb_commitments:
-        raise NotImplementedError("BSB22 commitments are not ported yet")
+        for i, ci in enumerate(vk.commitment_constraint_indexes):
+            if (isinstance(commitment_hash, tuple)
+                    and commitment_hash[0] == "mimc"):
+                val = mimc_commitment_hash(
+                    commitment_hash[1], q, curve.fp.modulus,
+                    proof.bsb22_commitments[i], [])
+            else:
+                val = hash_to_fr(
+                    g1_to_bytes(curve, proof.bsb22_commitments[i],
+                                compressed=False),
+                    b"BSB22-Plonk", q,
+                )[0]
+            pi = (pi + val * lagrange_at(ci)) % q
 
     l_z = proof.batch_claimed[1]
     r_z = proof.batch_claimed[2]

@@ -12,9 +12,7 @@ of the qualified name, matching the reference's scheme in spirit) so compiled
 circuits serialize/deserialize against the registry.
 
 Copied from gnark_icicle_tpu/constraint/hints.py:1, so that the port imports nothing of
-the JAX package; tests/test_torch_copies.py holds it to the original. The
-BSB22 placeholder hint raises NotImplementedError: commitments are not
-ported yet (they need hash_to_field and pedersen).
+the JAX package; tests/test_torch_copies.py holds it to the original.
 """
 
 from __future__ import annotations
@@ -92,9 +90,20 @@ def randomize_hint(q: int, inputs: list) -> list:
 
 
 def bsb22_placeholder_hint(q: int, inputs: list) -> list:
-    """Commitment wire placeholder (≙ cs.Bsb22CommitmentComputePlaceholder,
-    reference: frontend/cs/commitment.go:15-29); not ported yet."""
-    raise NotImplementedError("BSB22 commitments are not ported yet")
+    """Commitment wire placeholder, replaced by the prover's real Pedersen
+    commitment at prove time (≙ cs.Bsb22CommitmentComputePlaceholder,
+    reference: frontend/cs/commitment.go:15-29).
+
+    Outside Prove (engine runs, solver-only tests) it returns a nonzero
+    value derived deterministically from the committed inputs so solving
+    succeeds — as the reference does under `go test` — but such a "proof"
+    is NOT sound; groth16.prove always overrides this hint.
+    """
+    from ..backend.hash_to_field import hash_to_fr
+
+    msg = b"".join(int(v % q).to_bytes(32, "big") for v in inputs)
+    v = hash_to_fr(msg, b"bsb22-placeholder", q)[0]
+    return [v if v != 0 else 1]
 
 
 INV_OR_ZERO = register_hint(inv_or_zero_hint, "core.inv_or_zero")

@@ -2179,16 +2179,19 @@ __global__ void __launch_bounds__(COMBINE_T) k_reduce(const ReduceArgs a) {
   else reduce_combine_stage<E, B3>(a, smem);
 }
 
-// Horner, one warp: sum_w 2^(cw) S_w over the W lanes of S (stride W) into
-// out (stride 1)
+// Horner, one warp a problem: block m sums 2^(cw) S_w over its W windows,
+// lanes m W .. m W + W - 1 of S (plane stride M W), into lane m of out
+// (plane stride M). The M warps run on SMs of their own, side by side.
 template <class E, class B3>
 __global__ void __launch_bounds__(32)
-k_horner(const uint32_t* S, long long W, int c, uint32_t* out, const uint32_t* b3_row) {
+k_horner(const uint32_t* S, long long W, long long M, int c, uint32_t* out,
+         const uint32_t* b3_row) {
   __shared__ E res[3];
   __shared__ E bank[12];
   const CanonB3<B3> b3{B3(b3_row)};
   const int lane = threadIdx.x;
-  auto src = [&](long long w) { return PlanePt<E>{S, W, w}; };
+  const long long m = blockIdx.x;
+  auto src = [&](long long w) { return PlanePt<E>{S, M * W, m * W + w}; };
   if (lane < 3) res[lane] = lane == 0 ? src(W - 1).x() : lane == 1 ? src(W - 1).y() : src(W - 1).z();
   __syncwarp();
   for (long long w = W - 2; w >= 0; --w) {
@@ -2207,7 +2210,7 @@ k_horner(const uint32_t* S, long long W, int c, uint32_t* out, const uint32_t* b
     hadd_finish<E>(res, bank, lane);
     __syncwarp();
   }
-  if (lane < 3) Coord<E>::store(out + (long long)lane * E::N * Coord<E>::NP, 1, 0, res[lane]);
+  if (lane < 3) Coord<E>::store(out + (long long)lane * E::N * Coord<E>::NP * M, M, m, res[lane]);
 }
 
 // one stage of k_reduce; its largest stage's shared memory allowed first
@@ -2248,13 +2251,13 @@ static int launch_reduce_combine(const void* T, const void* A, long long ld, lon
                               combine_bytes<E>(), stream);
 }
 
-// Horner over W windows, one warp
+// Horner over W windows of each of M problems, one warp a problem
 template <class E, class B3>
-static int launch_horner(const void* S, long long W, int c, void* out, const void* b3,
-                         void* stream) {
-  if (W <= 0) return (int)cudaErrorInvalidValue;
-  k_horner<E, B3><<<1, 32, 0, (cudaStream_t)stream>>>((const uint32_t*)S, W, c, (uint32_t*)out,
-                                                      (const uint32_t*)b3);
+static int launch_horner(const void* S, long long W, long long M, int c, void* out,
+                         const void* b3, void* stream) {
+  if (W <= 0 || M <= 0 || M > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  k_horner<E, B3><<<(unsigned int)M, 32, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)S, W, M, c, (uint32_t*)out, (const uint32_t*)b3);
   return (int)cudaGetLastError();
 }
 #endif  // __CUDACC__

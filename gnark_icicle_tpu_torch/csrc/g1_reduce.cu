@@ -14,10 +14,13 @@
 // buckets (2 W B complete adds of 12 products, bound by the multiply rate;
 // V fills the card); g1_reduce_combine, one block per window: serial runs,
 // a suffix scan over the threads and a tree in shared memory (O(V) adds,
-// latency-bound); g1_horner, one warp whose lanes take each round's
-// independent products (bound by the chain of c (W - 1) doubles, each at
-// its latency; the warp brings a double's chain from 8 products to 2: on
-// an H100 2.7-6.4x faster than the same chain on one thread, PERF.md).
+// latency-bound); g1_horner, one warp a problem whose lanes take each
+// round's independent products (bound by the chain of c (W - 1) doubles,
+// each at its latency; the warp brings a double's chain from 8 products to
+// 2: on an H100 2.7-6.4x faster than the same chain on one thread,
+// PERF.md). A batch of M problems (ops/msm.py msm_batch) is one launch of
+// each: the running sums and the combine over its M W windows, Horner on M
+// warps side by side.
 // The entries take g2 = 0 for G1's b3 and g2 = 1 for G2's, which only
 // BW6-761's build has on these entries, and refuse any other.
 #include "field.cuh"
@@ -47,7 +50,7 @@ extern "C" int ENTRY(g1_reduce_combine)(const void* T, const void* A, long long 
   G1_DISPATCH(launch_reduce_combine, T, A, ld, W, V, log_m, out, b3, stream)
 }
 
-extern "C" int ENTRY(g1_horner)(const void* S, long long W, int c, void* out, const void* b3,
-                         int g2, void* stream) {
-  G1_DISPATCH(launch_horner, S, W, c, out, b3, stream)
+extern "C" int ENTRY(g1_horner)(const void* S, long long W, long long M, int c, void* out,
+                         const void* b3, int g2, void* stream) {
+  G1_DISPATCH(launch_horner, S, W, M, c, out, b3, stream)
 }

@@ -12,8 +12,9 @@
 // At most three launches per MSM (field.cuh, "the reduction and Horner
 // kernels"): g2_bucket_reduce (running sums; 2 W B complete adds of 36 Fp
 // products, more with b3's, bound by the multiply rate), g2_reduce_combine
-// (one block per window, latency-bound) and g2_horner (one warp; bound by
-// its chain of doubles, each at its latency). Every G2 coordinate is 16
+// (one block per window, latency-bound) and g2_horner (one warp a problem;
+// bound by its chain of doubles, each at its latency; M problems of
+// msm_batch are M warps of one launch). Every G2 coordinate is 16
 // words or more, so the running sums hold their points and the add's
 // temporaries in shared memory and run one out-of-line add and double
 // (k_add spilled up to 1,176 bytes at N = 12). The entries take g2 = 1
@@ -36,8 +37,8 @@ extern "C" int ENTRY(g2_reduce_combine)(const void* T, const void* A, long long 
   return launch_reduce_combine<G2E, G2B3>(T, A, ld, W, V, log_m, out, b3, stream);
 }
 
-extern "C" int ENTRY(g2_horner)(const void* S, long long W, int c, void* out, const void* b3,
-                         int g2, void* stream) {
+extern "C" int ENTRY(g2_horner)(const void* S, long long W, long long M, int c, void* out,
+                         const void* b3, int g2, void* stream) {
   if (g2 != 1) return (int)cudaErrorInvalidValue;
-  return launch_horner<G2E, G2B3>(S, W, c, out, b3, stream);
+  return launch_horner<G2E, G2B3>(S, W, M, c, out, b3, stream);
 }

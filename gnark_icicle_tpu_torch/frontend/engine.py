@@ -8,8 +8,6 @@ cross-check engine vs solver on the same assignments (test strategy §4.1).
 
 Copied from gnark_icicle_tpu/frontend/engine.py:1, so that the port imports nothing of
 the JAX package; tests/test_torch_copies.py holds it to the original.
-``Engine.commit`` raises NotImplementedError: BSB22 commitments are not
-ported yet.
 """
 
 from __future__ import annotations
@@ -158,9 +156,14 @@ class Engine:
         return [o % self.q for o in outs]
 
     def commit(self, *vs):
-        """Stand-in commitment (≙ the reference test engine's Commit,
-        test/engine.go); not ported yet."""
-        raise NotImplementedError("BSB22 commitments are not ported yet")
+        """Deterministic stand-in commitment — hash of the committed values,
+        nonzero (≙ the reference test engine's Commit, test/engine.go:
+        cSHAKE128 over the values with a 0→1 fallback)."""
+        from ..backend.hash_to_field import hash_to_fr
+
+        msg = b"".join(self._v(x).to_bytes(32, "big") for x in vs)
+        v = hash_to_fr(msg, b"engine-commit", self.q)[0]
+        return v if v != 0 else 1
 
     def defer_(self, cb):
         """Run cb(api) after define returns (≙ api.Compiler().Defer)."""

@@ -79,7 +79,7 @@ SIGNATURES = {
     **{f"{g}_reduce": {
         f"{g}_bucket_reduce": [_P, _I64, _I32, _P, _P, _I32, _P],
         f"{g}_reduce_combine": [_P, _P, _I64, _I64, _I32, _I32, _P, _P, _I32, _P],
-        f"{g}_horner": [_P, _I64, _I32, _P, _P, _I32, _P],
+        f"{g}_horner": [_P, _I64, _I64, _I32, _P, _P, _I32, _P],
     } for g in ("g1", "g2")},
 }
 

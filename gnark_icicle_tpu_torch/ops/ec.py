@@ -153,6 +153,83 @@ class DevField2:
         return list(zip(self.base.decode(a[0]), self.base.decode(a[1])))
 
 
+class IntField:
+    """DevField's interface over lists of Python ints, one a lane, in
+    Montgomery form: the canonical values that the limb arithmetic gives
+    (a·b·R⁻¹, a ± b mod p). The plain group law takes it for a few lanes on
+    the CPU (``ops/ec_t.py`` ``_plain``), where the limb arithmetic costs
+    about a millisecond a call whatever the lane count."""
+
+    def __init__(self, F: Field):
+        self.F = F
+        self.p = F.modulus
+
+    def mul(self, a, b):
+        p, rinv = self.p, self.F.rinv
+        return [x * y * rinv % p for x, y in zip(a, b)]
+
+    def add(self, a, b):
+        p = self.p
+        return [(x + y) % p for x, y in zip(a, b)]
+
+    def sub(self, a, b):
+        p = self.p
+        return [(x - y) % p for x, y in zip(a, b)]
+
+    def neg(self, a):
+        return [-x % self.p for x in a]
+
+    def mul_many(self, pairs):
+        return [self.mul(a, b) for a, b in pairs]
+
+    def add_many(self, pairs):
+        return [self.add(a, b) for a, b in pairs]
+
+    def sub_many(self, pairs):
+        return [self.sub(a, b) for a, b in pairs]
+
+    def const(self, value: int, like):
+        return [value % self.p * self.F.R % self.p] * len(like)
+
+
+class IntField2:
+    """DevField2's interface over (c0, c1) pairs of IntField lanes, u² = β."""
+
+    def __init__(self, F: Field, beta: int):
+        self.base = IntField(F)
+        self.p, self.beta = F.modulus, beta
+
+    def mul(self, a, b):
+        p, rinv, beta = self.p, self.base.F.rinv, self.beta
+        c0 = [(x0 * y0 + beta * x1 * y1) * rinv % p
+              for x0, x1, y0, y1 in zip(a[0], a[1], b[0], b[1])]
+        c1 = [(x0 * y1 + x1 * y0) * rinv % p
+              for x0, x1, y0, y1 in zip(a[0], a[1], b[0], b[1])]
+        return (c0, c1)
+
+    def add(self, a, b):
+        return (self.base.add(a[0], b[0]), self.base.add(a[1], b[1]))
+
+    def sub(self, a, b):
+        return (self.base.sub(a[0], b[0]), self.base.sub(a[1], b[1]))
+
+    def neg(self, a):
+        return (self.base.neg(a[0]), self.base.neg(a[1]))
+
+    def mul_many(self, pairs):
+        return [self.mul(a, b) for a, b in pairs]
+
+    def add_many(self, pairs):
+        return [self.add(a, b) for a, b in pairs]
+
+    def sub_many(self, pairs):
+        return [self.sub(a, b) for a, b in pairs]
+
+    def const(self, value, like):
+        c0, c1 = (value.c0, value.c1) if hasattr(value, "c0") else value
+        return (self.base.const(c0, like[0]), self.base.const(c1, like[1]))
+
+
 class DevCurve:
     """Batched a=0 group law over a field adapter; ``b3`` = 3·b, a host int
     for G1 and a host Fp2 or (c0, c1) pair for G2."""

@@ -36,8 +36,9 @@ Kernels (``csrc/g1.cu``, ``csrc/g2.cu``; the reduction and Horner in
   Σ_b (b+1)·S_{w,b} per window in two launches (``reduce_runs``, the running
   sums over chunks of M buckets; ``reduce_combine``, one block a window) and
   Horner Σ_w 2^(c·w)·S_w in one (a warp's lanes take each round's
-  independent products), where the reference launches one add or double
-  per round of its scans and Horner loop;
+  independent products; one warp a problem over the M problems of
+  ``msm_batch``), where the reference launches one add or double per round
+  of its scans and Horner loop;
 * ``add`` and ``double`` — the complete RCB16 add and double, the products
   of K2/K3 fused per call (the MSM's fold of split buckets; the double has
   no caller on the path).
@@ -48,7 +49,8 @@ b3 is a small integer); the wrapper passes which group its b3 is
 (``group_flag``: 0 G1, 1 G2) and launches nothing for a b3 of neither.
 
 For CPU tensors each method runs the plain version, ``ops/ec.py``
-``DevCurve``; for CUDA tensors it launches the kernel or raises.
+``DevCurve`` (a few lanes on Python ints: ``IntField``, the same canonical
+values); for CUDA tensors it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -57,8 +59,8 @@ import torch
 
 from ..curves import bls12_377, bls12_381, bn254, bw6_761
 from .cuda import Kernel, is_cuda, require, stream
-from .ec import DevCurve, DevField, DevField2
-from .field import Field, from_lanes, ints_to_limbs32, limbs32_to_ints, to16, to32
+from .ec import DevCurve, DevField, DevField2, IntField, IntField2
+from .field import Field, from_lanes, ints_to_limbs32, limbs32_to_ints, to16, to32, to_lanes
 
 
 # entries of one group, in the order of _group_kernels; all but B3_FREE
@@ -171,6 +173,7 @@ class _TCurveBase:
         g1_b3, g2_b3 = _GROUP_B3.get(F.modulus, (None, None))
         self.group_flag = 0 if b3 == g1_b3 else 1 if b3 == g2_b3 else None
         self._b3: dict = {}
+        self._icurve = None
         self._kernels = EC_KERNELS.get(F.modulus, {}).get(self.GROUP)
         self.planes = 3 * self.NP
         self.row = 2 * self.W * self.NP
@@ -262,13 +265,12 @@ class _TCurveBase:
         k = lanes.shape[0]
         if k == 0:
             return
-        x, y = self._coords(
-            table[idx[lanes].long()].T.reshape(2 * self.NP, self.W, k))
+        Q = table[idx[lanes].long()].T.reshape(2 * self.NP, self.W, k)
         if sign is not None:
-            y = self.curve.f.select(sign[lanes] != 0, self.curve.f.neg(y), y)
-        sub = acc[:, :, lanes]
-        acc[:, :, lanes] = self._stack(
-            self.curve.add_mixed(self._coords(sub), (x, y)))
+            y = Q[self.NP:]
+            neg = torch.stack([self.F.neg(c) for c in y])
+            Q = torch.cat([Q[:self.NP], torch.where(sign[lanes] != 0, neg, y)])
+        acc[:, :, lanes] = self._plain("add_mixed", acc[:, :, lanes], Q)
 
     def add_mixed_masked(self, acc, S: int, table, idx, sign=None, mask=None):
         """acc[..., :S] += (−1)^sign · table[idx] where mask, in place.
@@ -445,17 +447,45 @@ class _TCurveBase:
         return xy, inf
 
     # -- the MSM's bucket reduction and Horner ------------------------------
+    # a CPU batch of at most this many lanes runs the plain group law on
+    # Python ints (ops/ec.py IntField): the same canonical values
+    SMALL_LANES = 4096
+
+    def _int_curve(self) -> DevCurve:
+        if self._icurve is None:
+            f = (IntField(self.F) if self.NP == 1
+                 else IntField2(self.F, self.curve.f.beta))
+            self._icurve = DevCurve(f, self.curve.b3_host)
+        return self._icurve
+
+    def _plain(self, op: str, *Ps):
+        """DevCurve's ``op`` ("add", "add_mixed" or "double") of (planes,
+        W, ...) batches (an affine operand: 2·NP planes). A few canonical
+        lanes on the CPU run it on Python ints, decoded once a call, in the
+        same order of operations."""
+        shape = Ps[0].shape
+        flat = [P.reshape(P.shape[0], self.W, -1) for P in Ps]
+        n = flat[0].shape[2]
+        if flat[0].device.type == "cpu" and 0 < n <= self.SMALL_LANES:
+            planes = [[limbs32_to_ints(from_lanes(c)) for c in P] for P in flat]
+            q = self.F.modulus
+            if all(v < q for pl in planes for c in pl for v in c):
+                k = self.NP
+                pts = [tuple(pl) if k == 1 else
+                       tuple(tuple(pl[i:i + 2]) for i in range(0, len(pl), 2)) for pl in planes]
+                out = getattr(self._int_curve(), op)(*pts)
+                out = [x for co in out for x in ((co,) if k == 1 else co)]
+                return torch.stack([to_lanes(ints_to_limbs32(v, self.W), "cpu")
+                                    for v in out]).reshape(shape)
+        return self._stack(getattr(self.curve, op)(*[self._coords(P) for P in flat])
+                           ).reshape(shape)
+
     def _padd(self, P, Q):
         """DevCurve's add of two (planes, W, ...) batches."""
-        shape = P.shape
-        flat = (self.planes, self.W, -1)
-        return self._stack(self.curve.add(self._coords(P.reshape(flat)),
-                                          self._coords(Q.reshape(flat)))).reshape(shape)
+        return self._plain("add", P, Q)
 
     def _pdouble(self, P):
-        shape = P.shape
-        return self._stack(self.curve.double(
-            self._coords(P.reshape(self.planes, self.W, -1)))).reshape(shape)
+        return self._plain("double", P)
 
     def _check_lanes(self, *Ps):
         self._check_points(*Ps)
@@ -558,28 +588,32 @@ class _TCurveBase:
         TA = self.reduce_runs(buckets, M)
         return self.reduce_combine(TA[:self.planes], TA[self.planes:], W, V, M)
 
-    def horner_plain(self, S, c: int):
-        """The plain version of ``horner``: res = S_{W−1}; per window from
-        W − 2 down, c doubles and res += S_w."""
-        W = S.shape[2]
-        res = S[..., W - 1:W]
+    def horner_plain(self, S, c: int, M: int = 1):
+        """The plain version of ``horner``: per problem m, res = S_{W−1};
+        per window from W − 2 down, c doubles and res += S_w (the M
+        problems side by side as lanes)."""
+        g = S.reshape(self.planes, self.W, M, S.shape[2] // M)
+        W = g.shape[3]
+        res = g[..., W - 1]
         for w in range(W - 2, -1, -1):
             for _ in range(c):
                 res = self._pdouble(res)
-            res = self._padd(res, S[..., w:w + 1])
+            res = self._padd(res, g[..., w])
         return res.contiguous()
 
-    def horner(self, S, c: int):
-        """Σ_w 2^(c·w)·S_w of the window sums S (planes, W, W) -> (planes,
-        W, 1): one warp, each round's independent products on lanes of
-        their own."""
+    def horner(self, S, c: int, M: int = 1):
+        """Σ_w 2^(c·w)·S_w of each of M problems' window sums: S (planes,
+        W, M·Wn), problem m's Wn windows at lanes m·Wn .. m·Wn + Wn − 1 ->
+        (planes, W, M). One launch of M warps, one a problem, each round's
+        independent products on lanes of their own."""
+        require(M >= 1 and S.shape[2] >= M and S.shape[2] % M == 0,
+                "Horner takes at least one window a problem, M problems of equal width")
         if not is_cuda(S):
-            return self.horner_plain(S, c)
+            return self.horner_plain(S, c, M)
         kernel = self._kernel(6)
         self._check_lanes(S)
-        require(S.shape[2] >= 1, "Horner takes at least one window")
-        out = torch.empty((self.planes, self.W, 1), dtype=torch.int32, device=S.device)
-        kernel.launch(S.data_ptr(), S.shape[2], c, out.data_ptr(),
+        out = torch.empty((self.planes, self.W, M), dtype=torch.int32, device=S.device)
+        kernel.launch(S.data_ptr(), S.shape[2] // M, M, c, out.data_ptr(),
                       self.b3_row(S.device).data_ptr(), self.group_flag, stream(S))
         return out
 

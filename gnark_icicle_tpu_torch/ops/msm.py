@@ -36,18 +36,27 @@ reference's identity, :410) in one block per window with O(V) adds; then
 ``horner`` is one launch. The order of the adds differs from the
 reference's, so the projective limbs do too; the affine point is the same.
 
+``msm_batch`` (the reference's :710-912) runs M equal-size MSMs as one
+launch set: each problem's W windows stack into M·W global windows,
+problem-major (:760-763), so the bucket sums are one accumulation over
+M·W·B runs (point indices lifted by m·N where each problem has a table of
+its own, :790-797), the reduction one over M·W windows and Horner one
+launch of M warps. ``msm`` is ``msm_batch`` of one problem. The ≤128-point
+path is not ported.
+
 Inputs: an affine point table of rows (``TCurve.table``), an ``(N,)`` bool
 infinity mask (those lanes go to the trash bucket B, as at :540-542), and
 the scalars as plain-form ``(Wr, N)`` int32 32-bit limbs (Wr words of the
 scalar field: 8, or 12 for BW6-761 r). The result is one projective point,
-``(planes, W, 1)``.
+``(planes, W, 1)``; ``msm_batch`` takes an ``(M, N)`` mask and ``(M, Wr,
+N)`` scalars and gives ``(planes, W, M)``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .cuda import resolve_device
+from .cuda import require, resolve_device
 from .ec_t import _TCurveBase, resident_lanes
 from .field import ints_to_limbs32, to_lanes, words_for
 
@@ -128,30 +137,44 @@ class MSMKernel:
 
     # -- phase 2: bucket sums -----------------------------------------------
     def _runs(self, inf_mask: torch.Tensor, scalars: torch.Tensor, c: int):
-        """The (window, bucket) runs of an MSM: (order, sign, starts, counts,
-        W, B) with order and sign the (W·n,) int32 point index and digit sign
-        by flat sorted position, starts and counts (W·B,) int64."""
+        """``_runs_batch`` of one MSM: inf_mask (n,), scalars (Wr, n)."""
+        return self._runs_batch(inf_mask[None], scalars[None], c, True)
+
+    def _runs_batch(self, inf_mask: torch.Tensor, scalars: torch.Tensor, c: int,
+                    shared: bool):
+        """The (window, bucket) runs of M MSMs over M·W global windows,
+        problem-major (problem m's windows are rows m·W .. m·W + W − 1): (order,
+        sign, starts, counts, W, B) with order and sign the (M·W·n,) int32
+        point index and digit sign by flat sorted position, starts and counts
+        (M·W·B,) int64, W the windows of one problem. inf_mask: (M, n);
+        scalars: (M, Wr, n). With ``shared`` False the table holds each
+        problem's n points in turn, and problem m's indices are lifted by
+        m·n (gnark_icicle_tpu/ops/msm.py:790-797)."""
         dev = scalars.device
-        n = scalars.shape[1]
+        M, Wr, n = scalars.shape
         B = 1 << (c - 1)
-        digits = self._signed_digits(scalars, c)                  # (W, n)
+        digits = self._signed_digits(scalars.permute(1, 0, 2).reshape(Wr, M * n), c)
         W = digits.shape[0]
+        digits = digits.reshape(W, M, n).transpose(0, 1)          # (M, W, n)
         sign = (digits < 0).to(torch.int64)
         mag = digits.abs()
-        bucket_id = torch.where((mag == 0) | inf_mask[None, :],
+        bucket_id = torch.where((mag == 0) | inf_mask[:, None, :],
                                 torch.full_like(mag, B), mag - 1)
 
         # one payload sort: the sign rides in the key's low bit, the point
         # index is the payload (the order inside a bucket does not matter)
-        key = (bucket_id << 1) | sign
+        key = ((bucket_id << 1) | sign).reshape(M * W, n)
         sorted_key, order = torch.sort(key, dim=1, stable=True)
         sorted_bid = (sorted_key >> 1).contiguous()
         sorted_sign = sorted_key & 1
+        if not shared and M > 1:
+            order = order + (torch.arange(M, device=dev) * n).repeat_interleave(W)[:, None]
 
-        bvals = torch.arange(B, device=dev).expand(W, B).contiguous()
+        rows = M * W
+        bvals = torch.arange(B, device=dev).expand(rows, B).contiguous()
         starts = torch.searchsorted(sorted_bid, bvals, right=False)
         counts = torch.searchsorted(sorted_bid, bvals, right=True) - starts
-        starts = starts + (torch.arange(W, device=dev) * n)[:, None]
+        starts = starts + (torch.arange(rows, device=dev) * n)[:, None]
         return (order.reshape(-1).to(torch.int32), sorted_sign.reshape(-1).to(torch.int32),
                 starts.reshape(-1), counts.reshape(-1), W, B)
 
@@ -212,21 +235,45 @@ class MSMKernel:
     # -- the MSM ---------------------------------------------------------------
     def msm(self, table: torch.Tensor, inf_mask: torch.Tensor,
             scalars: torch.Tensor, c: int) -> torch.Tensor:
-        """Σ_i s_i·P_i -> (planes, W, 1) projective."""
-        return self._msm(table, inf_mask, scalars, c,
-                         segment_length(scalars.shape[1], c, self.scalar_bits,
-                                        resident_lanes(table.device)))
+        """Σ_i s_i·P_i -> (planes, W, 1) projective: ``msm_batch`` of one
+        problem."""
+        return self.msm_batch(table, inf_mask[None], scalars[None], c)
+
+    def msm_batch(self, table: torch.Tensor, inf_mask: torch.Tensor,
+                  scalars: torch.Tensor, c: int) -> torch.Tensor:
+        """M equal-size MSMs as one launch set (gnark_icicle_tpu/ops/msm.py
+        :710 ``msm_batch``): table (M·N, row), problem m's points at rows
+        m·N .. m·N + N − 1, or any other height ≥ N, shared by every
+        problem (KZG's SRS);
+        inf_mask (M, N); scalars (M, Wr, N) -> (planes, W, M), column m =
+        Σ_i s[m, i]·P[m, i]."""
+        M, n = inf_mask.shape
+        return self._msm_batch(table, inf_mask, scalars, c,
+                               segment_length(M * n, c, self.scalar_bits,
+                                              resident_lanes(table.device)))
 
     def _msm(self, table, inf_mask, scalars, c: int, seg: int) -> torch.Tensor:
-        """msm with lanes of at most seg points (tests split small MSMs):
-        bucket sums, then Σ_b (b+1)·S_{w,b} per window (bucket_reduce) and
-        Σ_w 2^(c·w)·S_w (horner)."""
+        """msm with lanes of at most seg points (tests split small MSMs)."""
+        return self._msm_batch(table, inf_mask[None], scalars[None], c, seg)
+
+    def _msm_batch(self, table, inf_mask, scalars, c: int, seg: int) -> torch.Tensor:
+        """msm_batch with lanes of at most seg points: the M problems' W
+        windows stack into M·W global windows, so the bucket sums are one
+        accumulation over M·W·B runs (one ``bucket_accumulate`` launch),
+        then Σ_b (b+1)·S_{w,b} per global window (``bucket_reduce``: at most
+        two launches over M·W windows) and Σ_w 2^(c·w)·S_w per problem
+        (``horner``: one launch of M warps)."""
         tc = self.tc
-        order, sign, starts, counts, W, B = self._runs(inf_mask, scalars, c)
+        M, n = inf_mask.shape
+        require(scalars.dim() == 3 and scalars.shape[0] == M and scalars.shape[2] == n,
+                "scalars must be (M, Wr, N) beside an (M, N) infinity mask")
+        shared = M == 1 or table.shape[0] != M * n
+        require(table.shape[0] >= n, "the table holds fewer than N points")
+        order, sign, starts, counts, W, B = self._runs_batch(inf_mask, scalars, c, shared)
         buckets = self._accumulate(table, order, sign, starts, counts, seg)
-        V = reduce_chunks(W, B, resident_lanes(table.device))
-        per_window = tc.bucket_reduce(buckets, W, V)              # (pl, K, W)
-        return tc.horner(per_window, c)
+        V = reduce_chunks(M * W, B, resident_lanes(table.device))
+        per_window = tc.bucket_reduce(buckets, M * W, V)          # (pl, K, M·W)
+        return tc.horner(per_window, c, M)
 
 
 def msm_host(tc: _TCurveBase, scalar_field, points_host, scalars_host,

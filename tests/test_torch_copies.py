@@ -419,15 +419,20 @@ def test_transcript_matches(curve):
 
 def test_transcript_binds_bw6_761_elements_in_48_bytes():
     """gnark-crypto's fr.Bytes for BW6-761's 377-bit r (the original's 32
-    overflow above 2^256); mimc is not ported."""
+    overflow above 2^256); the MiMC transcript binds field elements, and
+    gives the original's challenges there too."""
+    from gnark_icicle_tpu.backend import transcript as ref_ts
     from gnark_icicle_tpu_torch.backend import transcript as ts
 
     q = bw6_761.R
     t = ts.make_transcript(q, [b"x"])
     t.bind_fr(b"x", q - 1)
     assert bytes(t._bindings[b"x"]) == (q - 1).to_bytes(48, "big")
-    with pytest.raises(NotImplementedError):
-        ts.make_transcript(q, [b"x"], "mimc")
+    got, want = ts.make_transcript(q, [b"x"], "mimc"), ref_ts.make_transcript(q, [b"x"], "mimc")
+    for tr, c in ((got, bw6_761.BW6_761), (want, ref_bw6.BW6_761)):
+        tr.bind_fr(b"x", q - 1)
+        tr.bind_point(b"x", c, c.g1.generator)
+    assert got.challenge(b"x") == want.challenge(b"x")
 
 
 def _scs_chain(fe, q, steps=6):
@@ -493,3 +498,140 @@ def test_plonk_verify_and_keys_copy_match():
         ref_pf = ref_plonk.Proof(**{f.name: getattr(pf, f.name)
                                     for f in dataclasses.fields(pf)})
         assert ref_plonk.is_valid(ref_pf, vk, pub, ref_bn254.BN254) is ok
+
+
+# the four curves' scalar fields, for the MiMC copies
+FR = {"bn254": bn254.R, "bls12_381": bls12_381.R, "bls12_377": bls12_377.R,
+      "bw6_761": bw6_761.R}
+
+
+def _seeded_bytes(seed: int, n: int) -> bytes:
+    import numpy as np
+
+    return np.random.default_rng(seed).integers(0, 256, n, dtype=np.uint8).tobytes()
+
+
+def test_keccak256_matches():
+    """Legacy Keccak-256 on seeded messages of 0-300 bytes (every padding
+    case around the 136-byte rate)."""
+    from gnark_icicle_tpu.std.hash import mimc as ref_mimc
+    from gnark_icicle_tpu_torch.std.hash import mimc
+
+    for n in (0, 1, 134, 135, 136, 137, 300):
+        msg = _seeded_bytes(800 + n, n)
+        assert mimc.keccak256(msg) == ref_mimc.keccak256(msg)
+
+
+@pytest.mark.parametrize("curve", sorted(FR))
+def test_mimc_matches(curve):
+    """MiMCHost (write, sum, reset), mimc_hash and the round parameters on
+    each curve's r, on seeded values (0, 1 and r − 1 among them)."""
+    from gnark_icicle_tpu.std.hash import mimc as ref_mimc
+    from gnark_icicle_tpu_torch.std.hash import mimc
+
+    from test_torch_common import rand_ints
+
+    q = FR[curve]
+    vals = rand_ints(810, q, 6)
+    assert mimc.mimc_params(q) == ref_mimc.mimc_params(q)
+    assert mimc.mimc_hash(q, vals) == ref_mimc.mimc_hash(q, vals)
+    h, rh = mimc.MiMCHost(q), ref_mimc.MiMCHost(q)
+    h.write(*vals[:3])
+    rh.write(*vals[:3])
+    assert h.sum(*vals[3:]) == rh.sum(*vals[3:])
+    h.reset()
+    rh.reset()
+    assert h.sum(q - 1) == rh.sum(q - 1)
+
+
+def test_hash_to_field_matches():
+    """expand_message_xmd, hash_to_fr, serialize_commitment and the two
+    commitment hashes (MiMC with the point absorbed whole and as 64-bit
+    limbs; EVM with sha256 and keccak256) on seeded inputs."""
+    from gnark_icicle_tpu.backend import hash_to_field as ref_h2f
+    from gnark_icicle_tpu_torch.backend import hash_to_field as h2f
+
+    from test_torch_common import rand_ints
+
+    for n in (0, 32, 96):
+        msg = _seeded_bytes(820 + n, n)
+        for length in (1, 48, 100):
+            assert h2f.expand_message_xmd(msg, b"dst", length) == \
+                ref_h2f.expand_message_xmd(msg, b"dst", length)
+        for q in (bn254.R, bw6_761.R):
+            assert h2f.hash_to_fr(msg, h2f.COMMITMENT_DST, q, 3) == \
+                ref_h2f.hash_to_fr(msg, ref_h2f.COMMITMENT_DST, q, 3)
+    assert (h2f.COMMITMENT_DST, h2f.G16_FOLD_DST, h2f.MIMC_COMMITMENT_TAG) == \
+        (ref_h2f.COMMITMENT_DST, ref_h2f.G16_FOLD_DST, ref_h2f.MIMC_COMMITMENT_TAG)
+    vals = rand_ints(830, bn254.R, 4)
+    pt = bn254.BN254.g1.scalar_mul(bn254.BN254.g1.generator, 12345)
+    assert h2f.serialize_commitment(b"pt", vals, 32) == ref_h2f.serialize_commitment(b"pt", vals,
+                                                                                      32)
+    # the native 2-chain (BLS12-377's Fp fits BW6-761's r) and BN254 in
+    # BN254's own r (its Fp does not fit: limbs)
+    for outer, inner_r, inner_p, point in ((bw6_761.R, bls12_377.R, bls12_377.P,
+                                            bls12_377.BLS12_377.g1.generator),
+                                           (bn254.R, bn254.R, bn254.P, pt),
+                                           (bn254.R, bn254.R, bn254.P, None)):
+        assert h2f.mimc_commitment_hash(outer, inner_r, inner_p, point, vals) == \
+            ref_h2f.mimc_commitment_hash(outer, inner_r, inner_p, point, vals)
+    for name in ("sha256", "keccak256"):
+        for point in (pt, None):
+            assert h2f.evm_commitment_hash(name, bn254.R, point, vals) == \
+                ref_h2f.evm_commitment_hash(name, bn254.R, point, vals)
+
+
+def test_pedersen_matches():
+    """commit, prove_knowledge, fold_proofs and batch_verify_multi_vk on
+    seeded keys of two commitments over BN254 (a zero value and a point at
+    infinity among them), accepted and, with a tampered proof, rejected by
+    both."""
+    from gnark_icicle_tpu.backend import pedersen as ref_ped
+    from gnark_icicle_tpu.curves import bn254 as rb
+    from gnark_icicle_tpu_torch.backend import pedersen
+
+    from test_torch_common import rand_ints
+
+    c = bn254.BN254
+    g1, g2 = c.g1, c.g2
+    q = c.fr.modulus
+    ks = rand_ints(840, q, 8, edge=False)
+    values = [[0, 5, q - 1], [ks[7]]]
+    pks, vks, rpks, rvks = [], [], [], []
+    gq = g2.scalar_mul(g2.generator, ks[0])
+    for i, vals in enumerate(values):
+        sigma = ks[1 + i]
+        basis = [g1.scalar_mul(g1.generator, k) for k in ks[3:3 + len(vals)]]
+        basis[0] = None if i == 1 else basis[0]
+        sig = [None if b is None else g1.scalar_mul(b, sigma) for b in basis]
+        pks.append(pedersen.PedersenProvingKey(basis=basis, basis_exp_sigma=sig))
+        rpks.append(ref_ped.PedersenProvingKey(basis=basis, basis_exp_sigma=sig))
+        neg = g2.scalar_mul(gq, (q - sigma) % q)
+        vks.append(pedersen.PedersenVerifyingKey(g=gq, g_sigma_neg=neg))
+        rvks.append(ref_ped.PedersenVerifyingKey(g=gq, g_sigma_neg=neg))
+    cms = [pedersen.commit(c, pk, v) for pk, v in zip(pks, values)]
+    assert cms == [ref_ped.commit(rb.BN254, pk, v) for pk, v in zip(rpks, values)]
+    poks = [pedersen.prove_knowledge(c, pk, v) for pk, v in zip(pks, values)]
+    assert poks == [ref_ped.prove_knowledge(rb.BN254, pk, v) for pk, v in zip(rpks, values)]
+    folded = pedersen.fold_proofs(c, poks, ks[6])
+    assert folded == ref_ped.fold_proofs(rb.BN254, poks, ks[6])
+    bad = g1.add(folded, g1.generator)
+    for pok, ok in ((folded, True), (bad, False)):
+        assert pedersen.batch_verify_multi_vk(c, vks, cms, pok, ks[6]) is ok
+        assert ref_ped.batch_verify_multi_vk(rb.BN254, rvks, cms, pok, ks[6]) is ok
+
+
+def test_engine_commit_and_placeholder_hint_match():
+    """Engine.commit and the BSB22 placeholder hint: the originals' values."""
+    from gnark_icicle_tpu.constraint import hints as ref_hints
+    from gnark_icicle_tpu.frontend.engine import Engine as RefEngine
+    from gnark_icicle_tpu_torch.constraint import hints
+    from gnark_icicle_tpu_torch.frontend.engine import Engine
+
+    from test_torch_common import rand_ints
+
+    for q in (bn254.R, bls12_377.R):
+        vals = rand_ints(850, q, 5)
+        assert Engine(q).commit(*vals) == RefEngine(q).commit(*vals)
+        assert hints.bsb22_placeholder_hint(q, vals) == ref_hints.bsb22_placeholder_hint(q, vals)
+    assert hints.BSB22_PLACEHOLDER == ref_hints.BSB22_PLACEHOLDER

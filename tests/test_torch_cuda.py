@@ -317,6 +317,71 @@ def test_reduction_kernels_match_plain(cuda_device, name, group):
 
 @pytest.mark.parametrize("name", NAMES)
 @pytest.mark.parametrize("group", ["g1", "g2"])
+def test_batched_horner_matches_plain(cuda_device, name, group):
+    """Horner over M = 1, 2 and 3 problems (one warp a problem) against its
+    plain version, limb for limb, and each problem against a launch of its
+    own: random window sums with identity windows and a problem all
+    identity; W = 5, c = 4 and the Chain's W = 17, c = 16."""
+    P = CURVES[name].fp.modulus
+    tc = _group(CURVES[name], group)
+    F = tc.F
+    for W, c in ((5, 4), (17, 16)):
+        for M in (1, 2, 3):
+            S = torch.stack([F.encode(rand_ints(470 + 10 * M + i, P, M * W), cuda_device)
+                             for i in range(tc.planes)])
+            S[..., 1::4] = tc.identity(S[..., 1::4].shape[2], cuda_device)
+            if M > 1:
+                S[..., W:2 * W] = tc.identity(W, cuda_device)   # problem 1: all identity
+            got = tc.horner(S, c, M)
+            assert got.shape[2] == M
+            assert torch.equal(got, tc.horner_plain(S, c, M))
+            for m in range(M):
+                one = tc.horner(S[..., m * W:(m + 1) * W].contiguous(), c)
+                assert torch.equal(got[..., m:m + 1], one)
+
+
+@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("group", ["g1", "g2"])
+@pytest.mark.parametrize("table", ["shared", "per_problem"])
+def test_msm_batch_matches_separate_msms(cuda_device, name, group, table):
+    """msm_batch of M = 3 problems of 300 points (every 7th at infinity)
+    against three msm calls, in affine form: random scalars, a problem all
+    zero, and a skewed one (mostly 1 and r − 1) whose buckets are split;
+    one table shared by the three or one a problem."""
+    from gnark_icicle_tpu_torch.ops.field import ints_to_limbs32, to_lanes
+    from gnark_icicle_tpu_torch.ops.msm import MSMKernel, pick_window
+
+    curve = CURVES[name]
+    R = curve.fr.modulus
+    grp = curve.g1 if group == "g1" else curve.g2
+    tc = _group(curve, group)
+    n, M = 300, 3
+    k0, dk = rand_ints(210, R, 2, edge=False)
+    cur, step = grp.scalar_mul(grp.generator, k0), grp.scalar_mul(grp.generator, dk)
+    pts = []
+    for i in range(M * n):
+        pts.append(None if i % 7 == 3 else cur)
+        cur = grp.add(cur, step)
+    rows = pts if table == "per_problem" else pts[:n]
+    filler = next(p for p in rows if p is not None)
+    tab = tc.table([p if p is not None else filler for p in rows], cuda_device)
+    infs = torch.tensor([p is None for p in rows], device=cuda_device)
+    inf = infs.reshape(-1, n).expand(M, n).contiguous()
+    scal = [rand_ints(211, R, n), [0] * n,
+            [s if i % 10 == 0 else (1, 1, 0, R - 1)[i % 4]
+             for i, s in enumerate(rand_ints(212, R, n))]]
+    sc = torch.stack([to_lanes(ints_to_limbs32(v, -(-R.bit_length() // 32)), cuda_device)
+                      for v in scal])
+    kern = MSMKernel(tc, R.bit_length())
+    c = pick_window(n)
+    got = tc.to_affine_host(kern.msm_batch(tab, inf, sc, c))
+    for m in range(M):
+        t_m = tab[m * n:(m + 1) * n] if table == "per_problem" else tab
+        assert got[m] == tc.to_affine_host(kern.msm(t_m, inf[m], sc[m], c))[0]
+
+
+@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("group", ["g1", "g2"])
 @pytest.mark.parametrize("scalars", ["random", "skewed"])
 def test_msm_matches_host_oracle(cuda_device, name, group, scalars):
     """300 points, every 7th at infinity. Random scalars lead with 0, 1 and
@@ -438,3 +503,70 @@ def test_plonk_on_card_verifies(cuda_device, name):
         assert _fields(vk_c) == _fields(vk)
         proof_c = plonk.prove(cs, pk_c, [v], [3], curve, rng=random.Random(2), device="cpu")
         assert _fields(proof_c) == _fields(proof)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_batched_proves_match_unbatched_on_card(cuda_device, name):
+    """Groth16 and PLONK with batch_msm=True on the card give the same proof
+    as without it under one rng (the G1 MSMs of one padded size, and
+    PLONK's round-1 and round-3 commits, as one msm_batch each)."""
+    curve = CURVES[name]
+    R = curve.fr.modulus
+    for system, circuit, steps, kw in ((groth16, Chain, STEPS, {}),
+                                       (plonk, PlonkChain, PLONK_STEPS, {"builder": "scs"})):
+        cs = compile_circuit(R, circuit, **kw)
+        v = 3
+        for i in range(steps):
+            v = (v * v + v + i) % R
+        pk, vk = system.setup(cs, curve, rng=random.Random(1), device=cuda_device)
+        proofs = [system.prove(cs, pk, [v], [3], curve, rng=random.Random(2),
+                               device=cuda_device, batch_msm=b) for b in (False, True)]
+        assert _fields(proofs[0]) == _fields(proofs[1])
+        system.verify(proofs[1], vk, [v], curve)
+
+
+class CommitChain(Circuit):
+    """A short Chain with one BSB22 commitment over the secret input and an
+    intermediate value."""
+    x = Secret()
+    out = Public()
+
+    def define(self, api):
+        v = self.x
+        for i in range(40):
+            v = api.add(api.mul(v, v), v, i)
+            if i == 20:
+                api.assert_is_different(api.commit(self.x, v), 0)
+        api.assert_is_equal(v, self.out)
+
+
+@pytest.mark.parametrize("name", ["bn254", "bls12_381"])
+def test_bsb22_proves_on_card(cuda_device, name):
+    """A circuit with api.commit through Groth16 and PLONK on the card: the
+    proofs verify, equal the CPU's under one rng (the commitment's hiding
+    mask fixed), and a tampered commitment is rejected."""
+    import secrets
+
+    curve = CURVES[name]
+    R = curve.fr.modulus
+    v = 3
+    for i in range(40):
+        v = (v * v + v + i) % R
+    mask = secrets.randbelow
+    secrets.randbelow = lambda m: 7 % m
+    try:
+        for system, kw in ((groth16, {}), (plonk, {"builder": "scs"})):
+            cs = compile_circuit(R, CommitChain, **kw)
+            proofs = {}
+            for dev in ("cpu", cuda_device):
+                pk, vk = system.setup(cs, curve, rng=random.Random(1), device=dev)
+                proofs[str(dev)] = system.prove(cs, pk, [v], [3], curve, rng=random.Random(2),
+                                                device=dev)
+            p_cpu, p_card = proofs.values()
+            assert _fields(p_cpu) == _fields(p_card)
+            system.verify(p_card, vk, [v], curve)
+            field = "commitments" if system is groth16 else "bsb22_commitments"
+            bad = dataclasses.replace(p_card, **{field: [curve.g1.generator]})
+            assert not system.is_valid(bad, vk, [v], curve)
+    finally:
+        secrets.randbelow = mask

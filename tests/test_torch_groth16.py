@@ -177,8 +177,7 @@ def test_key_carry_roundtrip(run):
     assert isinstance(pk.g2_beta[0], int) == (run["name"] == "bw6_761")
 
 
-@pytest.mark.parametrize("kw", [{"mesh": object()}, {"checkpoint_dir": "x"},
-                                {"engine": "host"}])
+@pytest.mark.parametrize("kw", [{"mesh": object()}, {"engine": "host"}])
 def test_unported_options_raise(slice_run, kw):
     with pytest.raises(NotImplementedError):
         groth16.prove(slice_run["cs"], slice_run["pk"], slice_run["pub"],

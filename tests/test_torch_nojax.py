@@ -4,8 +4,9 @@ The machine with the card has no JAX, and the port imports nothing of the
 JAX package either: a subprocess with ``jax`` and every ``gnark_icicle_tpu``
 module blocked on ``sys.meta_path`` imports every module of the port and
 runs a tiny compile → setup → prove → verify slice with the port's own
-frontend and curves (the 2-chain's curves and std/ gadgets are among the
-modules it imports). chip_smoke.py refuses to run without a GPU, and the
+frontend and curves (the 2-chain's curves and std/ gadgets, and the BSB22
+copies, are among the modules it imports; the slice's circuit has a
+commitment and proves with batch_msm=True). chip_smoke.py refuses to run without a GPU, and the
 entry points raise where there is no card and no ``device="cpu"``.
 """
 
@@ -46,7 +47,8 @@ for name in ("curves.bls12_377", "curves.bw6_761", "std.algebra_native",
              "std.algebra_towers", "std.pairing_bls12_377",
              "std.recursion.native_groth16", "backend.kzg", "backend.transcript",
              "backend.plonk.keys", "backend.plonk.setup", "backend.plonk.prove",
-             "backend.plonk.verify", "io.serialize"):
+             "backend.plonk.verify", "io.serialize", "backend.pedersen",
+             "backend.hash_to_field", "std.hash.mimc"):
     assert "gnark_icicle_tpu_torch." + name in sys.modules, name
 
 from gnark_icicle_tpu_torch.curves import bn254
@@ -63,6 +65,7 @@ class Chain(Circuit):
         v = self.x
         for i in range(STEPS):
             v = api.add(api.mul(v, v), v, i)
+        api.assert_is_different(api.commit(self.x, v), 0)   # BSB22
         api.assert_is_equal(v, self.out)
 
 v = 3
@@ -71,7 +74,7 @@ for i in range(STEPS):
 cs = compile_circuit(R, Chain)
 pk, vk = groth16.setup(cs, bn254.BN254, rng=random.Random(1), device="cpu")
 proof = groth16.prove(cs, pk, [v], [3], bn254.BN254, rng=random.Random(2),
-                      device="cpu")
+                      device="cpu", batch_msm=True)
 groth16.verify(proof, vk, [v], bn254.BN254)
 assert not groth16.is_valid(proof, vk, [v + 1], bn254.BN254)
 leaked = sorted(m for m in sys.modules

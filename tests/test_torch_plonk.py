@@ -382,30 +382,14 @@ def test_dataclass_fields_match_reference(name):
     assert ours == theirs
 
 
-@pytest.mark.parametrize("option", ["checkpoint_dir", "engine", "commitment_hash",
-                                    "fs_hash", "bsb22", "setup_engine", "batch_commit"])
+@pytest.mark.parametrize("option", ["engine", "setup_engine"])
 def test_unported_options_raise(bn254_run, option):
     r = bn254_run
     args = (r["cs"], r["pk"], r["pub"], r["sec"], r["curve"])
     calls = {
-        "checkpoint_dir": lambda: plonk.prove(*args, checkpoint_dir="x", device="cpu"),
         "engine": lambda: plonk.prove(*args, engine="host", device="cpu"),
-        "commitment_hash": lambda: plonk.prove(*args, commitment_hash=("mimc", 7),
-                                               device="cpu"),
-        "fs_hash": lambda: plonk.prove(*args, fs_hash="mimc", device="cpu"),
-        "bsb22": lambda: plonk.prove(_with_commitment(r["cs"]), *args[1:], device="cpu"),
         "setup_engine": lambda: plonk.setup(r["cs"], r["curve"], engine="host",
                                             device="cpu"),
-        "batch_commit": lambda: KZG(r["curve"], r["pk"].srs, "cpu").commit_batch([[1]]),
     }
     with pytest.raises(NotImplementedError):
         calls[option]()
-
-
-def _with_commitment(cs):
-    """A shallow copy of a compiled circuit that claims one BSB22 commitment."""
-    import copy
-
-    out = copy.copy(cs)
-    out.commitments = [object()]
-    return out
