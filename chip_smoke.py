@@ -9,10 +9,13 @@ at 12, G2 over Fp), phases print one JSON line each on stdout:
   1. build: compile every (CUDA source, curve) pair in
      gnark_icicle_tpu_torch/csrc/ (BW6-761 builds no g2.cu), all nvcc
      processes at once, and report each one's seconds and ptxas's registers
-     and spills; the circuits of phases 4, plonk and bsb22 are compiled
-     (host Python, a spawned process each) while nvcc runs, each R1CS
-     solved once there, so that its solver schedule (about 25 s at 2^17)
-     is built with it and not by its first prove;
+     and spills; phases 2 and 3 of a curve start as soon as its libraries
+     are in place, while nvcc builds the others'; the circuits of phases 4,
+     plonk and bsb22 are compiled (host Python, a spawned, niced process
+     each) while nvcc and then phases 2 and 3 run, each R1CS solved once
+     there, so that its solver schedule (about 25 s at 2^17) is built with
+     it and not by its first prove (the line "circuits" says when they were
+     done);
   2. kernels: each kernel entry against its plain PyTorch version on the
      card, bit-equal (Fr product, subtraction and addition at 2^16 lanes;
      PLONK's quotient at 2^16 rows, every input holding 0, 1, p - 1, p - 2
@@ -38,9 +41,10 @@ at 12, G2 over Fp), phases print one JSON line each on stdout:
      also over the M_BATCH problems of a batched prove, M·W windows, Horner
      one warp a problem, and G1's bucket accumulation at the batched
      prove's A/B1/K batch of three padded wire tables), with CUDA-event times
-     of both there (_cuda_ms: the launches queued behind a spin wait, so
-     that the card runs them back to back, each on its own copy of the
-     inputs where they would fit the L2 cache (_rotating)), ptxas's
+     there (the kernel's by _cuda_ms: the launches queued behind a spin
+     wait, so that the card runs them back to back, each on its own copy of
+     the inputs where they would fit the L2 cache (_rotating); the plain
+     version's, its one run against which the kernel is checked), ptxas's
      registers and spills of the Fr kernels, and the least time the card
      could take (bound_ms), and
      Horner's time per double; *_add is timed at the fold's
@@ -102,7 +106,7 @@ at 12, G2 over Fp), phases print one JSON line each on stdout:
      the same, and its G1 MSMs fewer launch sets (the Chain's A, B1 and K
      one msm_batch, Z alone; PLONK's round-1 and round-3 commits one each);
      its stage times, peak device bytes and launches are printed;
-  bsb22: the full-width Chain with one api.commit (over the secret input
+  bsb22: the Chain of 2^15 with one api.commit (over the secret input
      and two intermediate values) on BN254 and BLS12-381, through Groth16
      and PLONK with the "sha256" commitment hash: setup, a first and a warm
      prove, verify, a tampered commitment, proof of knowledge and public
@@ -112,10 +116,30 @@ at 12, G2 over Fp), phases print one JSON line each on stdout:
      a temporary directory: a fresh prove, a resume after deleting the last
      stage and a full resume, each under the rng of an uninterrupted prove
      of the path: each equals it and verifies; the seconds saved;
+  service: BN254's Chain (Groth16) and 2^17 SCS Chain (PLONK) served from
+     gnark's formats: each system written as gnark's .r1cs/.scs and read
+     back in its compile worker while nvcc and phase 2 run (encode(decode(bytes)) the
+     bytes, the same columns; the R1CS solved again there, to the same
+     wires, so that its schedule comes back with it); Groth16's proving key
+     of phase 4 (uncompressed) and both vks through their bytes; a resident
+     Groth16Prover/PlonkProver on the card, its first prove timed; three and
+     two requests, each witness and proof through their bytes, verified
+     against the read vk, the first byte-equal to the path's timed prove,
+     each request's launches equal to that prove's, the last under
+     profile.device_trace and annotate (the trace holds the region and as
+     many launches of each kernel as the counts say; its device ms by
+     kernel), a proof with one flipped bit refused; DeviceCtx's build and
+     cached lookup timed; BLS12-381's and BLS12-377's proofs and vks of
+     phases 4 and plonk through their bytes and verified again;
+  The paths of phases 4 to checkpoint run in two processes at once, each
+     with its own launch counts: BN254's paths and BLS12-381's PLONK in this
+     one, the others (LANE_*) in a spawned one (_other_lane), which also
+     sends its curves' proofs and vks through their bytes; the service
+     phase runs when both have ended;
   5. the JSON line of all kernels (each with its launches on each of its
-     curve's paths, the batched proves, bsb22 and checkpoint included, and
-     their sum; every kernel but *_double and *_add_mixed_masked ran on
-     one);
+     curve's paths, the batched proves, bsb22, checkpoint and service
+     included, and their sum; every kernel but *_double and
+     *_add_mixed_masked ran on one);
   6. the card's name and power limit from nvidia-smi.
 The last line is {"ok": true, "device": {...}}. Any failure raises: the
 script exits non-zero and prints no such line. It needs one CUDA card and
@@ -442,20 +466,33 @@ def kernel_regs(lib: str, kernel: str):
     return None
 
 
-def phase_build(seconds: float) -> None:
-    """Report the build (`seconds`: its wall time) and load the libraries."""
+def load_curve(name: str) -> None:
+    """Load one curve's libraries, once they are built, and read their ptxas
+    logs (kernel_regs)."""
     from gnark_icicle_tpu_torch.ops import cuda as kc
 
-    kc.load_all()
+    kc.load(name)
+    out_dir = kc.build_dir()
+    for src in kc.CURVE_SOURCES[name]:
+        stem = kc.lib_stem(src, name)
+        path = os.path.join(out_dir, stem + ".log")
+        lines = open(path).read().splitlines() if os.path.exists(path) else []
+        _PTXAS.update({(stem, k): v for k, v in ptxas_kernels(lines).items()})
+
+
+def phase_build(seconds: float) -> None:
+    """Report the build (`seconds`: its wall time): each nvcc's seconds and
+    its ptxas lines."""
+    from gnark_icicle_tpu_torch.ops import cuda as kc
+
     regs, each = {}, {}
-    out_dir = os.path.join(kc.BUILD_ROOT, kc._source_hash())
+    out_dir = kc.build_dir()
     for src, curve in kc.libraries():
         stem = kc.lib_stem(src, curve)
         path = os.path.join(out_dir, stem + ".log")
         lines = open(path).read().splitlines() if os.path.exists(path) else []
         regs[stem] = [ln.split("ptxas info    : ")[-1] for ln in lines
                       if "registers" in ln or "spill" in ln]
-        _PTXAS.update({(stem, k): v for k, v in ptxas_kernels(lines).items()})
         path = os.path.join(out_dir, stem + ".seconds")
         each[stem] = float(open(path).read()) if os.path.exists(path) else None
     _say("build", seconds=seconds, nvcc_seconds=each, ptxas=regs)
@@ -509,13 +546,13 @@ def phase_kernels(device, name: str, rates: dict) -> list:
     shapes = slice_shapes(name)
 
     def record(kname, check_err, shape, args, run, run_plain, nbytes, products,
-               words, plain_once=False, **extra):
+               words, **extra):
         """args: inputs at the main path's shape; run/run_plain(*args) return
         the result (an in-place kernel returns its updated input). Both run
-        once on copies of args and must agree; then each is timed on args
-        (plain_once: the plain version's time is that one run's, for the
-        long loops of 1-lane steps). A second shape of the same entry goes
-        into its row's other_shapes. Returns the row."""
+        once on copies of args and must agree; the plain version's time is
+        that one run's (CUDA events around it), and the kernel is timed on
+        args (_cuda_ms). A second shape of the same entry goes into its
+        row's other_shapes. Returns the row."""
         def fresh():
             return [a.clone() for a in args]
 
@@ -525,7 +562,7 @@ def phase_kernels(device, name: str, rates: dict) -> list:
         want = run_plain(*want)
         t_plain[1].record()
         torch.cuda.synchronize()
-        plain_ms = t_plain[0].elapsed_time(t_plain[1]) if plain_once else None
+        plain_ms = t_plain[0].elapsed_time(t_plain[1])
         err = max(check_err, _max_abs_err(run(*fresh()), want))
         if err != 0:
             raise AssertionError(f"{prefix}{kname}: kernel differs from its plain version")
@@ -533,8 +570,7 @@ def phase_kernels(device, name: str, rates: dict) -> list:
         bound_ms, bound_by = _bound(rates, nbytes, products, words)
         row = {"shape": shape, "max_abs_err": err,
                "ms": _cuda_ms(_rotating(run, args, nbytes), REPS_KERNEL),
-               "plain_ms": (plain_ms if plain_ms is not None
-                            else _cuda_ms(lambda: run_plain(*args), 2)),
+               "plain_ms": plain_ms,
                "bound_ms": bound_ms, "bound_by": bound_by, **extra}
         regs = kernel_regs(k.lib, "k_" + kname)
         if regs is not None:
@@ -614,7 +650,7 @@ def phase_kernels(device, name: str, rates: dict) -> list:
     big_inv[:, ::1021] = 0
     record("fr_batch_inv", _max_abs_err(tf.mont_inv(xb), fr.mont_inv(xb)),
            f"({fr.n32}, {m4}), k = {k}", [big_inv], tf.mont_inv, fr.mont_inv,
-           2 * lane * m4, batch_inv_products(R, big_inv), fr.n32, plain_once=True, k=k)
+           2 * lane * m4, batch_inv_products(R, big_inv), fr.n32, k=k)
 
     ntt_rows(device, name, rates, record, shapes)
 
@@ -779,8 +815,7 @@ def phase_kernels(device, name: str, rates: dict) -> list:
                                        lambda S: tc.reduce_runs(S, M),
                                        lambda S: tc.reduce_runs_plain(S, M),
                                        W_ * B_ * pt + 2 * W_ * V * pt,
-                                       adds * PRODUCTS["add"] * per_product, fp.n32,
-                                       plain_once=True, adds=adds)
+                                       adds * PRODUCTS["add"] * per_product, fp.n32, adds=adds)
                             elif _max_abs_err(tc.reduce_runs(S, M), tc.reduce_runs_plain(S, M)):
                                 raise AssertionError(f"{prefix}{tag}_bucket_reduce differs ({info})")
                             TA = tc.reduce_runs(S, M)
@@ -794,7 +829,7 @@ def phase_kernels(device, name: str, rates: dict) -> list:
                             record(f"{tag}_reduce_combine", check_err, info, [T, A], *combine,
                                    (2 if M > 1 else 1) * W_ * V * pt + W_ * pt,
                                    W_ * (ca * PRODUCTS["add"] + cd * PRODUCTS["double"])
-                                   * per_product, fp.n32, plain_once=True, adds=W_ * ca,
+                                   * per_product, fp.n32, adds=W_ * ca,
                                    doubles=W_ * cd)
                         elif _max_abs_err(combine[0](T, A), combine[1](T, A)):
                             raise AssertionError(f"{prefix}{tag}_reduce_combine differs ({info})")
@@ -810,7 +845,7 @@ def phase_kernels(device, name: str, rates: dict) -> list:
                         continue
                     row = record(f"{tag}_horner", check_err, f"W={W1}, c={c_}, M={Mp}", [Sw],
                                  run, run_plain, (W_ + Mp) * pt, h_products, fp.n32,
-                                 plain_once=True, doubles=rounds, adds=W1 - 1, problems=Mp)
+                                 doubles=rounds, adds=W1 - 1, problems=Mp)
                     row["per_double_us"] = row["ms"] * 1e3 / max(rounds, 1)
 
         # curve points: the fold regroups the sum, which only the group law
@@ -854,12 +889,12 @@ def phase_kernels(device, name: str, rates: dict) -> list:
             record(f"{entry}_fixed_base", err,
                    f"{lanes} lanes ({role}), w = {w}, {fb.table.shape[0]} table rows",
                    [big], fb.mul, lambda s: tc.fixed_base_plain(s, fb.table, w, bits),
-                   nbytes, products, fp.n32, plain_once=True, w=w, adds=adds)
+                   nbytes, products, fp.n32, w=w, adds=adds)
             P_big = fb.mul(big)
             k = NORMALIZE_LANES
             record(f"{entry}_normalize", err, f"{lanes} lanes ({role}), k = {k}", [P_big],
                    tc.normalize, tc.normalize_plain,
-                   *normalize_work(tc, tc.normalize(P_big)[1], k), fp.n32, plain_once=True, k=k)
+                   *normalize_work(tc, tc.normalize(P_big)[1], k), fp.n32, k=k)
             return err
 
         P_, Q_ = rand_points(n), rand_points(n)
@@ -1230,7 +1265,8 @@ def _prove_path(device, name: str, system: str, cs, pub, sec, bad_pub, phase: st
     expected ones (_check_launches, by phase). Each prove's stage times and
     setup's split come from the backend's log lines ("<system> prove:
     <stage> took=", "<system> setup: <part> took=, ..."). Returns
-    (launches, vk, proof)."""
+    (launches, vk, the timed proof, pk, the batched prove's launches, the
+    timed prove's launches)."""
     import importlib
 
     import torch
@@ -1310,10 +1346,12 @@ def _prove_path(device, name: str, system: str, cs, pub, sec, bad_pub, phase: st
         t_first = time.perf_counter() - t0
         warm = [_warm_state(name)]
         phases.clear()
+        before = _counts(name)
         t0 = time.perf_counter()    # under a fresh rng, for the batched prove
         proof = backend.prove(cs, pk, pub, sec, curve, device=device,
                               rng=random.Random(BATCH_RNG))
         timed = [{"seconds": time.perf_counter() - t0, **dict(phases)}]
+        timed_launches = {k: c - before[k] for k, c in _counts(name).items()}
         profiled = _profiled(lambda: backend.prove(cs, pk, pub, sec, curve, rng=rng,
                                                    device=device))
         launches = {k.name: k.launches for k in kc.KERNELS.values() if k.curve == name}
@@ -1360,7 +1398,7 @@ def _prove_path(device, name: str, system: str, cs, pub, sec, bad_pub, phase: st
          warm_prove={k: (warm[1][k] - warm[0][k]) / WARM_PROVES for k in warm[0]})
     _say(f"{phase}_batched", curve=curve.name, byte_equal=True, prove=batched,
          launches={k: v for k, v in launches_b.items() if v})
-    return launches, vk, proof, pk, launches_b
+    return launches, vk, proof, pk, launches_b, timed_launches
 
 
 # the rng of the timed prove and of the batched prove beside it
@@ -1566,13 +1604,14 @@ def plonk_circuit(name: str) -> tuple:
 
 def phase_groth16(device, name: str, compiled: tuple) -> tuple:
     """_prove_path on one curve's compiled Chain (chain_circuit). Returns
-    (launches, vk, proof, public inputs, pk, the batched prove's launches)."""
+    (launches, vk, proof, public inputs, pk, the batched prove's launches,
+    the timed prove's launches)."""
     cs, t_compile, v = compiled
     q = _curves()[name].fr.modulus
-    launches, vk, proof, pk, batched = _prove_path(device, name, "groth16", cs, [v], [3],
-                                                   [(v + 1) % q], "groth16",
-                                                   compile_s=t_compile)
-    return launches, vk, proof, [v], pk, batched
+    launches, vk, proof, pk, batched, timed = _prove_path(device, name, "groth16", cs, [v],
+                                                          [3], [(v + 1) % q], "groth16",
+                                                          compile_s=t_compile)
+    return launches, vk, proof, [v], pk, batched, timed
 
 
 def phase_2chain(device, inner_vk, inner_proof, inner_pub) -> tuple:
@@ -1607,24 +1646,26 @@ def phase_2chain(device, inner_vk, inner_proof, inner_pub) -> tuple:
                      pr.bs[1].c1, pr.krs[0], pr.krs[1]])
     opub, osec = w.witness_values(bls12_377.P)
     bad = [(inner_pub[0] + 1) % bls12_377.R]
-    launches, _, _, _, batched = _prove_path(device, "bw6_761", "groth16", cs, opub, osec, bad,
-                                             "2chain", compile_s=t_compile)
+    launches, _, _, _, batched, _ = _prove_path(device, "bw6_761", "groth16", cs, opub, osec,
+                                                bad, "2chain", compile_s=t_compile)
     return launches, batched
 
 
 def phase_plonk(device, name: str, compiled: tuple) -> tuple:
     """_prove_path with the port's PLONK on one curve's compiled SCS Chain
     (plonk_circuit). Returns (launches, vk, proof, pk, the batched prove's
-    launches)."""
+    launches, the timed prove's launches)."""
     cs, t_compile, v = compiled
     q = _curves()[name].fr.modulus
-    launches, vk, proof, pk, batched = _prove_path(device, name, "plonk", cs, [v], [3],
-                                                   [(v + 1) % q], "plonk", compile_s=t_compile)
-    return launches, vk, proof, pk, batched
+    return _prove_path(device, name, "plonk", cs, [v], [3], [(v + 1) % q], "plonk",
+                       compile_s=t_compile)
 
 
-# phase bsb22: the Chain's curves that carry a BSB22 commitment at full width
+# phase bsb22: the Chain's curves that carry a BSB22 commitment, on the
+# Chain and the SCS Chain of 2^BSB22_LOG (cut from 2^17 to keep the run
+# within its time limit)
 BSB22_CURVES = ("bn254", "bls12_381")
+BSB22_LOG = 15
 BSB22_SMALL_STEPS = 40      # BLS12-377's small circuit with the 2-chain's hash
 
 
@@ -1666,36 +1707,88 @@ def _commit_chain(name: str, steps: int, builder: str) -> tuple:
 SOLVER_CACHES = ("_levels_cache", "_native_sched_cache")
 
 
+# phase service: the curve whose Chain (Groth16) and SCS Chain (PLONK) are
+# served from gnark's formats
+SERVE_CURVE = "bn254"
+
+
+def _gnark_round_trip(cs, system: str, pub: list, sec: list, res) -> dict:
+    """gnark's .r1cs (Groth16) or .scs (PLONK) of a compiled system, read
+    back: encode(decode(bytes)) must give the bytes, and the read system
+    the original's columns (an R1CS's coefficient values term by term: its
+    ids may differ) and commitments; an R1CS is solved once more, to the
+    original's wires (res), which builds its solver schedule. Returns the
+    read system, its solver caches, the byte count and the seconds to
+    write and to read."""
+    from gnark_icicle_tpu_torch.constraint.solver import solve
+    from gnark_icicle_tpu_torch.io import gnark_cs
+
+    groth = system == "groth16"
+    write, read = ((gnark_cs.write_r1cs, gnark_cs.read_r1cs) if groth
+                   else (gnark_cs.write_scs, gnark_cs.read_scs))
+    t0 = time.perf_counter()
+    blob = write(cs)
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = read(blob)
+    t_read = time.perf_counter() - t0
+    if gnark_cs.encode(gnark_cs.decode(blob)) != blob:
+        raise AssertionError(f"{system}: encode(decode(bytes)) is not the bytes")
+    cols = (("nb_public", "nb_secret", "nb_internal", "term_wire", "l_off", "r_off", "o_off",
+             "solved_wire") if groth else
+            ("nb_public", "nb_secret", "nb_internal", "xa", "xb", "xc", "ql", "qr", "qm", "qo",
+             "qc", "solved_wire", "commitment_tags"))
+    bad = [c for c in cols if getattr(back, c) != getattr(cs, c)]
+    if groth and [back.coeffs[c] for c in back.term_coeff] != [cs.coeffs[c] for c in cs.term_coeff]:
+        bad.append("coefficients")
+    if len(back.commitments) != len(cs.commitments):
+        bad.append("commitments")
+    caches = {}
+    if groth:
+        if solve(back, pub, sec).wires != res.wires:
+            bad.append("wires")
+        caches = {k: v for k, v in vars(back).items() if k in SOLVER_CACHES}
+    if bad:
+        raise AssertionError(f"the {system} system read from gnark's bytes differs: {bad}")
+    return {"cs": back, "caches": caches, "bytes": len(blob), "write_s": t_write,
+            "read_s": t_read}
+
+
 def _compile_job(job: tuple) -> tuple:
-    """One circuit of the run, by (kind, curve): _chain's tuple and, for an
-    R1CS, its solver caches (SOLVER_CACHES) from one solve of its witness.
-    Kinds: "groth16" (chain_circuit), "plonk" (plonk_circuit),
-    "bsb22_groth16" and "bsb22_plonk" (the same Chains with a commitment,
-    _commit_chain)."""
+    """One circuit of the run, by (kind, curve): _chain's tuple, for an
+    R1CS its solver caches (SOLVER_CACHES) from one solve of its witness,
+    and on SERVE_CURVE's "groth16" and "plonk" the system read back from
+    gnark's bytes (_gnark_round_trip), else None. Kinds: "groth16"
+    (chain_circuit), "plonk" (plonk_circuit), "bsb22_groth16" and
+    "bsb22_plonk" (the same Chains with a commitment, _commit_chain)."""
     from gnark_icicle_tpu_torch.constraint.solver import solve
 
     os.nice(10)     # nvcc first: the build is the longer job
     kind, name = job
     system = kind.rsplit("_", 1)[-1]
     if kind.startswith("bsb22_"):
-        steps = ((1 << CHAIN_LOG[name]) - 2 if system == "groth16"
-                 else ((1 << PLONK_LOG[name]) - 16) // 3)
+        steps = ((1 << BSB22_LOG) - 2 if system == "groth16"
+                 else ((1 << BSB22_LOG) - 16) // 3)
         out = _commit_chain(name, steps, "r1cs" if system == "groth16" else "scs")
     else:
         out = (chain_circuit if kind == "groth16" else plonk_circuit)(name)
-    caches = {}
+    caches, res, served = {}, None, None
     if system == "groth16":
-        solve(out[0], [out[2]], [3])
+        res = solve(out[0], [out[2]], [3])
         caches = {k: v for k, v in vars(out[0]).items() if k in SOLVER_CACHES}
-    return out + (caches,)
+    if kind in ("groth16", "plonk") and name == SERVE_CURVE:
+        served = _gnark_round_trip(out[0], system, [out[2]], [3], res)
+    return out + (caches, served)
 
 
-def compile_circuits(jobs: list) -> list:
-    """The circuits of the run (host Python, while nvcc runs), each in a
+def compile_circuits(jobs: list) -> tuple:
+    """The circuits of the run (host Python, while nvcc and phases 2 and 3 run), each in a
     process of its own (spawned, at most one a core): the compiles and the
     R1CS solver schedules are CPU-bound and independent, and each schedule
     would otherwise be built by its circuit's first prove. The native
-    solver is built first, once. Returns _chain's tuples in job order."""
+    solver is built first, once. Returns _chain's tuples in job order and
+    the systems read back from gnark's bytes by job (_gnark_round_trip, with
+    their solver caches in place)."""
     import multiprocessing
 
     from gnark_icicle_tpu_torch import native
@@ -1704,9 +1797,13 @@ def compile_circuits(jobs: list) -> list:
     ctx = multiprocessing.get_context("spawn")
     with ctx.Pool(min(len(jobs), os.cpu_count() or 1)) as pool:
         done = pool.map(_compile_job, jobs)
-    for cs, _, _, caches in done:
+    served = {}
+    for job, (cs, _, _, caches, read) in zip(jobs, done):
         vars(cs).update(caches)
-    return [d[:3] for d in done]
+        if read is not None:
+            vars(read["cs"]).update(read.pop("caches"))
+            served[job] = read
+    return [d[:3] for d in done], served
 
 
 def _zero_counts() -> None:
@@ -1762,7 +1859,7 @@ def _tamper_rejected(backend, proof, vk, pub, curve, **kw) -> dict:
 
 
 def phase_bsb22(device, name: str, compiled: dict) -> dict:
-    """BSB22 commitments on the card: the full-width Chain with one
+    """BSB22 commitments on the card: the Chain of 2^BSB22_LOG with one
     api.commit (_compile_job's "bsb22_*") through Groth16 and PLONK with the "sha256"
     commitment hash: setup, a first prove and a warm prove, verify, and a
     tampered commitment, proof of knowledge and public input rejected; the
@@ -1908,7 +2005,325 @@ def phase_checkpoint(device, name: str, runs: dict) -> dict:
     return out
 
 
+# the __global__ function that each entry launches (unprefixed entry, or the
+# op of a g1_/g2_ entry), as a profiler trace names its launches
+SYMBOLS = {"fr_mont_mul": "k_fr_mont_mul", "fr_sub": "k_fr_sub", "fr_add": "k_fr_add",
+           "plonk_quotient": "k_plonk_quotient", "fr_batch_inv": "k_fr_batch_inv",
+           "ntt_pass": "k_ntt_pass", "add": "k_add", "double": "k_double",
+           "add_mixed_masked": "k_mixed_accumulate", "bucket_accumulate": "k_mixed_accumulate",
+           "fixed_base": "k_mixed_accumulate", "normalize": "k_normalize",
+           "bucket_reduce": "k_reduce", "reduce_combine": "k_reduce", "horner": "k_horner"}
+
+
+def _trace_symbol(kernel: str) -> tuple:
+    """A trace's kernel name -> (function, over Fp2): "void
+    k_reduce<Elt2<FpP>, B3Row>(ReduceArgs)" -> ("k_reduce", True)."""
+    base = kernel.removeprefix("void ").split("(")[0]
+    sym = base.split("<")[0]
+    return sym, base.startswith(sym + "<Elt2<")
+
+
+def _check_trace(name: str, path: str, launches: dict) -> dict:
+    """One served request's trace (profile.device_trace): the file holds
+    the annotated region ("request") and names every kernel that the launch
+    counts say ran, as often: per (function, over Fp2) its kernel events
+    equal the launches of the entries that run it. Returns the device ms
+    and launches by kernel that the trace gives, the port's first."""
+    from gnark_icicle_tpu_torch.ops import cuda as kc
+
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    if not any(e.get("name") == "request" and e.get("cat") == "user_annotation"
+               for e in events):
+        raise AssertionError(f"{path} holds no annotated region")
+    pre = kc.CURVES[name]
+    want, got, by_kernel = {}, {}, {}
+    for k, c in launches.items():
+        g, _, op = k[len(pre):].partition("_")
+        key = (SYMBOLS[op], g == "g2") if g in ("g1", "g2") else (SYMBOLS[k[len(pre):]], False)
+        want[key] = want.get(key, 0) + c
+    for e in events:
+        if e.get("cat") == "kernel":
+            key = _trace_symbol(e["name"])
+            got[key] = got.get(key, 0) + 1
+            ms, n = by_kernel.get(e["name"], (0.0, 0))
+            by_kernel[e["name"]] = (ms + e.get("dur", 0) / 1e3, n + 1)
+    off = {f"{s}{'<Elt2>' if fp2 else ''}": (n, got.get((s, fp2), 0))
+           for (s, fp2), n in want.items() if got.get((s, fp2), 0) != n}
+    if off:
+        raise AssertionError(f"the {name} trace's kernels are not the launches "
+                             f"(launches, trace events): {off}")
+    ours = {s for s, _ in want}
+    rows = sorted(by_kernel.items(), key=lambda kv: (_trace_symbol(kv[0])[0] not in ours,
+                                                     -kv[1][0]))
+    return {"file_bytes": os.path.getsize(path),
+            "device_ms": sum(ms for ms, _ in by_kernel.values()),
+            "kernels": [{"kernel": k.split("(")[0][:80], "device_ms": ms, "launches": n}
+                        for k, (ms, n) in rows[:16]]}
+
+
+def ctx_seconds(curve, device, reps: int = 5) -> dict:
+    """DeviceCtx's constructor on one device: a build, its cache entry
+    dropped first (what every prove, setup and KZG paid before the cache),
+    and a lookup of the cached one (what each pays now); medians of reps."""
+    import statistics
+
+    from gnark_icicle_tpu_torch.device import DeviceCtx
+
+    build, lookup = [], []
+    for _ in range(reps):
+        DeviceCtx._cache.pop((curve.name, DeviceCtx(curve, device).device))
+        t0 = time.perf_counter()
+        DeviceCtx(curve, device)
+        build.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        DeviceCtx(curve, device)
+        lookup.append(time.perf_counter() - t0)
+    return {"build_s": statistics.median(build), "cached_s": statistics.median(lookup)}
+
+
+def _chain_out(name: str, steps: int, x: int) -> int:
+    q = _curves()[name].fr.modulus
+    v = x
+    for i in range(steps):
+        v = (v * v + v + i) % q
+    return v
+
+
+# phase service: the requests a served system answers (secret inputs); the
+# first is the timed prove's witness, under its rng, so that its bytes are
+# the direct prove's; the last runs under profile.device_trace
+SERVE_REQUESTS = {"groth16": (3, 5, 7), "plonk": (3, 5)}
+
+
+def phase_service(device, served: dict, runs: dict, others: dict) -> dict:
+    """Serve SERVE_CURVE's Chain (Groth16) and SCS Chain (PLONK) from gnark's
+    formats on the card: the systems read from gnark's bytes in the compile
+    workers (served: {system: _gnark_round_trip's dict}); the keys of the
+    paths' setups (runs: {system: (pk, vk, the timed proof, its public
+    inputs, the timed prove's launches)}), Groth16's proving key and both
+    vks through their bytes (PLONK's proving key has no encoding in either
+    package, so it stays in memory); a resident Groth16Prover/PlonkProver
+    on the card, its warm-up timed; then SERVE_REQUESTS, each witness
+    through its bytes and each proof through its bytes, verified against
+    the read vk; the first byte-equal to the direct prove's; each request's
+    launches equal to the timed prove's; the last under
+    profile.device_trace and annotate (_check_trace); a proof with one
+    flipped coordinate bit refused. Then service_others(others). Returns
+    {path: launches}."""
+    import statistics
+    import tempfile
+
+    from gnark_icicle_tpu_torch import profile
+    from gnark_icicle_tpu_torch.backend import groth16, plonk
+    from gnark_icicle_tpu_torch.backend.prover_service import Groth16Prover, PlonkProver
+    from gnark_icicle_tpu_torch.io import keys, plonk_serialize, serialize
+
+    name = SERVE_CURVE
+    curve = _curves()[name]
+    codec = {"groth16": (groth16, Groth16Prover, serialize.proof_to_bytes,
+                         serialize.proof_from_bytes, serialize.vk_to_bytes,
+                         serialize.vk_from_bytes),
+             "plonk": (plonk, PlonkProver, plonk_serialize.plonk_proof_to_bytes,
+                       plonk_serialize.plonk_proof_from_bytes, plonk_serialize.plonk_vk_to_bytes,
+                       plonk_serialize.plonk_vk_from_bytes)}
+    steps = {"groth16": (1 << CHAIN_LOG[name]) - 2, "plonk": ((1 << PLONK_LOG[name]) - 16) // 3}
+    out = {}
+    _say("service", curve=curve.name, device_ctx=ctx_seconds(curve, device))
+    for system, (backend, Prover, proof_to, proof_from, vk_to, vk_from) in codec.items():
+        read = served[system, name]
+        pk, vk, direct, pub0, timed = runs[system]
+        report = {"system_bytes": read["bytes"], "system_write_s": read["write_s"],
+                  "system_read_s": read["read_s"]}
+        t0 = time.perf_counter()
+        vk_bytes = vk_to(curve, vk)
+        report["vk_write_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        read_vk, _ = vk_from(curve, vk_bytes)
+        report["vk_read_s"], report["vk_bytes"] = time.perf_counter() - t0, len(vk_bytes)
+        if _fields(read_vk) != _fields(vk):
+            raise AssertionError(f"the {system} vk read from bytes differs")
+        served_pk = pk
+        if system == "groth16":
+            t0 = time.perf_counter()
+            pk_bytes = keys.pk_to_bytes(curve, pk, compressed=False)
+            report["pk_write_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            served_pk = keys.pk_from_bytes(curve, pk_bytes)
+            report["pk_read_s"], report["pk_bytes"] = time.perf_counter() - t0, len(pk_bytes)
+            if _fields(served_pk) != _fields(pk):
+                raise AssertionError("the proving key read from bytes differs")
+            del pk_bytes
+        total = {}
+
+        def add(counts):
+            for k, c in counts.items():
+                total[k] = total.get(k, 0) + c
+
+        _zero_counts()
+        prover = Prover(read["cs"], served_pk, curve, device=device)
+        x0 = SERVE_REQUESTS[system][0]
+        report["first_prove_s"] = prover.warmup(
+            [_chain_out(name, steps[system], x0)], [x0], rng=random.Random(11))
+        add(_counts(name))
+        requests = []
+        for i, x in enumerate(SERVE_REQUESTS[system]):
+            pub, sec = serialize.witness_from_bytes(
+                curve, serialize.witness_to_bytes(curve, [_chain_out(name, steps[system], x)],
+                                                  [x]))
+            traced = i == len(SERVE_REQUESTS[system]) - 1
+            rng = random.Random(BATCH_RNG if i == 0 else 20 + i)
+            with tempfile.TemporaryDirectory() as d:
+                _zero_counts()
+                t0 = time.perf_counter()
+                if traced:
+                    with profile.device_trace(d, device=device) as trace:
+                        with profile.annotate("request"):
+                            proof = prover.prove(pub, sec, rng=rng)
+                else:
+                    proof = prover.prove(pub, sec, rng=rng)
+                seconds = time.perf_counter() - t0
+                launches = _counts(name)
+                add(launches)
+                trace_info = _check_trace(name, trace.path, launches) if traced else None
+            if launches != timed:
+                off = {k: (c, timed[k]) for k, c in launches.items() if c != timed[k]}
+                raise AssertionError(f"the {system} request {i} ran {off} launches where the "
+                                     "timed prove ran the second")
+            data = proof_to(curve, proof)
+            t0 = time.perf_counter()
+            back, used = proof_from(curve, data)
+            t_read = time.perf_counter() - t0
+            if used != len(data) or _fields(back) != _fields(proof):
+                raise AssertionError(f"the {system} proof read from bytes differs")
+            t0 = time.perf_counter()
+            backend.verify(back, read_vk, pub, curve)
+            t_verify = time.perf_counter() - t0
+            row = {"x": x, "seconds": seconds, "proof_bytes": len(data), "proof_read_s": t_read,
+                   "verify_s": t_verify, "traced": traced}
+            if i == 0:
+                if pub != pub0 or data != proof_to(curve, direct):
+                    raise AssertionError(f"the served {system} proof is not the direct one")
+                row["byte_equal_to_direct"] = True
+                # one flipped bit of the first point's x: refused when read or
+                # when verified
+                bad = bytearray(data)
+                bad[curve.fp.nb_bytes - 1] ^= 1
+                try:
+                    tampered, _ = proof_from(curve, bytes(bad))
+                except ValueError:
+                    row["flipped_bit_refused"] = "read"
+                else:
+                    if backend.is_valid(tampered, read_vk, pub, curve):
+                        raise AssertionError(f"a {system} proof with a flipped bit verified")
+                    row["flipped_bit_refused"] = "verify"
+            if traced:
+                row["trace"] = trace_info
+            requests.append(row)
+        untraced = [r["seconds"] for r in requests if not r["traced"]]
+        _say("service", curve=curve.name, system=system, **report, requests=requests,
+             marginal_s=statistics.median(r["seconds"] for r in requests),
+             marginal_untraced_s=statistics.median(untraced),
+             launches_equal_timed_prove=True, launches={k: c for k, c in timed.items() if c})
+        out[f"service_{system}"] = total
+    service_others(others)
+    return out
+
+
+def service_others(others: list) -> None:
+    """Other curves' proofs and vks (others: [(curve, system, vk, proof,
+    public inputs)]) through their bytes, compressed where the curve's p ≡ 3
+    (mod 4), and verified again."""
+    from gnark_icicle_tpu_torch.backend import groth16, plonk
+    from gnark_icicle_tpu_torch.io import plonk_serialize, serialize
+
+    codec = {"groth16": (groth16, serialize.proof_to_bytes, serialize.proof_from_bytes,
+                         serialize.vk_to_bytes, serialize.vk_from_bytes),
+             "plonk": (plonk, plonk_serialize.plonk_proof_to_bytes,
+                       plonk_serialize.plonk_proof_from_bytes, plonk_serialize.plonk_vk_to_bytes,
+                       plonk_serialize.plonk_vk_from_bytes)}
+    for oname, system, vk, proof, pub in others:
+        oc = _curves()[oname]
+        backend, proof_to, proof_from, vk_to, vk_from = codec[system]
+        compressed = oc.fp.modulus % 4 == 3
+        data, vk_bytes = proof_to(oc, proof, compressed), vk_to(oc, vk, compressed)
+        t0 = time.perf_counter()
+        back, _ = proof_from(oc, data)
+        read_vk, _ = vk_from(oc, vk_bytes)
+        t_read = time.perf_counter() - t0
+        if _fields(back) != _fields(proof) or _fields(read_vk) != _fields(vk):
+            raise AssertionError(f"the {oname} {system} proof or vk read from bytes differs")
+        backend.verify(back, read_vk, pub, oc)
+        _say("service", curve=oc.name, system=system, compressed=compressed,
+             proof_bytes=len(data), vk_bytes=len(vk_bytes), read_s=t_read, verified=True)
+
+
+# the paths that run in a second process (_other_lane) beside SERVE_CURVE's
+# and BLS12-381's PLONK: phase 4 on BLS12-381 and BLS12-377 (whose proof the
+# 2-chain verifies), the 2-chain, PLONK on the small circuits, BSB22 on
+# BLS12-381 and the MiMC commitment hash. The paths are host-bound (a
+# Chain prove's solve is 90 % of it, PERF.md §5), so two of them share the
+# card and the host's cores; the served requests run once this lane has
+# ended, alone.
+LANE_CHAIN = ("bls12_381", "bls12_377")
+LANE_PLONK = ("bls12_377", "bw6_761")
+LANE_BSB22 = ("bls12_381",)
+
+
+def _solver_caches(systems: list) -> list:
+    """Each system's solver caches (SOLVER_CACHES), which its pickle leaves
+    out: a spawned process puts them back (_other_lane), or its first prove
+    would build the schedule again."""
+    return [{k: v for k, v in vars(cs).items() if k in SOLVER_CACHES} for cs in systems]
+
+
+def _other_lane(t_start: float, compiled: dict, compiled_scs: dict,
+                compiled_bsb22: dict, caches: list) -> tuple:
+    """The LANE_* paths in a process of their own (spawned, with launch
+    counts of its own, set to 0 before each path as in the main process),
+    then their proofs and vks through their bytes (service_others).
+    `caches`: _solver_caches of the R1CS systems of `compiled` and then of
+    `compiled_bsb22`'s Groth16 ones, in order. Returns (paths, extra) as
+    main keeps them."""
+    import torch
+
+    from gnark_icicle_tpu_torch.ops import cuda as kc
+
+    _START["t"] = t_start
+    r1cs = ([c[0] for c in compiled.values()]
+            + [systems["groth16"][0] for systems in compiled_bsb22.values()])
+    for cs, cache in zip(r1cs, caches, strict=True):
+        vars(cs).update(cache)
+    device = torch.device("cuda", 0)
+    kc.load_all()
+    paths, extra, others, inner = [], [], [], None
+    for name in LANE_CHAIN:
+        counts, vk, proof, pub, _, batched, _ = phase_groth16(device, name, compiled[name])
+        paths.append((name, "groth16", counts))
+        extra.append((name, "groth16_batched", batched))
+        others.append((name, "groth16", vk, proof, pub))
+        if name == "bls12_377":
+            inner = (vk, proof, pub)
+    counts, batched = phase_2chain(device, *inner)
+    paths.append(("bw6_761", "2chain", counts))
+    extra.append(("bw6_761", "2chain_batched", batched))
+    for name in LANE_PLONK:
+        counts, vk, proof, _, batched, _ = phase_plonk(device, name, compiled_scs[name])
+        paths.append((name, "plonk", counts))
+        extra.append((name, "plonk_batched", batched))
+        if name in CHAIN_CURVES:
+            others.append((name, "plonk", vk, proof, [compiled_scs[name][2]]))
+    for name in LANE_BSB22:
+        extra += [(name, path, c) for path, c in
+                  phase_bsb22(device, name, compiled_bsb22[name]).items()]
+    extra += [("bls12_377", path, c) for path, c in phase_bsb22_mimc(device).items()]
+    service_others(others)
+    return paths, extra
+
+
 def main() -> int:
+    import multiprocessing
+
     import torch
 
     if not torch.cuda.is_available():
@@ -1920,9 +2335,17 @@ def main() -> int:
 
     t_start = _START["t"] = time.perf_counter()
     device = torch.device("cuda", 0)
-    # nvcc runs in processes of its own: compile the Chain circuits (host
-    # Python) meanwhile, and re-raise a failed build after
-    build = {}
+    # CUPTI stays attached between profiler sessions (_profiled, the served
+    # request's device_trace), in this process and the lane's: attached
+    # again lazily, it can miss a session's first seconds of kernels
+    os.environ.setdefault("TEARDOWN_CUPTI", "0")
+    # nvcc runs in processes of its own, and the circuits compile in niced
+    # processes of their own (host Python) while nvcc and then phases 2 and 3
+    # run, which need no circuit; a failed build or compile is re-raised
+    build, circuits = {}, {}
+    jobs = ([("groth16", name) for name in CHAIN_CURVES] + [("plonk", name) for name in CURVE_NAMES]
+            + [(f"bsb22_{system}", name) for name in BSB22_CURVES
+               for system in ("groth16", "plonk")])
 
     def run_build():
         try:
@@ -1931,52 +2354,95 @@ def main() -> int:
             build["error"] = e
         build["seconds"] = time.perf_counter() - t_start
 
+    def run_compile():
+        try:
+            circuits["done"] = compile_circuits(jobs)
+        except BaseException as e:     # noqa: BLE001 (re-raised below)
+            circuits["error"] = e
+        circuits["seconds"] = time.perf_counter() - t_start
+
     builder = threading.Thread(target=run_build)
+    compiler = threading.Thread(target=run_compile, daemon=True)
     builder.start()
-    jobs = ([("groth16", name) for name in CHAIN_CURVES] + [("plonk", name) for name in CURVE_NAMES]
-            + [(f"bsb22_{system}", name) for name in BSB22_CURVES
-               for system in ("groth16", "plonk")])
-    done = dict(zip(jobs, compile_circuits(jobs)))
-    compiled = {name: done["groth16", name] for name in CHAIN_CURVES}
-    compiled_scs = {name: done["plonk", name] for name in CURVE_NAMES}
-    compiled_bsb22 = {name: {system: done[f"bsb22_{system}", name]
-                             for system in ("groth16", "plonk")} for name in BSB22_CURVES}
+    compiler.start()
+    # phases 2 and 3 of a curve start as soon as its libraries are in place,
+    # while nvcc builds the others' (all start at once; BN254's are done
+    # first, in about half the build)
+    rates, kernels = None, []
+    for name in CURVE_NAMES:
+        while builder.is_alive() and not kc.built(name):
+            time.sleep(0.5)
+        if "error" in build:
+            raise build["error"]
+        load_curve(name)
+        if rates is None:
+            rates = card_rates()
+        kernels += phase_kernels(device, name, rates)
+        phase_msm(DeviceCtx(_curves()[name], device), name)
     builder.join()
     if "error" in build:
         raise build["error"]
     phase_build(build["seconds"])
-    rates = card_rates()
-    kernels = []
-    for name in CURVE_NAMES:
-        kernels += phase_kernels(device, name, rates)
-    for name in CURVE_NAMES:
-        phase_msm(DeviceCtx(_curves()[name], device), name)
+    compiler.join()
+    if "error" in circuits:
+        raise circuits["error"]
+    _say("circuits", compiled_s=circuits["seconds"])
+    compiled_jobs, served = circuits["done"]
+    done = dict(zip(jobs, compiled_jobs))
+    compiled = {name: done["groth16", name] for name in CHAIN_CURVES}
+    compiled_scs = {name: done["plonk", name] for name in CURVE_NAMES}
+    compiled_bsb22 = {name: {system: done[f"bsb22_{system}", name]
+                             for system in ("groth16", "plonk")} for name in BSB22_CURVES}
     # (curve, path, launches): the paths of _expectations, then the others
-    paths, extra, inner, ck_runs = [], [], None, {}
-    for name in CHAIN_CURVES:
-        counts, vk, proof, pub, pk, batched = phase_groth16(device, name, compiled[name])
-        paths.append((name, "groth16", counts))
-        extra.append((name, "groth16_batched", batched))
-        if name == "bls12_377":
-            inner = (vk, proof, pub)
-        if name == "bn254":
-            ck_runs["groth16"] = (compiled[name][0], pk, vk, pub, [3], proof)
-    counts, batched = phase_2chain(device, *inner)
-    paths.append(("bw6_761", "2chain", counts))
-    extra.append(("bw6_761", "2chain_batched", batched))
-    for name in CURVE_NAMES:
-        counts, vk, proof, pk, batched = phase_plonk(device, name, compiled_scs[name])
-        paths.append((name, "plonk", counts))
-        extra.append((name, "plonk_batched", batched))
-        if name == "bn254":
-            ck_runs["plonk"] = (compiled_scs[name][0], pk, vk, [compiled_scs[name][2]], [3],
-                                proof)
-    for name in BSB22_CURVES:
-        extra += [(name, path, c) for path, c in
-                  phase_bsb22(device, name, compiled_bsb22[name]).items()]
-    extra += [("bls12_377", path, c) for path, c in phase_bsb22_mimc(device).items()]
-    extra += [("bn254", path, c) for path, c in
-              phase_checkpoint(device, "bn254", ck_runs).items()]
+    paths, extra, ck_runs, srv_runs, srv_others = [], [], {}, {}, []
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()    # phase 2's inputs: the lane's card memory
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        lane_chain = {n: compiled[n] for n in LANE_CHAIN}
+        lane_bsb22 = {n: compiled_bsb22[n] for n in LANE_BSB22}
+        lane = pool.apply_async(_other_lane, (
+            t_start, lane_chain, {n: compiled_scs[n] for n in LANE_PLONK}, lane_bsb22,
+            _solver_caches([c[0] for c in lane_chain.values()]
+                           + [systems["groth16"][0] for systems in lane_bsb22.values()])))
+        for name in CHAIN_CURVES:
+            if name in LANE_CHAIN:
+                continue
+            counts, vk, proof, pub, pk, batched, timed = phase_groth16(device, name,
+                                                                       compiled[name])
+            paths.append((name, "groth16", counts))
+            extra.append((name, "groth16_batched", batched))
+            if name == "bn254":
+                ck_runs["groth16"] = (compiled[name][0], pk, vk, pub, [3], proof)
+            if name == SERVE_CURVE:
+                srv_runs["groth16"] = (pk, vk, proof, pub, timed)
+            else:
+                srv_others.append((name, "groth16", vk, proof, pub))
+        for name in CURVE_NAMES:
+            if name in LANE_PLONK:
+                continue
+            counts, vk, proof, pk, batched, timed = phase_plonk(device, name, compiled_scs[name])
+            paths.append((name, "plonk", counts))
+            extra.append((name, "plonk_batched", batched))
+            pub = [compiled_scs[name][2]]
+            if name == "bn254":
+                ck_runs["plonk"] = (compiled_scs[name][0], pk, vk, pub, [3], proof)
+            if name == SERVE_CURVE:
+                srv_runs["plonk"] = (pk, vk, proof, pub, timed)
+            elif name in CHAIN_CURVES:
+                srv_others.append((name, "plonk", vk, proof, pub))
+        for name in BSB22_CURVES:
+            if name not in LANE_BSB22:
+                extra += [(name, path, c) for path, c in
+                          phase_bsb22(device, name, compiled_bsb22[name]).items()]
+        extra += [("bn254", path, c) for path, c in
+                  phase_checkpoint(device, "bn254", ck_runs).items()]
+        lane_paths, lane_extra = lane.get()
+        _say("lane", curves=sorted({c for c, _, _ in lane_paths + lane_extra}),
+             paths=[p for _, p, _ in lane_paths + lane_extra])
+    paths += lane_paths
+    extra += lane_extra
+    extra += [(SERVE_CURVE, path, c) for path, c in
+              phase_service(device, served, srv_runs, srv_others).items()]
     for k in kernels:
         k["launches_by_path"] = {path: counts[k["name"]] for curve, path, counts in paths + extra
                                  if curve == k["curve"]}

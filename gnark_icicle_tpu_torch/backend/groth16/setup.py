@@ -2,7 +2,7 @@
 scalar multiplications (device).
 
 Port of gnark_icicle_tpu/backend/groth16/setup.py (``qap_evaluations`` :25,
-``setup`` :75; its ``_batch_inv`` :62 is the one in ``ops/ec.py``). The host
+``setup`` :75, ``dummy_setup`` :231; its ``_batch_inv`` :62 is the one in ``ops/ec.py``). The host
 algebra is copied unchanged, as is the order in which the rng is drawn, so
 that the same rng gives the same keys as the reference. The batch scalar multiplications run on the
 fixed-base ladder (``ops/fixed_base.py``); all the G1 products of the proving
@@ -208,6 +208,32 @@ def setup(cs, curve, rng=None, engine: str = "auto", device=None):
              "keys": time.perf_counter() - t_keys}
     logger().info("groth16 setup: %s", ", ".join(f"{k} took={v:.3f}s" for k, v in parts.items()))
     return pk, vk
+
+
+def dummy_setup(cs, curve) -> ProvingKey:
+    """A proving key without a ceremony, for prove latency (≙
+    groth16.DummySetup, setup.go:494): every point is 42·G, so its proofs do
+    not verify. Copied from gnark_icicle_tpu/backend/groth16/setup.py:231; it
+    runs on the host and needs no device."""
+    log_n = _next_pow2_log(max(cs.nb_constraints, 2))
+    n = 1 << log_n
+    g1, g2 = curve.g1, curve.g2
+    p1 = g1.scalar_mul(g1.generator, 42)
+    p2 = g2.scalar_mul(g2.generator, 42)
+    nw = cs.nb_wires
+    nb_committed = sum(1 + len(c.private_committed) for c in cs.commitments)
+    return ProvingKey(
+        g1_alpha=p1, g1_beta=p1, g1_delta=p1, g2_beta=p2, g2_delta=p2,
+        g1_a=[p1] * nw, g1_b=[p1] * nw, g2_b=[p2] * nw,
+        g1_k=[p1] * (nw - cs.nb_public - nb_committed),
+        g1_z=[p1] * (n - 1) + [None],
+        domain_log_n=log_n,
+        commitment_keys=[
+            PedersenProvingKey(basis=[p1] * len(c.private_committed),
+                               basis_exp_sigma=[p1] * len(c.private_committed))
+            for c in cs.commitments
+        ],
+    )
 
 
 def _fp2_point(curve, p):

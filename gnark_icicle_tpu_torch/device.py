@@ -33,9 +33,23 @@ CURVES = ("bn254", "bls12-381", "bls12-377", "bw6-761")
 
 class DeviceCtx:
     """Device-side kernels and conversions for one host curve on one device
-    (None: the first CUDA card)."""
+    (None: the first CUDA card).
+
+    One context per (curve name, resolved device) in a process, as the
+    reference keeps one per curve (gnark_icicle_tpu/device.py:50-55,
+    :111-113): every prove, setup and KZG of a curve on a device, and so a
+    resident prover, builds it once. A construction that raises leaves no
+    entry."""
+
+    _cache: dict = {}
+
+    def __new__(cls, curve, device=None):
+        ctx = cls._cache.get((curve.name, resolve_device(device)))
+        return ctx if ctx is not None else super().__new__(cls)
 
     def __init__(self, curve, device=None):
+        if getattr(self, "_initialized", False):
+            return
         if curve.name not in CURVES:
             raise NotImplementedError(
                 f"the port's kernels cover {', '.join(CURVES)}, not {curve.name}")
@@ -52,6 +66,8 @@ class DeviceCtx:
         bits = curve.fr.modulus.bit_length()
         self.msm_g1 = MSMKernel(self.g1, bits)
         self.msm_g2 = MSMKernel(self.g2, bits)
+        self._initialized = True
+        DeviceCtx._cache[(curve.name, self.device)] = self
 
     def domain(self, log_n: int, coset: bool = False) -> Domain:
         """The Fr domain of 2^log_n on this device (ops/ntt.py caches it

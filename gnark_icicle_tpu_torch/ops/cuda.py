@@ -85,6 +85,7 @@ SIGNATURES = {
 
 _libs: dict = {}
 _lock = threading.Lock()
+_build_lock = threading.Lock()
 
 
 def _source_hash() -> str:
@@ -114,6 +115,21 @@ def libraries() -> list:
     return [(src, curve) for curve, srcs in CURVE_SOURCES.items() for src in srcs]
 
 
+def build_dir() -> str:
+    """The directory of this checkout's libraries (named by a hash of the
+    sources)."""
+    return os.path.join(BUILD_ROOT, _source_hash())
+
+
+def built(curve: str) -> bool:
+    """Whether every library of ``curve`` is in place (:func:`build` renames
+    each into place when its nvcc ends, so a caller may poll this while a
+    build runs in another thread)."""
+    out_dir = build_dir()
+    return all(os.path.exists(os.path.join(out_dir, f"lib{lib_stem(src, curve)}.so"))
+               for src in CURVE_SOURCES[curve])
+
+
 def build() -> str:
     """Compile every (source, curve) that has no library yet; returns the
     directory.
@@ -121,9 +137,16 @@ def build() -> str:
     The libraries land in a directory named by a hash of the sources, each
     written to a temporary name and renamed, so a half-built file is never
     loaded. ``-Xptxas -v`` output (registers, spills) goes to ``<stem>.log``
-    and the wall seconds of each nvcc process to ``<stem>.seconds``.
+    and the wall seconds of each nvcc process to ``<stem>.seconds``. One
+    build runs at a time: a second caller waits for the first and then
+    finds the libraries in place.
     """
-    out_dir = os.path.join(BUILD_ROOT, _source_hash())
+    with _build_lock:
+        return _build()
+
+
+def _build() -> str:
+    out_dir = build_dir()
     os.makedirs(out_dir, exist_ok=True)
     nvcc = _nvcc()
     procs = []
@@ -161,19 +184,27 @@ def build() -> str:
     return out_dir
 
 
+def load(curve: str) -> None:
+    """Load the libraries of one curve, building first where one is missing
+    (which builds them all, or waits for a build under way)."""
+    with _lock:
+        if all(lib_stem(src, curve) in _libs for src in CURVE_SOURCES[curve]):
+            return
+        out_dir = build_dir() if built(curve) else build()
+        for src in CURVE_SOURCES[curve]:
+            stem = lib_stem(src, curve)
+            lib = ctypes.CDLL(os.path.join(out_dir, f"lib{stem}.so"))
+            for name, argtypes in SIGNATURES[src].items():
+                getattr(lib, CURVES[curve] + name).argtypes = argtypes
+                getattr(lib, CURVES[curve] + name).restype = ctypes.c_int
+            _libs[stem] = lib
+
+
 def load_all() -> float:
     """Build (if needed) and load every library; returns the seconds spent."""
     t0 = time.perf_counter()
-    with _lock:
-        if len(_libs) < len(libraries()):
-            out_dir = build()
-            for src, curve in libraries():
-                stem = lib_stem(src, curve)
-                lib = ctypes.CDLL(os.path.join(out_dir, f"lib{stem}.so"))
-                for name, argtypes in SIGNATURES[src].items():
-                    getattr(lib, CURVES[curve] + name).argtypes = argtypes
-                    getattr(lib, CURVES[curve] + name).restype = ctypes.c_int
-                _libs[stem] = lib
+    for curve in CURVE_SOURCES:
+        load(curve)
     return time.perf_counter() - t0
 
 

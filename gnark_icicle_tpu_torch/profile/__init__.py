@@ -9,8 +9,9 @@ hot spots and ``dump_pprof_like()`` emits a flat text profile.
 
 Copied from gnark_icicle_tpu/profile/__init__.py:1, so that the port imports nothing of
 the JAX package; tests/test_torch_copies.py holds it to the original. Its
-device-trace hooks (``device_trace``, ``annotate``) wrap the JAX profiler
-and are left out.
+device-trace hooks (``device_trace``, ``annotate``, :172-201) are ported onto
+``torch.profiler``: a Chrome/Perfetto trace of the CPU and CUDA activity
+of a region, and named regions in it.
 """
 
 from __future__ import annotations
@@ -164,3 +165,99 @@ def record_constraint(n: int = 1):
 
 def is_profiling() -> bool:
     return bool(_ACTIVE)
+
+
+# ---------------------------------------------------------------------------
+# device-kernel tracing on torch.profiler (≙ the reference's zerolog
+# Dur("took") prover timing, at kernel granularity)
+# ---------------------------------------------------------------------------
+
+import contextlib
+import os
+
+
+class DeviceTrace:
+    """What :func:`device_trace` recorded: ``device``, the torch device it
+    traced, and ``path``, the trace file it wrote (None until the region
+    has ended)."""
+
+    def __init__(self, device):
+        self.device = device
+        self.path = None
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: str, device=None):
+    """Record the CPU activity and, on a CUDA device, the CUDA activity of a
+    region with torch.profiler, and write it into ``log_dir`` as a
+    Chrome/Perfetto trace (``<host>_<pid>.<ns>.pt.trace.json``, the name
+    TensorBoard's profiler plugin reads). ``device`` is resolved as every
+    entry point's is: the first CUDA card unless the caller names another
+    (``"cpu"`` records the CPU only).
+
+    Usage::
+
+        with profile.device_trace("/tmp/trace") as trace:
+            with profile.annotate("request"):
+                groth16.prove(...)
+        trace.path   # the file
+
+    On a CUDA device it raises RuntimeError, and leaves no trace file, where
+    torch.profiler cannot record CUDA activity or recorded none in the
+    region (no kernel, copy or memset event): a CPU-only trace of a device
+    region would hide the kernels.
+
+    On a CUDA device it also sets ``TEARDOWN_CUPTI=0`` where the
+    environment does not set it: by default the profiler detaches CUPTI at
+    the end of a session and attaches it again lazily in the next, which
+    then can miss its first seconds of kernels (an H100 with torch 2.11 lost
+    a served request's first 12 kernels so). A program that
+    profiles before it traces sets it before its first session.
+    """
+    import json
+    import socket
+    import time
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ..ops.cuda import resolve_device
+
+    trace = DeviceTrace(resolve_device(device))
+    on_cuda = trace.device.type == "cuda"
+    activities = [ProfilerActivity.CPU]
+    if on_cuda:
+        if ProfilerActivity.CUDA not in torch.profiler.supported_activities():
+            raise RuntimeError("torch.profiler cannot record CUDA activity here")
+        activities.append(ProfilerActivity.CUDA)
+        os.environ.setdefault("TEARDOWN_CUPTI", "0")
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield trace
+        if on_cuda:
+            torch.cuda.synchronize(trace.device)
+    path = os.path.join(
+        log_dir, f"{socket.gethostname()}_{os.getpid()}.{time.time_ns()}.pt.trace.json")
+    prof.export_chrome_trace(path)
+    if on_cuda:
+        with open(path) as f:
+            cats = {e.get("cat") for e in json.load(f)["traceEvents"]}
+        if not cats & {"kernel", "gpu_memcpy", "gpu_memset"}:
+            os.remove(path)
+            raise RuntimeError("torch.profiler recorded no CUDA activity in the traced region")
+    trace.path = path
+
+
+@contextlib.contextmanager
+def annotate(name: str):
+    """A named region inside a device trace (≙ jax.profiler.TraceAnnotation):
+    a torch.profiler ``record_function`` and, where a CUDA card is present,
+    an NVTX range of the same name."""
+    import torch
+
+    with torch.profiler.record_function(name):
+        if torch.cuda.is_available():
+            with torch.cuda.nvtx.range(name):
+                yield
+        else:
+            yield

@@ -570,3 +570,73 @@ def test_bsb22_proves_on_card(cuda_device, name):
             assert not system.is_valid(bad, vk, [v], curve)
     finally:
         secrets.randbelow = mask
+
+
+# the __global__ function that each entry launches (unprefixed entry, or the
+# op of a g1_/g2_ entry): a profiler trace names the launches by it
+SYMBOLS = {"fr_mont_mul": "k_fr_mont_mul", "fr_sub": "k_fr_sub", "fr_add": "k_fr_add",
+           "plonk_quotient": "k_plonk_quotient", "fr_batch_inv": "k_fr_batch_inv",
+           "ntt_pass": "k_ntt_pass", "add": "k_add", "double": "k_double",
+           "add_mixed_masked": "k_mixed_accumulate", "bucket_accumulate": "k_mixed_accumulate",
+           "fixed_base": "k_mixed_accumulate", "normalize": "k_normalize",
+           "bucket_reduce": "k_reduce", "reduce_combine": "k_reduce", "horner": "k_horner"}
+
+
+@pytest.mark.parametrize("system", ["groth16", "plonk"])
+def test_served_request_on_card(cuda_device, tmp_path, system):
+    """A resident prover on the card answers a request through the wire
+    formats (the system read from gnark's .r1cs/.scs, Groth16's proving key
+    and the witness from their bytes): its proof bytes equal the direct
+    prove's under one rng, and read back from them it verifies. The request
+    runs under profile.device_trace and annotate: the trace holds the
+    region and names the function of every kernel entry that ran."""
+    import json
+
+    from gnark_icicle_tpu_torch import profile
+    from gnark_icicle_tpu_torch.backend.prover_service import Groth16Prover, PlonkProver
+    from gnark_icicle_tpu_torch.io import gnark_cs, keys, plonk_serialize, serialize
+    from gnark_icicle_tpu_torch.ops import cuda as kc
+
+    curve = CURVES["bn254"]
+    R = curve.fr.modulus
+    groth = system == "groth16"
+    backend, circuit, steps = (groth16, Chain, STEPS) if groth else (plonk, PlonkChain,
+                                                                       PLONK_STEPS)
+    cs = compile_circuit(R, circuit, builder="r1cs" if groth else "scs")
+    v = 3
+    for i in range(steps):
+        v = (v * v + v + i) % R
+    pk, vk = backend.setup(cs, curve, rng=random.Random(1), device=cuda_device)
+    if groth:
+        served = Groth16Prover(gnark_cs.read_r1cs(gnark_cs.write_r1cs(cs)),
+                               keys.pk_from_bytes(curve, keys.pk_to_bytes(curve, pk)), curve,
+                               device=cuda_device)
+        proof_to, proof_from = serialize.proof_to_bytes, serialize.proof_from_bytes
+    else:
+        served = PlonkProver(gnark_cs.read_scs(gnark_cs.write_scs(cs)), pk, curve,
+                             device=cuda_device)
+        proof_to = plonk_serialize.plonk_proof_to_bytes
+        proof_from = plonk_serialize.plonk_proof_from_bytes
+    pub, sec = serialize.witness_from_bytes(curve, serialize.witness_to_bytes(curve, [v], [3]))
+    before = {k.name: k.launches for k in kc.KERNELS.values()}
+    with profile.device_trace(str(tmp_path), device=cuda_device) as trace:
+        with profile.annotate("request"):
+            proof = served.prove(pub, sec, rng=random.Random(2))
+    ran = {k.name for k in kc.KERNELS.values() if k.launches > before[k.name]}
+    data = proof_to(curve, proof)
+    direct = backend.prove(cs, pk, [v], [3], curve, rng=random.Random(2), device=cuda_device)
+    assert data == proof_to(curve, direct)
+    back, used = proof_from(curve, data)
+    assert used == len(data)
+    backend.verify(back, vk, [v], curve)
+
+    with open(trace.path) as f:
+        events = json.load(f)["traceEvents"]
+    assert any(e.get("name") == "request" and e.get("cat") == "user_annotation"
+               for e in events)
+    names = {e["name"].removeprefix("void ").split("(")[0].split("<")[0]
+             for e in events if e.get("cat") == "kernel"}
+    assert ran and "ntt_pass" in ran and "g1_bucket_accumulate" in ran
+    for entry in ran:
+        g, _, op = entry.partition("_")
+        assert SYMBOLS[op if g in ("g1", "g2") else entry] in names, entry

@@ -4,9 +4,12 @@ The machine with the card has no JAX, and the port imports nothing of the
 JAX package either: a subprocess with ``jax`` and every ``gnark_icicle_tpu``
 module blocked on ``sys.meta_path`` imports every module of the port and
 runs a tiny compile → setup → prove → verify slice with the port's own
-frontend and curves (the 2-chain's curves and std/ gadgets, and the BSB22
-copies, are among the modules it imports; the slice's circuit has a
-commitment and proves with batch_msm=True). chip_smoke.py refuses to run without a GPU, and the
+frontend and curves (the 2-chain's curves and std/ gadgets, the BSB22
+copies, io/ and the prover service are among the modules it imports; the
+slice's circuit has a commitment and proves with batch_msm=True), then
+serves it: the system through gnark's .r1cs, the key and the witness
+through their bytes, a resident prover, and the proof's bytes, which are the
+direct proof's. chip_smoke.py refuses to run without a GPU, and the
 entry points raise where there is no card and no ``device="cpu"``.
 """
 
@@ -26,7 +29,7 @@ STANDALONE = (sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
                                             REPO / "tests" / "test_torch_cuda.py"])
 
 SLICE = r'''
-import importlib, pkgutil, random, sys
+import importlib, pkgutil, random, secrets, sys
 
 class Block:
     """jax, jaxlib and the JAX package (gnark_icicle_tpu and its modules)."""
@@ -48,7 +51,9 @@ for name in ("curves.bls12_377", "curves.bw6_761", "std.algebra_native",
              "std.recursion.native_groth16", "backend.kzg", "backend.transcript",
              "backend.plonk.keys", "backend.plonk.setup", "backend.plonk.prove",
              "backend.plonk.verify", "io.serialize", "backend.pedersen",
-             "backend.hash_to_field", "std.hash.mimc"):
+             "backend.hash_to_field", "std.hash.mimc", "io.cbor", "io.intcomp",
+             "io.gnark_cs", "io.keys", "io.plonk_serialize", "backend.prover_service",
+             "profile"):
     assert "gnark_icicle_tpu_torch." + name in sys.modules, name
 
 from gnark_icicle_tpu_torch.curves import bn254
@@ -71,12 +76,27 @@ class Chain(Circuit):
 v = 3
 for i in range(STEPS):
     v = (v * v + v + i) % R
+secrets.randbelow = lambda m: 0x5EED % m   # the commitment's hiding mask, fixed
 cs = compile_circuit(R, Chain)
 pk, vk = groth16.setup(cs, bn254.BN254, rng=random.Random(1), device="cpu")
 proof = groth16.prove(cs, pk, [v], [3], bn254.BN254, rng=random.Random(2),
                       device="cpu", batch_msm=True)
 groth16.verify(proof, vk, [v], bn254.BN254)
 assert not groth16.is_valid(proof, vk, [v + 1], bn254.BN254)
+
+# the serving path: the system, the key and the witness from bytes, a
+# resident prover, the proof in bytes: the direct proof's
+from gnark_icicle_tpu_torch.backend.prover_service import Groth16Prover
+from gnark_icicle_tpu_torch.io import gnark_cs, keys, serialize
+
+served = Groth16Prover(gnark_cs.read_r1cs(gnark_cs.write_r1cs(cs)),
+                       keys.pk_from_bytes(bn254.BN254, keys.pk_to_bytes(bn254.BN254, pk)),
+                       bn254.BN254, device="cpu")
+pub, sec = serialize.witness_from_bytes(bn254.BN254,
+                                        serialize.witness_to_bytes(bn254.BN254, [v], [3]))
+data = serialize.proof_to_bytes(bn254.BN254, served.prove(pub, sec, rng=random.Random(2)))
+assert data == serialize.proof_to_bytes(bn254.BN254, proof)
+assert serialize.proof_from_bytes(bn254.BN254, data)[1] == len(data)
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "gnark_icicle_tpu"))
 assert not leaked, leaked
@@ -126,7 +146,8 @@ def test_chip_smoke_refuses_without_gpu(tmp_path):
 
 
 @pytest.mark.parametrize("entry", ["setup", "prove", "DeviceCtx", "msm_host", "plonk.setup",
-                                   "plonk.prove", "KZG.commit", "unsafe_srs"])
+                                   "plonk.prove", "KZG.commit", "unsafe_srs", "Groth16Prover",
+                                   "PlonkProver", "device_trace"])
 def test_entry_points_raise_without_cuda(entry):
     """No device given and no card: every entry point raises instead of
     running the plain versions on the CPU."""
@@ -134,8 +155,10 @@ def test_entry_points_raise_without_cuda(entry):
 
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the entry points would run on it")
+    from gnark_icicle_tpu_torch import profile
     from gnark_icicle_tpu_torch.backend import groth16, plonk
     from gnark_icicle_tpu_torch.backend.kzg import KZG, unsafe_srs
+    from gnark_icicle_tpu_torch.backend.prover_service import Groth16Prover, PlonkProver
     from gnark_icicle_tpu_torch.curves import bn254
     from gnark_icicle_tpu_torch.device import DeviceCtx
     from gnark_icicle_tpu_torch.frontend import Circuit, Public, Secret, compile_circuit
@@ -165,6 +188,10 @@ def test_entry_points_raise_without_cuda(entry):
         "KZG.commit": lambda: KZG(curve, unsafe_srs(curve, 4, tau=5, device="cpu"))
                               .commit([1, 2]),
         "unsafe_srs": lambda: unsafe_srs(curve, 4, tau=5),
+        "Groth16Prover": lambda: Groth16Prover(compile_circuit(bn254.R, Square), None, curve),
+        "PlonkProver": lambda: PlonkProver(compile_circuit(bn254.R, Square, builder="scs"),
+                                           None, curve),
+        "device_trace": lambda: profile.device_trace("unused").__enter__(),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
