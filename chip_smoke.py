@@ -88,7 +88,15 @@ at 12, G2 over Fp), phases print one JSON line each on stdout:
      public input + 1 rejected; launch counts as in phase 4, *_add included
      (its MSMs split the top windows' buckets), and setup's G1 batch and its
      G2 batch over Fp both on the g1 entries (two *_fixed_base, two
-     *_normalize);
+     *_normalize); then the committed 2-chain (the in-circuit BSB22 branch):
+     phase bsb22's BLS12-377 proof made with ("mimc", BW6-761's r), its
+     commitment and proof of knowledge among the outer circuit's secrets
+     (the commitment wire re-derived with the MiMC gadget, the Pedersen
+     proof of knowledge checked by a pairing): compile, setup, a first and
+     a warm prove on the card, verify, the inner public input + 1 rejected
+     by the verifier and a commitment coordinate + 1 refused by the prover
+     (the outer system unsatisfied); its constraints, compile and prove
+     seconds;
   plonk: the port's PLONK (KZG commitments on the G1 MSM, the 4n coset
      transforms, the fused quotient) on each curve's SCS Chain
      (bench.py:359 bench_plonk): 2^17 gates on BN254 and BLS12-381 (a 2^19
@@ -116,6 +124,23 @@ at 12, G2 over Fp), phases print one JSON line each on stdout:
      a temporary directory: a fresh prove, a resume after deleting the last
      stage and a full resume, each under the rng of an uninterrupted prove
      of the path: each equals it and verifies; the seconds saved;
+  deploy: the exported Solidity verifiers (backend/solidity.py,
+     backend/plonk_solidity.py) run in the port's EVM interpreter (evm.py,
+     the precompiles 0x05-0x08 over the port's curves) on BN254 proofs made
+     on the card: phase 4's Chain 2^17 Groth16 proof, phase plonk's 2^17
+     proof, phase bsb22's committed Groth16 key proved once more with the
+     EVM commitment hash ("evm", "keccak256") under a contract exported
+     with hash_fn="keccak256", and phase bsb22's PLONK proof; each contract
+     accepts its proof's calldata and raises Revert (nothing else) on a
+     proof word + 1, the public input + 1 and a commitment's x + 1; each
+     contract's source bytes and each call's seconds;
+  ceremony: Groth16's MPC ceremony (host code, as gnark's mpcsetup) for
+     BN254's Chain at a 2^8 domain, in the second process, which runs it
+     once nvcc is done, while phases 2 and 3 hold the card: Phase1.init,
+     two contributions, verify; Phase2.init, two contributions, verify,
+     finalize; after the lane's paths, the keys read from their bytes, a
+     prove on the card, verify, and the exported Groth16 contract, which
+     accepts the proof and reverts on each tamper; each step's seconds;
   service: BN254's Chain (Groth16) and 2^17 SCS Chain (PLONK) served from
      gnark's formats: each system written as gnark's .r1cs/.scs and read
      back in its compile worker while nvcc and phase 2 run (encode(decode(bytes)) the
@@ -131,11 +156,12 @@ at 12, G2 over Fp), phases print one JSON line each on stdout:
      kernel), a proof with one flipped bit refused; DeviceCtx's build and
      cached lookup timed; BLS12-381's and BLS12-377's proofs and vks of
      phases 4 and plonk through their bytes and verified again;
-  The paths of phases 4 to checkpoint run in two processes at once, each
-     with its own launch counts: BN254's paths and BLS12-381's PLONK in this
-     one, the others (LANE_*) in a spawned one (_other_lane), which also
-     sends its curves' proofs and vks through their bytes; the service
-     phase runs when both have ended;
+  The paths of phases 4 to deploy run in two processes at once, each
+     with its own launch counts: BN254's paths, BLS12-381's PLONK and
+     deploy in this one, the others (LANE_*), the committed 2-chain and
+     the ceremony in a spawned one (_other_lane), which also sends its
+     curves' proofs and vks through their bytes; the service phase runs
+     when both have ended;
   5. the JSON line of all kernels (each with its launches on each of its
      curve's paths, the batched proves, bsb22, checkpoint and service
      included, and their sum; every kernel but *_double and
@@ -156,6 +182,7 @@ import subprocess
 import sys
 import threading
 import time
+import traceback
 
 CURVE_NAMES = ("bn254", "bls12_381", "bls12_377", "bw6_761")
 CHAIN_CURVES = ("bn254", "bls12_381", "bls12_377")   # phase 4
@@ -1614,41 +1641,119 @@ def phase_groth16(device, name: str, compiled: tuple) -> tuple:
     return launches, vk, proof, [v], pk, batched, timed
 
 
-def phase_2chain(device, inner_vk, inner_proof, inner_pub) -> tuple:
-    """The BW6-761 outer proof that the BLS12-377 proof of phase 4 verifies:
-    the circuit OuterG16 of tools/run_2chain_device.py, compiled over
-    BW6-761's r (= BLS12-377's p) with the port's std/ gadgets, then
-    _prove_path; the tampered input is the inner public value + 1. Returns
-    (launches, the batched prove's launches)."""
-    from gnark_icicle_tpu_torch.curves import bls12_377
-    from gnark_icicle_tpu_torch.frontend import Circuit, Public, Secret, compile_circuit
+def _outer_circuit(inner_vk):
+    """OuterG16 of tools/run_2chain_device.py: the in-circuit Groth16
+    verifier of std/ over an inner BLS12-377 vk. Where the vk has a
+    commitment key, the inner proof's commitment and proof of knowledge are
+    four more secret words (the BSB22 branch: the commitment wire re-derived
+    with the MiMC gadget, the Pedersen proof of knowledge checked by a
+    pairing)."""
+    from gnark_icicle_tpu_torch.frontend import Circuit, Public, Secret
     from gnark_icicle_tpu_torch.std.recursion.native_groth16 import (
         NativeGroth16Verifier, NativeVerifierProof,
     )
 
+    committed = bool(inner_vk.commitment_keys)
+
     class OuterG16(Circuit):
         inner_pub = Public()
-        pr = Secret(shape=8)  # ax ay | bx0 bx1 by0 by1 | cx cy
+        # ax ay | bx0 bx1 by0 by1 | cx cy (| commitment x y | its pok x y)
+        pr = Secret(shape=12 if committed else 8)
 
         def define(self, api):
             gv = NativeGroth16Verifier(api, inner_vk)
             p = self.pr
+            cm = ({"commitments": ((p[8], p[9]),), "commitment_pok": (p[10], p[11])}
+                  if committed else {})
             w = NativeVerifierProof(ar=(p[0], p[1]), bs=((p[2], p[3]), (p[4], p[5])),
-                                    krs=(p[6], p[7]))
+                                    krs=(p[6], p[7]), **cm)
             gv.assert_proof(w, [self.inner_pub])
 
+    return OuterG16
+
+
+def _outer_words(pr) -> list:
+    """An inner proof's coordinates in OuterG16's order."""
+    words = [pr.ar[0], pr.ar[1], pr.bs[0].c0, pr.bs[0].c1, pr.bs[1].c0, pr.bs[1].c1,
+             pr.krs[0], pr.krs[1]]
+    for cm in pr.commitments:
+        words += [cm[0], cm[1], pr.commitment_pok[0], pr.commitment_pok[1]]
+    return words
+
+
+def phase_2chain(device, inner_vk, inner_proof, inner_pub) -> tuple:
+    """The BW6-761 outer proof that the BLS12-377 proof of phase 4 verifies:
+    _outer_circuit compiled over BW6-761's r (= BLS12-377's p) with the
+    port's std/ gadgets, then _prove_path; the tampered input is the inner
+    public value + 1. Returns (launches, the batched prove's launches)."""
+    from gnark_icicle_tpu_torch.curves import bls12_377
+    from gnark_icicle_tpu_torch.frontend import compile_circuit
+
+    OuterG16 = _outer_circuit(inner_vk)
     t0 = time.perf_counter()
     cs = compile_circuit(bls12_377.P, OuterG16)
     t_compile = time.perf_counter() - t0
-    pr = inner_proof
-    w = OuterG16(inner_pub=inner_pub[0],
-                 pr=[pr.ar[0], pr.ar[1], pr.bs[0].c0, pr.bs[0].c1, pr.bs[1].c0,
-                     pr.bs[1].c1, pr.krs[0], pr.krs[1]])
+    w = OuterG16(inner_pub=inner_pub[0], pr=_outer_words(inner_proof))
     opub, osec = w.witness_values(bls12_377.P)
     bad = [(inner_pub[0] + 1) % bls12_377.R]
     launches, _, _, _, batched, _ = _prove_path(device, "bw6_761", "groth16", cs, opub, osec,
                                                 bad, "2chain", compile_s=t_compile)
     return launches, batched
+
+
+def phase_2chain_committed(device, inner_vk, inner_proof, inner_pub) -> dict:
+    """The 2-chain over a committed inner proof: phase bsb22's BLS12-377
+    proof made with ("mimc", BW6-761's r), its commitment and proof of
+    knowledge among the outer circuit's secrets (_outer_circuit's BSB22
+    branch). Compile, setup, a first and a warm prove on the card, verify;
+    the inner public input + 1 is rejected by the verifier, and a
+    commitment coordinate + 1 leaves the outer system unsatisfied, so that
+    the prover refuses it. Returns {path: launches}."""
+    from gnark_icicle_tpu_torch.backend import groth16
+    from gnark_icicle_tpu_torch.constraint.solver import UnsatisfiedConstraintError
+    from gnark_icicle_tpu_torch.curves import bls12_377
+    from gnark_icicle_tpu_torch.frontend import compile_circuit
+
+    curve = _curves()["bw6_761"]
+    OuterG16 = _outer_circuit(inner_vk)
+    t0 = time.perf_counter()
+    cs = compile_circuit(bls12_377.P, OuterG16)
+    t_compile = time.perf_counter() - t0
+    words = _outer_words(inner_proof)
+    opub, osec = OuterG16(inner_pub=inner_pub[0], pr=words).witness_values(bls12_377.P)
+    _zero_counts()
+    t0 = time.perf_counter()
+    pk, vk = groth16.setup(cs, curve, rng=random.Random(1), device=device)
+    t_setup = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    groth16.prove(cs, pk, opub, osec, curve, rng=random.Random(2), device=device)
+    t_first = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    proof = groth16.prove(cs, pk, opub, osec, curve, rng=random.Random(3), device=device)
+    t_prove = time.perf_counter() - t0
+    launches = _counts("bw6_761")
+    _check_msm_launches("bw6_761", launches, "bw6_761 2chain committed")
+    t0 = time.perf_counter()
+    groth16.verify(proof, vk, opub, curve)
+    t_verify = time.perf_counter() - t0
+    if groth16.is_valid(proof, vk, [(inner_pub[0] + 1) % bls12_377.R], curve):
+        raise AssertionError("the verifier accepted a tampered inner public input")
+    bad = list(words)
+    bad[8] = (bad[8] + 1) % bls12_377.P
+    bpub, bsec = OuterG16(inner_pub=inner_pub[0], pr=bad).witness_values(bls12_377.P)
+    try:
+        groth16.prove(cs, pk, bpub, bsec, curve, rng=random.Random(4), device=device)
+    except UnsatisfiedConstraintError:
+        pass
+    else:
+        raise AssertionError("the prover accepted a tampered commitment coordinate")
+    _say("2chain", curve=curve.name, inner="bls12_377 groth16 with one commitment, "
+         "mimc(bw6-761 r)", constraints=cs.nb_constraints, wires=cs.nb_wires,
+         domain_log_n=pk.domain_log_n, compile_s=t_compile, setup_s=t_setup,
+         first_prove_s=t_first, prove_s=t_prove, verify_s=t_verify, verified=True,
+         rejected={"public_input": True, "commitment_coordinate": True},
+         launches={k: c for k, c in launches.items() if c})
+    return {"2chain_committed": launches}
 
 
 def phase_plonk(device, name: str, compiled: tuple) -> tuple:
@@ -1858,19 +1963,20 @@ def _tamper_rejected(backend, proof, vk, pub, curve, **kw) -> dict:
     return {kind: True for kind in cases}
 
 
-def phase_bsb22(device, name: str, compiled: dict) -> dict:
+def phase_bsb22(device, name: str, compiled: dict) -> tuple:
     """BSB22 commitments on the card: the Chain of 2^BSB22_LOG with one
     api.commit (_compile_job's "bsb22_*") through Groth16 and PLONK with the "sha256"
     commitment hash: setup, a first prove and a warm prove, verify, and a
     tampered commitment, proof of knowledge and public input rejected; the
     Pedersen commit and proof of knowledge timed on the committed count, and
-    every MSM one launch set. Returns {path: launches}."""
+    every MSM one launch set. Returns ({path: launches}, {system: (cs, pk,
+    vk, the warm proof, public inputs)}), the runs for phase deploy."""
     import importlib
 
     from gnark_icicle_tpu_torch.backend import pedersen
 
     curve = _curves()[name]
-    out = {}
+    out, runs = {}, {}
     for system, (cs, t_compile, v) in compiled.items():
         backend = importlib.import_module(f"gnark_icicle_tpu_torch.backend.{system}")
         _zero_counts()
@@ -1910,14 +2016,16 @@ def phase_bsb22(device, name: str, compiled: dict) -> dict:
              verified=True, rejected=rejected, **extra,
              launches={k: c for k, c in launches.items() if c})
         out[f"bsb22_{system}"] = launches
-    return out
+        runs[system] = (cs, pk, vk, proof, [v])
+    return out, runs
 
 
-def phase_bsb22_mimc(device) -> dict:
+def phase_bsb22_mimc(device) -> tuple:
     """BLS12-377 Groth16 with the 2-chain's commitment hash, ("mimc",
     BW6-761's r), on a small Chain with a commitment: setup, prove, verify
-    with that hash, a tampered public input rejected. Returns {path:
-    launches}."""
+    with that hash, a tampered public input rejected. Returns ({path:
+    launches}, (vk, proof, public inputs)): the committed 2-chain's inner
+    proof."""
     from gnark_icicle_tpu_torch.backend import groth16
 
     curve = _curves()["bls12_377"]
@@ -1937,7 +2045,188 @@ def phase_bsb22_mimc(device) -> dict:
     _say("bsb22", curve=curve.name, system="groth16", commitment_hash="mimc(bw6-761 r)",
          constraints=cs.nb_constraints, prove_s=t_prove, verified=True,
          tampered_rejected=True, launches={k: c for k, c in launches.items() if c})
-    return {"bsb22_mimc": launches}
+    return {"bsb22_mimc": launches}, (vk, proof, [v])
+
+
+# phase deploy: gnark-icicle's deployment, from ceremony to contract, on
+# BN254 (the EVM's curve). The ceremony's Chain has a 2^CEREMONY_LOG domain:
+# the ceremony is host code (Python ints, as gnark's mpcsetup is CPU Go), too
+# slow for 2^17, whose proofs the contracts check instead
+CEREMONY_LOG = 8
+CEREMONY_STEPS = 200            # 201 constraints
+CEREMONY_CONTRIBUTIONS = 2      # contributions a phase, each verified
+
+
+def _step(steps: dict, name: str, run):
+    """run(), its wall seconds kept in steps[name]."""
+    t0 = time.perf_counter()
+    out = run()
+    steps[name] = time.perf_counter() - t0
+    return out
+
+
+def _bumped(args: list, arg: int, word: int, modulus: int) -> list:
+    """verifyProof's arguments with one word + 1 (mod modulus)."""
+    out = [list(a) for a in args]
+    out[arg][word] = (out[arg][word] + 1) % modulus
+    return out
+
+
+def _deploy_contract(label: str, src: str, args: list, tampers: dict) -> None:
+    """One exported verifier in the port's EVM interpreter: the source
+    parses, the proof's calldata (args as ABI bytes) is accepted, and each
+    tamper (name -> verifyProof's tampered arguments) raises Revert; any
+    other exception fails the run. Prints the contract's line."""
+    from gnark_icicle_tpu_torch import evm
+    from gnark_icicle_tpu_torch.backend import calldata
+
+    t0 = time.perf_counter()
+    contract = evm.load_contract(src)
+    t_load = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    contract.call_calldata("verifyProof", calldata.encode(args))
+    t_call = time.perf_counter() - t0
+    reverted = {}
+    for kind, bad in tampers.items():
+        t0 = time.perf_counter()
+        try:
+            contract.call("verifyProof", *bad)
+        except evm.Revert as e:
+            reverted[kind] = {"error": e.error or "(raw)", "call_s": time.perf_counter() - t0}
+            continue
+        raise AssertionError(f"the {label} contract accepted a tampered {kind}")
+    _say("deploy", contract=label, source_bytes=len(src.encode()),
+         calldata_words=sum(len(a) for a in args), load_s=t_load, call_s=t_call,
+         accepted=True, reverted=reverted)
+
+
+def _groth16_contract(label: str, vk, proof, pub: list, hash_fn: str = "sha256") -> None:
+    """_deploy_contract on export_solidity's contract of a BN254 vk: a
+    proof word (Ar's x) + 1 and the public input + 1 must revert, and a
+    commitment's x + 1 where the proof has one."""
+    from gnark_icicle_tpu_torch.backend import calldata
+    from gnark_icicle_tpu_torch.backend.solidity import export_solidity
+
+    curve = _curves()["bn254"]
+    p, r = curve.fp.modulus, curve.fr.modulus
+    args = calldata.groth16_args(proof, pub)
+    tampers = {"proof_word": _bumped(args, 0, 0, p), "public_input": _bumped(args, -1, 0, r)}
+    if proof.commitments:
+        tampers["commitment"] = _bumped(args, 1, 0, p)
+    _deploy_contract(label, export_solidity(vk, curve, hash_fn), args, tampers)
+
+
+def _plonk_contract(label: str, vk, proof, pub: list) -> None:
+    """_deploy_contract on export_plonk_solidity's contract of a BN254 vk: a
+    proof word (z(ωζ), word 24) + 1 and the public input + 1 must revert,
+    and a commitment's x + 1 where the proof has one."""
+    from gnark_icicle_tpu_torch.backend import calldata
+    from gnark_icicle_tpu_torch.backend.plonk_solidity import export_plonk_solidity
+
+    curve = _curves()["bn254"]
+    p, r = curve.fp.modulus, curve.fr.modulus
+    args = calldata.plonk_args(proof, pub)
+    tampers = {"proof_word": _bumped(args, 0, 24, r), "public_input": _bumped(args, -1, 0, r)}
+    if proof.bsb22_commitments:
+        tampers["commitment"] = _bumped(args, 0, len(args[0]) - 2, p)
+    _deploy_contract(label, export_plonk_solidity(vk, curve), args, tampers)
+
+
+def phase_deploy(device, groth16_run: tuple, plonk_run: tuple, bsb22_runs: dict) -> dict:
+    """The exported Solidity verifiers run in the port's EVM interpreter on
+    proofs made on the card (BN254): phase 4's Chain 2^17 Groth16 vk and
+    proof, phase plonk's 2^17 vk and proof (each run: (vk, proof, public
+    inputs)), and phase bsb22's committed circuits (bsb22_runs: its runs):
+    its Groth16 key proves once more on the card with the EVM commitment
+    hash ("evm", "keccak256"), which its contract (hash_fn="keccak256")
+    recomputes, and its PLONK proof goes to its contract as it is. Each
+    contract accepts its proof and reverts on each tamper. Returns {path:
+    launches}."""
+    from gnark_icicle_tpu_torch.backend import groth16
+
+    curve = _curves()["bn254"]
+    _groth16_contract(f"groth16 chain 2^{CHAIN_LOG['bn254']}", *groth16_run)
+    _plonk_contract(f"plonk chain 2^{PLONK_LOG['bn254']}", *plonk_run)
+    cs, pk, vk, _, pub = bsb22_runs["groth16"]
+    h = ("evm", "keccak256")
+    _zero_counts()
+    t0 = time.perf_counter()
+    proof = groth16.prove(cs, pk, pub, [3], curve, rng=random.Random(5), device=device,
+                          commitment_hash=h)
+    t_prove = time.perf_counter() - t0
+    launches = _counts("bn254")
+    _check_msm_launches("bn254", launches, "bn254 deploy groth16 evm hash")
+    groth16.verify(proof, vk, pub, curve, commitment_hash=h)
+    _say("deploy", curve=curve.name, system="groth16", commitment_hash="evm keccak256",
+         constraints=cs.nb_constraints, prove_s=t_prove, verified=True,
+         launches={k: c for k, c in launches.items() if c})
+    _groth16_contract(f"groth16 bsb22 2^{BSB22_LOG} keccak256", vk, proof, pub, "keccak256")
+    _, _, pvk, pproof, ppub = bsb22_runs["plonk"]
+    _plonk_contract(f"plonk bsb22 2^{BSB22_LOG}", pvk, pproof, ppub)
+    return {"deploy_bsb22_evm": launches}
+
+
+def ceremony_keys(t_start: float) -> dict:
+    """Groth16's MPC ceremony (mpcsetup, host code) for BN254's Chain at a
+    2^CEREMONY_LOG domain: Phase1.init, CEREMONY_CONTRIBUTIONS
+    contributions, verify; Phase2.init over the compiled system, as many
+    contributions, verify, finalize; the keys as their bytes (io/keys,
+    io/serialize). It needs no card, so the second process runs it while
+    phases 2 and 3 hold the card (main). Returns the compiled system, its
+    public output, the key bytes, each step's seconds and when it ran."""
+    from gnark_icicle_tpu_torch.backend.groth16.mpcsetup import Phase1, Phase2
+    from gnark_icicle_tpu_torch.io import keys, serialize
+
+    at = [time.perf_counter() - t_start]
+    curve = _curves()["bn254"]
+    n = 1 << CEREMONY_LOG
+    cs, t_compile, v = _chain("bn254", CEREMONY_STEPS, "r1cs")
+    if not n // 2 < cs.nb_constraints <= n:
+        raise AssertionError(f"the ceremony's Chain has {cs.nb_constraints} constraints")
+    rng = random.Random(7)
+    steps = {"compile": t_compile}
+    p1 = _step(steps, "phase1_init", lambda: Phase1.init(curve, n))
+    for i in range(CEREMONY_CONTRIBUTIONS):
+        _step(steps, f"phase1_contribute_{i + 1}", lambda: p1.contribute(rng=rng))
+    _step(steps, "phase1_verify", p1.verify)
+    p2 = _step(steps, "phase2_init", lambda: Phase2.init(p1, cs))
+    for i in range(CEREMONY_CONTRIBUTIONS):
+        _step(steps, f"phase2_contribute_{i + 1}", lambda: p2.contribute(rng=rng))
+    _step(steps, "phase2_verify", p2.verify)
+    pk, vk = p2.finalize()
+    return {"cs": cs, "v": v, "pk": keys.pk_to_bytes(curve, pk, compressed=False),
+            "vk": serialize.vk_to_bytes(curve, vk, True), "steps": steps,
+            "host_at_s": at + [time.perf_counter() - t_start]}
+
+
+def phase_ceremony(device, ceremony: dict) -> dict:
+    """The ceremony's keys (ceremony_keys) read from their bytes, as phase
+    service reads a key; a prove on the card, verify, a tampered input
+    rejected, and the exported Groth16 contract, which must accept the
+    proof and revert on each tamper. Returns {path: launches}."""
+    from gnark_icicle_tpu_torch.backend import groth16
+    from gnark_icicle_tpu_torch.io import keys, serialize
+
+    curve = _curves()["bn254"]
+    cs, v, steps = ceremony["cs"], ceremony["v"], dict(ceremony["steps"])
+    pk = _step(steps, "keys_read", lambda: keys.pk_from_bytes(curve, ceremony["pk"]))
+    vk, _ = serialize.vk_from_bytes(curve, ceremony["vk"])
+    _zero_counts()
+    proof = _step(steps, "prove", lambda: groth16.prove(cs, pk, [v], [3], curve,
+                                                        rng=random.Random(8), device=device))
+    launches = _counts("bn254")
+    _check_msm_launches("bn254", launches, "bn254 ceremony")
+    _step(steps, "verify", lambda: groth16.verify(proof, vk, [v], curve))
+    if groth16.is_valid(proof, vk, [(v + 1) % curve.fr.modulus], curve):
+        raise AssertionError("the verifier accepted a tampered public input")
+    total = sum(t for k, t in steps.items() if k.startswith("phase"))
+    _say("ceremony", curve=curve.name, domain_log_n=CEREMONY_LOG,
+         constraints=cs.nb_constraints, contributions=CEREMONY_CONTRIBUTIONS,
+         pk_bytes=len(ceremony["pk"]), vk_bytes=len(ceremony["vk"]), steps=steps,
+         ceremony_s=total, host_at_s=ceremony["host_at_s"], verified=True,
+         tampered_rejected=True, launches={k: c for k, c in launches.items() if c})
+    _groth16_contract(f"groth16 ceremony 2^{CEREMONY_LOG}", vk, proof, [v])
+    return {"ceremony": launches}
 
 
 class _StageLog:
@@ -2261,7 +2550,8 @@ def service_others(others: list) -> None:
 # the paths that run in a second process (_other_lane) beside SERVE_CURVE's
 # and BLS12-381's PLONK: phase 4 on BLS12-381 and BLS12-377 (whose proof the
 # 2-chain verifies), the 2-chain, PLONK on the small circuits, BSB22 on
-# BLS12-381 and the MiMC commitment hash. The paths are host-bound (a
+# BLS12-381, the MiMC commitment hash and the committed 2-chain over it, and
+# the ceremony. The paths are host-bound (a
 # Chain prove's solve is 90 % of it, PERF.md §5), so two of them share the
 # card and the host's cores; the served requests run once this lane has
 # ended, alone.
@@ -2278,10 +2568,13 @@ def _solver_caches(systems: list) -> list:
 
 
 def _other_lane(t_start: float, compiled: dict, compiled_scs: dict,
-                compiled_bsb22: dict, caches: list) -> tuple:
+                compiled_bsb22: dict, caches: list, ceremony: dict) -> tuple:
     """The LANE_* paths in a process of their own (spawned, with launch
     counts of its own, set to 0 before each path as in the main process),
-    then their proofs and vks through their bytes (service_others).
+    the committed 2-chain over phase bsb22's MiMC-hashed proof, then their
+    proofs and vks through their bytes (service_others), then the
+    ceremony's keys (`ceremony`: ceremony_keys, which this process ran
+    before) on the card.
     `caches`: _solver_caches of the R1CS systems of `compiled` and then of
     `compiled_bsb22`'s Groth16 ones, in order. Returns (paths, extra) as
     main keeps them."""
@@ -2315,13 +2608,23 @@ def _other_lane(t_start: float, compiled: dict, compiled_scs: dict,
             others.append((name, "plonk", vk, proof, [compiled_scs[name][2]]))
     for name in LANE_BSB22:
         extra += [(name, path, c) for path, c in
-                  phase_bsb22(device, name, compiled_bsb22[name]).items()]
-    extra += [("bls12_377", path, c) for path, c in phase_bsb22_mimc(device).items()]
+                  phase_bsb22(device, name, compiled_bsb22[name])[0].items()]
+    mimc_counts, committed_inner = phase_bsb22_mimc(device)
+    extra += [("bls12_377", path, c) for path, c in mimc_counts.items()]
+    extra += [("bw6_761", path, c) for path, c in
+              phase_2chain_committed(device, *committed_inner).items()]
     service_others(others)
+    extra += [("bn254", path, c) for path, c in phase_ceremony(device, ceremony).items()]
     return paths, extra
 
 
 def main() -> int:
+    # the profiler detaches CUPTI at the end of each session (_profiled, the
+    # served request's device_trace), in this process and the lane's: kept
+    # attached, a later session drops its first seconds of kernels
+    # (gnark_icicle_tpu_torch/trace_probe.py). Set before torch is imported;
+    # the process then ends by _exit
+    os.environ.setdefault("TEARDOWN_CUPTI", "1")
     import multiprocessing
 
     import torch
@@ -2335,14 +2638,13 @@ def main() -> int:
 
     t_start = _START["t"] = time.perf_counter()
     device = torch.device("cuda", 0)
-    # CUPTI stays attached between profiler sessions (_profiled, the served
-    # request's device_trace), in this process and the lane's: attached
-    # again lazily, it can miss a session's first seconds of kernels
-    os.environ.setdefault("TEARDOWN_CUPTI", "0")
     # nvcc runs in processes of its own, and the circuits compile in niced
     # processes of their own (host Python) while nvcc and then phases 2 and 3
     # run, which need no circuit; a failed build or compile is re-raised
     build, circuits = {}, {}
+    # the second process: the ceremony's host part (ceremony_keys) once nvcc
+    # is done, while this one runs phases 2 and 3; then the lane's paths
+    pool = multiprocessing.get_context("spawn").Pool(1)
     jobs = ([("groth16", name) for name in CHAIN_CURVES] + [("plonk", name) for name in CURVE_NAMES]
             + [(f"bsb22_{system}", name) for name in BSB22_CURVES
                for system in ("groth16", "plonk")])
@@ -2352,6 +2654,8 @@ def main() -> int:
             build["dir"] = kc.build()
         except BaseException as e:     # noqa: BLE001 (re-raised below)
             build["error"] = e
+        else:
+            build["ceremony"] = pool.apply_async(ceremony_keys, (t_start,))
         build["seconds"] = time.perf_counter() - t_start
 
     def run_compile():
@@ -2397,13 +2701,14 @@ def main() -> int:
     paths, extra, ck_runs, srv_runs, srv_others = [], [], {}, {}, []
     torch.cuda.synchronize()
     torch.cuda.empty_cache()    # phase 2's inputs: the lane's card memory
-    with multiprocessing.get_context("spawn").Pool(1) as pool:
+    with pool:
         lane_chain = {n: compiled[n] for n in LANE_CHAIN}
         lane_bsb22 = {n: compiled_bsb22[n] for n in LANE_BSB22}
         lane = pool.apply_async(_other_lane, (
             t_start, lane_chain, {n: compiled_scs[n] for n in LANE_PLONK}, lane_bsb22,
             _solver_caches([c[0] for c in lane_chain.values()]
-                           + [systems["groth16"][0] for systems in lane_bsb22.values()])))
+                           + [systems["groth16"][0] for systems in lane_bsb22.values()]),
+            build["ceremony"].get()))
         for name in CHAIN_CURVES:
             if name in LANE_CHAIN:
                 continue
@@ -2430,12 +2735,16 @@ def main() -> int:
                 srv_runs["plonk"] = (pk, vk, proof, pub, timed)
             elif name in CHAIN_CURVES:
                 srv_others.append((name, "plonk", vk, proof, pub))
+        bsb22_runs = {}
         for name in BSB22_CURVES:
             if name not in LANE_BSB22:
-                extra += [(name, path, c) for path, c in
-                          phase_bsb22(device, name, compiled_bsb22[name]).items()]
+                counts, bsb22_runs[name] = phase_bsb22(device, name, compiled_bsb22[name])
+                extra += [(name, path, c) for path, c in counts.items()]
         extra += [("bn254", path, c) for path, c in
                   phase_checkpoint(device, "bn254", ck_runs).items()]
+        extra += [("bn254", path, c) for path, c in phase_deploy(
+            device, srv_runs["groth16"][1:4], srv_runs["plonk"][1:4],
+            bsb22_runs["bn254"]).items()]
         lane_paths, lane_extra = lane.get()
         _say("lane", curves=sorted({c for c, _, _ in lane_paths + lane_extra}),
              paths=[p for _, p, _ in lane_paths + lane_extra])
@@ -2467,5 +2776,28 @@ def main() -> int:
     return 0
 
 
+def _exit(code: int) -> None:
+    """End the process without the interpreter's finalization, which hangs
+    once a profiler session has detached CUPTI (TEARDOWN_CUPTI=1, torch
+    2.11): the pools' workers are stopped and the output flushed first."""
+    import multiprocessing
+
+    children = multiprocessing.active_children()
+    for child in children:
+        child.terminate()
+    for child in children:
+        child.join(10)
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(code)
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    except SystemExit:      # no card: raised before torch touches one
+        raise
+    except BaseException:   # noqa: BLE001 (reported, then the run fails)
+        traceback.print_exc()
+        code = 1
+    _exit(code)

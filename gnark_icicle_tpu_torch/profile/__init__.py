@@ -207,12 +207,14 @@ def device_trace(log_dir: str, device=None):
     region (no kernel, copy or memset event): a CPU-only trace of a device
     region would hide the kernels.
 
-    On a CUDA device it also sets ``TEARDOWN_CUPTI=0`` where the
-    environment does not set it: by default the profiler detaches CUPTI at
-    the end of a session and attaches it again lazily in the next, which
-    then can miss its first seconds of kernels (an H100 with torch 2.11 lost
-    a served request's first 12 kernels so). A program that
-    profiles before it traces sets it before its first session.
+    A later session of a process can miss the kernels of its first
+    seconds. Torch 2.11's profiler keeps CUPTI attached from one session to
+    the next, and under host load a later session then drops more of them
+    the longer the process has profiled (``trace_probe.py``).
+    ``TEARDOWN_CUPTI=1``, set before torch is imported, detaches CUPTI after
+    each session, and every session keeps its kernels; but the process then
+    hangs in the interpreter's finalization, so a program that sets it ends
+    with ``os._exit``, as ``chip_smoke.py`` does.
     """
     import json
     import socket
@@ -230,7 +232,6 @@ def device_trace(log_dir: str, device=None):
         if ProfilerActivity.CUDA not in torch.profiler.supported_activities():
             raise RuntimeError("torch.profiler cannot record CUDA activity here")
         activities.append(ProfilerActivity.CUDA)
-        os.environ.setdefault("TEARDOWN_CUPTI", "0")
     os.makedirs(log_dir, exist_ok=True)
     with profile(activities=activities) as prof:
         yield trace

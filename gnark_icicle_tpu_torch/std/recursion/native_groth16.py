@@ -23,10 +23,9 @@ behaviors are host-validated against non-subgroup curve points
 
 Copied from gnark_icicle_tpu/std/recursion/native_groth16.py:1, so that the
 port imports nothing of the JAX package; tests/test_torch_copies.py holds
-it to the original. The BSB22 commitment branch (:140-150 and the
-commitment fold of ``assert_proof``) raises NotImplementedError, as the
-port's other commitment branches do: its Pedersen and MiMC gadgets are
-not ported.
+it to the original, a committed inner proof's outer circuit included. The
+BSB22 branch uses the port's copies of the Pedersen gadget (std/pedersen.py)
+and the MiMC gadget (std/hash/mimc.py).
 """
 
 from __future__ import annotations
@@ -35,6 +34,7 @@ from dataclasses import dataclass
 
 from ...curves import bls12_377 as b377
 from ..pairing_bls12_377 import BLS12377Pairing
+from ..pedersen import CommitmentVk, assert_commitment, fold_commitments
 
 
 @dataclass
@@ -77,9 +77,16 @@ class NativeGroth16Verifier:
         self._host_curve = host_curve
         self._e_alpha_beta = vk.e_alpha_beta(host_curve)
         e2 = self.pairing.e2
-        if vk.commitment_keys:
-            raise NotImplementedError(
-                "BSB22 commitments are not ported yet (the Pedersen gadget)")
+        self._cm_vks = [
+            CommitmentVk(
+                g=(e2.constant(k.g[0].c0, k.g[0].c1),
+                   e2.constant(k.g[1].c0, k.g[1].c1)),
+                g_sigma_neg=(
+                    e2.constant(k.g_sigma_neg[0].c0, k.g_sigma_neg[0].c1),
+                    e2.constant(k.g_sigma_neg[1].c0, k.g_sigma_neg[1].c1)),
+            )
+            for k in vk.commitment_keys
+        ]
         self._gamma = (e2.constant(vk.g2_gamma[0].c0, vk.g2_gamma[0].c1),
                        e2.constant(vk.g2_gamma[1].c0, vk.g2_gamma[1].c1))
         self._delta = (e2.constant(vk.g2_delta[0].c0, vk.g2_delta[0].c1),
@@ -141,8 +148,29 @@ class NativeGroth16Verifier:
         exactly). Returns (value_var, low_bits) per commitment; xs_vars
         is extended in place so nested commitments can absorb earlier
         commitment wires."""
-        raise NotImplementedError(
-            "BSB22 commitments are not ported yet (the MiMC gadget)")
+        from ...backend.hash_to_field import MIMC_COMMITMENT_TAG
+        from ..hash.mimc import MiMC
+
+        api = self.api
+        outer_q = api.q
+        out = []
+        out_bits = min(b377.R.bit_length(), outer_q.bit_length()) - 1
+        for i, committed_idx in enumerate(
+                self.vk.public_and_commitment_committed):
+            m = MiMC(api, outer_q)
+            m.write(int.from_bytes(MIMC_COMMITMENT_TAG, "big") % outer_q)
+            m.write(commitments[i][0])
+            m.write(commitments[i][1])
+            for j in committed_idx:
+                m.write(xs_vars[j])
+            d = m.sum()
+            bits = api.to_binary(d, outer_q.bit_length())
+            self._assert_bits_canonical(bits, outer_q)
+            lo = bits[:out_bits]
+            val = api.from_binary(lo)
+            xs_vars.append(val)
+            out.append((val, lo))
+        return out
 
     def assert_proof(self, proof: NativeVerifierProof, public_inputs,
                      check_membership: bool = True) -> None:
@@ -178,8 +206,17 @@ class NativeGroth16Verifier:
 
         aux = []
         if cms:
-            raise NotImplementedError(
-                "BSB22 commitments are not ported yet (the Pedersen gadget)")
+            xs_vars = [1] + list(public_inputs)
+            aux = self._commitment_aux_values(cms, xs_vars)
+            # single-commitment fold (≙ FoldCommitments) + PoK pairing
+            # check e(C, −σG₂)·e(π, G₂) == 1 (≙ AssertCommitment)
+            folded = fold_commitments(cms)
+            from ...curves.tower import Fp12
+
+            assert_commitment(
+                self.pairing, Fp12.one(self._host_curve.tower),
+                folded, proof.commitment_pok, self._cm_vks[0],
+            )
 
         n_bits = b377.R.bit_length()
         k_sum = g1.from_affine(

@@ -312,8 +312,11 @@ def test_native_fast_subgroup_check_g2(pkg):
             pr.assert_g2_member(_gin2(pr, pt))
 
 
-def _outer_circuit(pkg: str, vk):
-    """OuterG16 of tools/run_2chain_device.py:80-92 over one package."""
+def _outer_circuit(pkg: str, vk, committed: bool = False):
+    """OuterG16 of tools/run_2chain_device.py:80-92 over one package; with
+    ``committed``, the inner proof's BSB22 commitment and its proof of
+    knowledge are four more secret words (OuterG16C of
+    tests/test_commit_recursion.py:145-158)."""
     import importlib
 
     base = {"port": "gnark_icicle_tpu_torch", "jax": "gnark_icicle_tpu"}[pkg]
@@ -322,16 +325,79 @@ def _outer_circuit(pkg: str, vk):
 
     class OuterG16(fe.Circuit):
         inner_pub = fe.Public()
-        pr = fe.Secret(shape=8)
+        pr = fe.Secret(shape=12 if committed else 8)
 
         def define(self, api):
             gv = ng.NativeGroth16Verifier(api, vk)
             p = self.pr
+            cm = dict(commitments=((p[8], p[9]),), commitment_pok=(p[10], p[11])) \
+                if committed else {}
             w = ng.NativeVerifierProof(ar=(p[0], p[1]), bs=((p[2], p[3]), (p[4], p[5])),
-                                       krs=(p[6], p[7]))
+                                       krs=(p[6], p[7]), **cm)
             gv.assert_proof(w, [self.inner_pub])
 
     return fe, OuterG16
+
+
+def _proof_words(proof, commitment=None) -> list:
+    """An inner proof's coordinates in OuterG16's order; a committed
+    proof's commitment (or ``commitment`` in its place) and proof of
+    knowledge after them."""
+    words = [proof.ar[0], proof.ar[1], proof.bs[0].c0, proof.bs[0].c1,
+             proof.bs[1].c0, proof.bs[1].c1, proof.krs[0], proof.krs[1]]
+    if proof.commitments:
+        cm = commitment or proof.commitments[0]
+        words += [cm[0], cm[1], proof.commitment_pok[0], proof.commitment_pok[1]]
+    return words
+
+
+def _inner_chain(steps: int, committed: bool = False):
+    """A BLS12-377 Chain of ``steps`` proved by the port on the CPU; with
+    ``committed``, one api.commit over the secret and the output, proved
+    with the 2-chain's commitment hash ("mimc", BW6-761's r). Returns (vk,
+    proof, public output)."""
+    from gnark_icicle_tpu_torch.backend import groth16
+
+    class CommitChain(frontend.Circuit):
+        x = frontend.Secret()
+        out = frontend.Public()
+
+        def define(self, api):
+            v = self.x
+            for i in range(steps):
+                v = api.add(api.mul(v, v), v, i)
+            api.assert_is_different(api.commit(self.x, v), 0)
+            api.assert_is_equal(v, self.out)
+
+    circuit = CommitChain if committed else chain_circuit(frontend, steps)
+    cs = frontend.compile_circuit(bls12_377.R, circuit)
+    v = 3
+    for i in range(steps):
+        v = (v * v + v + i) % bls12_377.R
+    kw = {"commitment_hash": ("mimc", bls12_377.P)} if committed else {}
+    pk, vk = groth16.setup(cs, bls12_377.BLS12_377, rng=random.Random(3), device="cpu")
+    proof = groth16.prove(cs, pk, [v], [3], bls12_377.BLS12_377,
+                          rng=random.Random(4), device="cpu", **kw)
+    groth16.verify(proof, vk, [v], bls12_377.BLS12_377, **kw)
+    return vk, proof, v
+
+
+def _outer_pair(vk, committed: bool):
+    """The outer circuit compiled with each package's gadgets, over
+    BW6-761's r (= BLS12-377's p)."""
+    import importlib
+
+    from test_torch_common import to_reference
+
+    ref_vk = to_reference(vk, importlib.import_module(
+        "gnark_icicle_tpu.curves.bls12_377").BLS12_377)
+    fe, Outer = _outer_circuit("port", vk, committed)
+    rfe, ROuter = _outer_circuit("jax", ref_vk, committed)
+    ocs = fe.compile_circuit(bls12_377.P, Outer)
+    ref_ocs = rfe.compile_circuit(bls12_377.P, ROuter)
+    assert ocs.nb_constraints == ref_ocs.nb_constraints
+    assert _state(ocs) == _state(ref_ocs)
+    return Outer, ocs, ref_ocs
 
 
 def test_outer_2chain_circuit_and_solve_match_reference():
@@ -339,37 +405,44 @@ def test_outer_2chain_circuit_and_solve_match_reference():
     Groth16 proof) compiles to the reference's R1CS with either package's
     gadgets, and the port's native solver (6 64-bit words: BW6-761's r has
     377 bits) and Python solver give the reference's wires."""
-    import importlib
-
-    from gnark_icicle_tpu_torch.backend import groth16
-
-    from test_torch_common import to_reference
-
-    steps = 8
-    cs = frontend.compile_circuit(bls12_377.R, chain_circuit(frontend, steps))
-    v = 3
-    for i in range(steps):
-        v = (v * v + v + i) % bls12_377.R
-    pk, vk = groth16.setup(cs, bls12_377.BLS12_377, rng=random.Random(3), device="cpu")
-    proof = groth16.prove(cs, pk, [v], [3], bls12_377.BLS12_377,
-                          rng=random.Random(4), device="cpu")
-    ref_vk = to_reference(vk, importlib.import_module(
-        "gnark_icicle_tpu.curves.bls12_377").BLS12_377)
-    fe, Outer = _outer_circuit("port", vk)
-    rfe, ROuter = _outer_circuit("jax", ref_vk)
-    ocs = fe.compile_circuit(bls12_377.P, Outer)
-    ref_ocs = rfe.compile_circuit(bls12_377.P, ROuter)
-    assert ocs.nb_constraints == ref_ocs.nb_constraints
-    assert _state(ocs) == _state(ref_ocs)
-    values = [proof.ar[0], proof.ar[1], proof.bs[0].c0, proof.bs[0].c1,
-              proof.bs[1].c0, proof.bs[1].c1, proof.krs[0], proof.krs[1]]
-    pub, sec = Outer(inner_pub=v, pr=values).witness_values(bls12_377.P)
+    vk, proof, v = _inner_chain(8)
+    Outer, ocs, ref_ocs = _outer_pair(vk, committed=False)
+    pub, sec = Outer(inner_pub=v, pr=_proof_words(proof)).witness_values(bls12_377.P)
     want = ref_constraint.solve(ref_ocs, pub, sec, native=False).wires
     for native in (True, False):
         res = constraint.solve(ocs, pub, sec, native=native)
         assert res.wires == want, native
         if native and res._u64:  # the C++ core ran (a host compiler exists)
             assert res._u64["wires"].shape[1] == 6
+
+
+def test_outer_2chain_committed_circuit_and_solve_match_reference():
+    """The 2-chain's BSB22 branch: an inner BLS12-377 proof with one
+    commitment, made with ("mimc", BW6-761's r). The outer circuit, which
+    re-derives the commitment wire with the MiMC gadget and checks the
+    Pedersen proof of knowledge by a pairing, compiles to the reference's
+    R1CS; the port's native solver gives the reference's wires; a doubled
+    commitment leaves the system unsatisfied in both packages."""
+    from gnark_icicle_tpu.constraint.solver import (
+        UnsatisfiedConstraintError as RefUnsat,
+    )
+    from gnark_icicle_tpu_torch.constraint.solver import UnsatisfiedConstraintError
+
+    vk, proof, v = _inner_chain(4, committed=True)
+    assert len(vk.commitment_keys) == 1 and len(proof.commitments) == 1
+    Outer, ocs, ref_ocs = _outer_pair(vk, committed=True)
+    plain_constraints = 35871
+    assert ocs.nb_constraints > plain_constraints   # the MiMC hash and the PoK pairing
+    pub, sec = Outer(inner_pub=v, pr=_proof_words(proof)).witness_values(bls12_377.P)
+    want = ref_constraint.solve(ref_ocs, pub, sec, native=False).wires
+    assert constraint.solve(ocs, pub, sec, native=True).wires == want
+    other = bls12_377.G1.scalar_mul(proof.commitments[0], 2)
+    bad_pub, bad_sec = Outer(inner_pub=v, pr=_proof_words(proof, other)).witness_values(
+        bls12_377.P)
+    with pytest.raises(UnsatisfiedConstraintError):
+        constraint.solve(ocs, bad_pub, bad_sec, native=True)
+    with pytest.raises(RefUnsat):
+        ref_constraint.solve(ref_ocs, bad_pub, bad_sec, native=False)
 
 
 # -- KZG and PLONK's host pieces ---------------------------------------------

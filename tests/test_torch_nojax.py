@@ -5,11 +5,14 @@ JAX package either: a subprocess with ``jax`` and every ``gnark_icicle_tpu``
 module blocked on ``sys.meta_path`` imports every module of the port and
 runs a tiny compile → setup → prove → verify slice with the port's own
 frontend and curves (the 2-chain's curves and std/ gadgets, the BSB22
-copies, io/ and the prover service are among the modules it imports; the
-slice's circuit has a commitment and proves with batch_msm=True), then
-serves it: the system through gnark's .r1cs, the key and the witness
-through their bytes, a resident prover, and the proof's bytes, which are the
-direct proof's. chip_smoke.py refuses to run without a GPU, and the
+copies, io/, the prover service, the ceremony, the Solidity exports and the
+EVM interpreter are among the modules it imports; the slice's circuit has a
+commitment and proves with batch_msm=True), then serves it: the system
+through gnark's .r1cs, the key and the witness through their bytes, a
+resident prover, and the proof's bytes, which are the direct proof's; then
+the deploy path: a ceremony's keys prove a small circuit, whose exported
+Groth16 contract accepts the proof in the EVM interpreter and reverts on a
+tampered input, and a PLONK contract's export parses. chip_smoke.py refuses to run without a GPU, and the
 entry points raise where there is no card and no ``device="cpu"``.
 """
 
@@ -53,7 +56,8 @@ for name in ("curves.bls12_377", "curves.bw6_761", "std.algebra_native",
              "backend.plonk.verify", "io.serialize", "backend.pedersen",
              "backend.hash_to_field", "std.hash.mimc", "io.cbor", "io.intcomp",
              "io.gnark_cs", "io.keys", "io.plonk_serialize", "backend.prover_service",
-             "profile"):
+             "profile", "std.pedersen", "curves.hash_to_g2", "backend.groth16.mpcsetup",
+             "backend.solidity", "backend.plonk_solidity", "backend.calldata", "evm"):
     assert "gnark_icicle_tpu_torch." + name in sys.modules, name
 
 from gnark_icicle_tpu_torch.curves import bn254
@@ -97,6 +101,40 @@ pub, sec = serialize.witness_from_bytes(bn254.BN254,
 data = serialize.proof_to_bytes(bn254.BN254, served.prove(pub, sec, rng=random.Random(2)))
 assert data == serialize.proof_to_bytes(bn254.BN254, proof)
 assert serialize.proof_from_bytes(bn254.BN254, data)[1] == len(data)
+# the deploy path: a ceremony's keys, a proof, the Solidity verifier run in
+# the EVM interpreter; the PLONK export parses
+from gnark_icicle_tpu_torch import evm
+from gnark_icicle_tpu_torch.backend import calldata, plonk
+from gnark_icicle_tpu_torch.backend.groth16.mpcsetup import Phase1, Phase2
+from gnark_icicle_tpu_torch.backend.plonk_solidity import export_plonk_solidity
+from gnark_icicle_tpu_torch.backend.solidity import export_solidity
+
+class Square(Circuit):
+    x = Secret()
+    y = Public()
+
+    def define(self, api):
+        api.assert_is_equal(api.mul(self.x, self.x), self.y)
+
+sq = compile_circuit(R, Square)
+rng = random.Random(5)
+p1 = Phase1.init(bn254.BN254, 2)
+p1.contribute(rng=rng)
+p2 = Phase2.init(p1, sq)
+p2.contribute(rng=rng)
+mpk, mvk = p2.finalize()
+mproof = groth16.prove(sq, mpk, [9], [3], bn254.BN254, rng=rng, device="cpu")
+groth16.verify(mproof, mvk, [9], bn254.BN254)
+contract = evm.load_contract(export_solidity(mvk, bn254.BN254))
+contract.call_calldata("verifyProof", calldata.encode(calldata.groth16_args(mproof, [9])))
+try:
+    contract.call("verifyProof", *calldata.groth16_args(mproof, [10]))
+    raise AssertionError("the contract accepted a tampered input")
+except evm.Revert as e:
+    assert e.error == "ProofInvalid", e.error
+_, pvk = plonk.setup(compile_circuit(R, Square, builder="scs"), bn254.BN254,
+                     rng=random.Random(6), device="cpu")
+assert evm.load_contract(export_plonk_solidity(pvk, bn254.BN254)).functions["verifyProof"]
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "gnark_icicle_tpu"))
 assert not leaked, leaked
