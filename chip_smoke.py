@@ -156,6 +156,27 @@ at 12, G2 over Fp), phases print one JSON line each on stdout:
      kernel), a proof with one flipped bit refused; DeviceCtx's build and
      cached lookup timed; BLS12-381's and BLS12-377's proofs and vks of
      phases 4 and plonk through their bytes and verified again;
+  precompiles: the zkEVM precompile circuits over the emulated-field layer
+     (std/emulated.py's deferred mulcheck, rangecheck and logderivlookup
+     under one multicommit api.commit), in a third process
+     (_precompiles_lane) started with the run: while nvcc and phases 2 and
+     3 run, EcRecover (0x01, the circuit of
+     tests/test_evmprecompiles_compiled.py, copied) compiled with the port's
+     gadgets (867,307 constraints, 710,886 privately committed wires),
+     solved once on a signature of the port's curves/secp256k1.py and
+     refused by the solver with the key of priv + 1, and EcAdd (0x06)
+     compiled with the SCS builder (17,527 gates); once phases 2 and 3 are
+     done, on the card: EcRecover through Groth16 (a 2^20 domain): setup
+     (its host/points split), a first prove, a warm prove under
+     torch.profiler (stage times, launches and device ms by kernel, busy
+     share, peak device bytes), its two Pedersen MSMs one msm_batch and
+     one launch set, the commitment and proof of knowledge equal to the
+     host pedersen's (by linearity from setup's scalars), verify, and Ar
+     doubled, the commitment + G and the proof of knowledge + G rejected;
+     EcAdd through PLONK (a 2^15 domain, one BSB22 commitment): setup, a
+     first and a warm prove, verify, the commitment + G rejected.
+     ``python3 chip_smoke.py precompiles`` runs the build and this phase
+     alone;
   The paths of phases 4 to deploy run in two processes at once, each
      with its own launch counts: BN254's paths, BLS12-381's PLONK and
      deploy in this one, the others (LANE_*), the committed 2-chain and
@@ -163,8 +184,8 @@ at 12, G2 over Fp), phases print one JSON line each on stdout:
      curves' proofs and vks through their bytes; the service phase runs
      when both have ended;
   5. the JSON line of all kernels (each with its launches on each of its
-     curve's paths, the batched proves, bsb22, checkpoint and service
-     included, and their sum; every kernel but *_double and
+     curve's paths, the batched proves, bsb22, checkpoint, service and
+     precompiles included, and their sum; every kernel but *_double and
      *_add_mixed_masked ran on one);
   6. the card's name and power limit from nvidia-smi.
 The last line is {"ok": true, "device": {...}}. Any failure raises: the
@@ -1084,14 +1105,24 @@ def ntt_rows(device, name: str, rates: dict, record, shapes: dict) -> None:
                       [_rand_dev(fr, 1, d.n, device)[0], *ops.values()], run, run_plain,
                       lane * words, products, W)
 
-    low, *upper = pass_split(dom.log_n)
-    top = upper[-1] if upper else low
-    main = pass_row(dom, top, "i", True, ("mul", "sub", "scale"),
-                    "computeH's coset INTT, first pass: (a·b − c)·den on the load")
-    for p in upper[:-1]:
-        pass_row(dom, p, "i", True, (), "coset INTT, a middle pass")
-    pass_row(dom, low, "i", True, ("post",), "coset INTT, last pass: g^-i·n^-1 on the store")
-    pass_row(dom, low, "f", False, ("mul",), "coset NTT (bit-reversed in), first pass: g^i on the load")
+    def computeh_rows(d):
+        low, *upper = pass_split(d.log_n)
+        top = upper[-1] if upper else low
+        row = pass_row(d, top, "i", True, ("mul", "sub", "scale"),
+                       "computeH's coset INTT, first pass: (a·b − c)·den on the load")
+        for p in upper[:-1]:
+            pass_row(d, p, "i", True, (), "coset INTT, a middle pass")
+        pass_row(d, low, "i", True, ("post",), "coset INTT, last pass: g^-i·n^-1 on the store")
+        pass_row(d, low, "f", False, ("mul",),
+                 "coset NTT (bit-reversed in), first pass: g^i on the load")
+        return row
+
+    main = computeh_rows(dom)
+    # phase precompiles' computeH domain (ecrecover's 2^20: three passes)
+    dom_pc = (domain_for(fr, curve.fr, PRECOMPILES_LOG, device, coset=True)
+              if name == "bn254" else None)
+    if dom_pc is not None:
+        computeh_rows(dom_pc)
     low4, *upper4 = pass_split(dom4.log_n)
     top4 = upper4[-1] if upper4 else low4
     pass_row(dom4, top4, "f", True, ("mul",), "PLONK's 4n coset NTT, first pass: g^i on the load")
@@ -1100,18 +1131,21 @@ def ntt_rows(device, name: str, rates: dict, record, shapes: dict) -> None:
     def rand(d):
         return _rand_dev(fr, 1, d.n, device)[0]
 
-    x, b, c = rand(dom), rand(dom), rand(dom)
+    def computeh_cases(d):
+        x, b, c = rand(d), rand(d), rand(d)
+        return (
+            (d, "intt_nat_to_rev", (x,), lambda: _plain_transform(d, x, "i", True, post=d.n_inv),
+             1, 1),
+            (d, "coset_ntt_rev_in", (x,),
+             lambda: _plain_transform(d, x, "f", False, mul=d._coset_pows_rev), d.n, 1),
+            (d, "coset_intt_nat_to_rev_pointwise", (x, b, c, den),
+             lambda: _plain_transform(d, x, "i", True, post=d._coset_unscale_rev, mul=b, sub=c,
+                                      scale=den), d.n, 3))
+
     x4 = rand(dom4)
     # (domain, method, its arguments, its plain version, the columns of its
     # scaling table: n, or 1 for n^-1; products a row for the scalings)
-    cases = (
-        (dom, "intt_nat_to_rev", (x,), lambda: _plain_transform(dom, x, "i", True, post=dom.n_inv),
-         1, 1),
-        (dom, "coset_ntt_rev_in", (x,),
-         lambda: _plain_transform(dom, x, "f", False, mul=dom._coset_pows_rev), dom.n, 1),
-        (dom, "coset_intt_nat_to_rev_pointwise", (x, b, c, den),
-         lambda: _plain_transform(dom, x, "i", True, post=dom._coset_unscale_rev, mul=b, sub=c,
-                                  scale=den), dom.n, 3),
+    cases = computeh_cases(dom) + (computeh_cases(dom_pc) if dom_pc is not None else ()) + (
         (dom4, "coset_ntt_nat", (x4,),
          lambda: dom4.bit_reverse(_plain_transform(dom4, x4, "f", True, mul=dom4.coset_pows)),
          dom4.n, 1),
@@ -2231,21 +2265,28 @@ def phase_ceremony(device, ceremony: dict) -> dict:
 
 class _StageLog:
     """Collects "<system> prove: <stage> took=<s>s" log lines into a list
-    of (stage, seconds) while open."""
+    of (stage, seconds) while open, and the parts of "<system> setup: <part>
+    took=<s>s, ..." into the dict `setup` where one is given."""
 
-    def __init__(self, system: str, into: list):
+    def __init__(self, system: str, into: list, setup: dict | None = None):
         self.system, self.into = system, into
         self.log = logging.getLogger("gnark_icicle_tpu")
         self.log.setLevel(logging.INFO)
         outer = self
 
+        def took(part: str) -> tuple:
+            key, secs = part.rsplit(" took=", 1)
+            return key.strip(), float(secs.rstrip("s"))
+
         class Grab(logging.Handler):
             def emit(self, record):
                 msg = record.getMessage()
-                if msg.startswith(f"{outer.system} prove: ") and "took=" in msg \
+                if setup is not None and msg.startswith(f"{outer.system} setup: "):
+                    setup.update((k.replace(" ", "_") + "_s", v) for k, v in
+                                 map(took, msg.split(": ", 1)[1].split(", ")))
+                elif msg.startswith(f"{outer.system} prove: ") and "took=" in msg \
                         and "curve=" not in msg:
-                    key, secs = msg.split(": ", 1)[1].rsplit(" took=", 1)
-                    outer.into.append((key.strip(), float(secs.rstrip("s"))))
+                    outer.into.append(took(msg.split(": ", 1)[1]))
 
         self.handler = Grab(level=logging.INFO)
         self.log.addHandler(self.handler)
@@ -2618,6 +2659,371 @@ def _other_lane(t_start: float, compiled: dict, compiled_scs: dict,
     return paths, extra
 
 
+# phase precompiles: the zkEVM precompile circuits over the emulated-field
+# layer (std/emulated.py's deferred mulcheck, rangecheck and logderivlookup
+# under one multicommit api.commit), on BN254 in a third process
+# (_precompiles_lane): ecrecover (0x01) through Groth16 at its full size,
+# ecAdd (0x06) through PLONK
+ECRECOVER_CONSTRAINTS = 867_307    # tests/test_evmprecompiles_compiled.py:28
+PRECOMPILES_LOG = 20               # its domain: phase 2 checks BN254's ntt_pass there too
+ECRECOVER_COMMITTED = 710_886      # its privately committed wires: the Pedersen MSMs' size
+ECADD_GATES = 17_527               # EcAdd under the SCS builder
+PEDERSEN_SPOT = 16                 # Pedersen basis points held to host scalar products
+
+
+def _limbs(value: int, params) -> list:
+    return [(value >> (params.limb_bits * i)) & ((1 << params.limb_bits) - 1)
+            for i in range(params.n_limbs)]
+
+
+def precompile_circuits() -> tuple:
+    """EcRecover and EcAdd over the port's gadgets, copied from
+    tests/test_evmprecompiles_compiled.py:122-160 and :36-50: a secp256k1
+    public key recovered from (msg, v, r, s) and a BN254 G1 sum, each held
+    to points given as emulated limbs."""
+    from gnark_icicle_tpu_torch.curves import bn254
+    from gnark_icicle_tpu_torch.frontend import Circuit, Secret
+    from gnark_icicle_tpu_torch.std import evmprecompiles as evm
+    from gnark_icicle_tpu_torch.std.sw_emulated import BN254G1, SECP256K1, EmulatedCurve
+
+    q, sfr, sfp, fp = bn254.R, SECP256K1.fr, SECP256K1.fp, BN254G1.fp
+
+    class EcRecover(Circuit):
+        msg = Secret(shape=sfr.n_limbs)
+        v = Secret()
+        r = Secret(shape=sfr.n_limbs)
+        s = Secret(shape=sfr.n_limbs)
+        pubx = Secret(shape=sfp.n_limbs)
+        puby = Secret(shape=sfp.n_limbs)
+
+        def define(self, api):
+            c = EmulatedCurve(api, SECP256K1, q)
+            fr = c.fr
+            P = evm.ec_recover(api, q, fr.from_limbs(self.msg), self.v,
+                               fr.from_limbs(self.r), fr.from_limbs(self.s))
+            c.assert_is_equal(P, c.witness_point(self.pubx, self.puby))
+
+    class EcAdd(Circuit):
+        px = Secret(shape=fp.n_limbs)
+        py = Secret(shape=fp.n_limbs)
+        qx = Secret(shape=fp.n_limbs)
+        qy = Secret(shape=fp.n_limbs)
+        rx = Secret(shape=fp.n_limbs)
+        ry = Secret(shape=fp.n_limbs)
+
+        def define(self, api):
+            c = EmulatedCurve(api, BN254G1, q)
+            out = evm.ec_add(api, q, c.witness_point(self.px, self.py),
+                             c.witness_point(self.qx, self.qy))
+            c.assert_is_equal(out, c.witness_point(self.rx, self.ry))
+
+    return EcRecover, EcAdd
+
+
+def ecrecover_witness(seed: int) -> tuple:
+    """A secp256k1 key and an RFC 6979 signature of a random message from
+    the port's curves/secp256k1.py, v the recovery parity: the EcRecover
+    secrets for the true key and for the key of priv + 1."""
+    from gnark_icicle_tpu_torch.curves import secp256k1
+    from gnark_icicle_tpu_torch.std import evmprecompiles as evm
+    from gnark_icicle_tpu_torch.std.sw_emulated import SECP256K1
+
+    rng = random.Random(seed)
+    priv, pub = secp256k1.keygen(rng)
+    msg = rng.randrange(1, secp256k1.N)
+    r, s = secp256k1.sign(priv, msg)
+    if not secp256k1.verify(pub, msg, (r, s)):
+        raise AssertionError("the host secp256k1 signature does not verify")
+    v = next(v for v in (0, 1) if evm._recover_host(msg, v, r, s) == pub)
+    bad = secp256k1.G1.scalar_mul(secp256k1.G1.generator, priv + 1)
+    sfr, sfp = SECP256K1.fr, SECP256K1.fp
+
+    def sec(point):
+        return (_limbs(msg, sfr) + [v] + _limbs(r, sfr) + _limbs(s, sfr)
+                + _limbs(point[0], sfp) + _limbs(point[1], sfp))
+
+    return sec(pub), sec(bad)
+
+
+def ecadd_witness(seed: int) -> list:
+    """EcAdd's secrets: two random BN254 G1 points and their sum."""
+    from gnark_icicle_tpu_torch.curves import bn254
+    from gnark_icicle_tpu_torch.std.sw_emulated import BN254G1
+
+    rng = random.Random(seed)
+    g1, fp = bn254.G1, BN254G1.fp
+    p, q = g1.random_point(rng), g1.random_point(rng)
+    return [w for pt in (p, q, g1.add(p, q)) for c in pt for w in _limbs(c, fp)]
+
+
+def precompiles_host() -> dict:
+    """The host part of phase precompiles, which needs no card: EcRecover
+    compiled (ECRECOVER_CONSTRAINTS, ECRECOVER_COMMITTED), solved once (which
+    builds its solver schedule) and solved with the key of priv + 1, which
+    the solver must refuse; EcAdd compiled with the SCS builder."""
+    from gnark_icicle_tpu_torch.constraint.solver import UnsatisfiedConstraintError, solve
+    from gnark_icicle_tpu_torch.curves import bn254
+    from gnark_icicle_tpu_torch.frontend import compile_circuit
+
+    EcRecover, EcAdd = precompile_circuits()
+    sec, bad = ecrecover_witness(41)
+    t = {}
+    t0 = time.perf_counter()
+    cs = compile_circuit(bn254.R, EcRecover)
+    t["compile_s"] = time.perf_counter() - t0
+    committed = sum(len(c.private_committed) for c in cs.commitments)
+    if (cs.nb_constraints, committed) != (ECRECOVER_CONSTRAINTS, ECRECOVER_COMMITTED):
+        raise AssertionError(f"EcRecover: {cs.nb_constraints} constraints, {committed} "
+                             f"committed wires")
+    t0 = time.perf_counter()
+    solve(cs, [], sec)
+    t["solve_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    try:
+        solve(cs, [], bad)
+    except UnsatisfiedConstraintError:
+        t["wrong_key_refused_s"] = time.perf_counter() - t0
+    else:
+        raise AssertionError("the solver accepted the key of priv + 1")
+    t0 = time.perf_counter()
+    scs = compile_circuit(bn254.R, EcAdd, builder="scs")
+    t["ecadd_compile_s"] = time.perf_counter() - t0
+    if scs.nb_gates != ECADD_GATES or len(scs.commitments) != 1:
+        raise AssertionError(f"EcAdd: {scs.nb_gates} gates, {len(scs.commitments)} commitments")
+    _say("precompiles", part="host", circuit="ecrecover", constraints=cs.nb_constraints,
+         wires=cs.nb_wires, committed_wires=committed, commitments=len(cs.commitments),
+         ecadd_gates=scs.nb_gates, wrong_key_refused=True, **t)
+    return {"ecrecover": (cs, sec), "ecadd": (scs, ecadd_witness(7))}
+
+
+def phase_precompiles_ecrecover(device, cs, sec) -> dict:
+    """EcRecover through Groth16 on the card: setup (its host/points split),
+    a first prove, one warm prove under torch.profiler (its stage times,
+    launches and device ms by kernel, busy share, peak device bytes). The
+    two Pedersen MSMs of the commitment (prove._pedersen_msms) are one
+    launch set of the G1 MSM kernels; the commitment and proof of knowledge
+    equal the host's pedersen.commit and prove_knowledge of the same values,
+    computed by linearity from setup's scalars (basisᵢ = sᵢ·G, held to the
+    host's scalar products at PEDERSEN_SPOT points); the proof verifies,
+    and Ar replaced by 2·Ar, the commitment + G and the proof of knowledge +
+    G are rejected. Returns {path: launches}."""
+    import dataclasses
+    import importlib
+
+    import torch
+
+    from gnark_icicle_tpu_torch.backend import groth16
+
+    prove_mod = importlib.import_module("gnark_icicle_tpu_torch.backend.groth16.prove")
+    setup_mod = importlib.import_module("gnark_icicle_tpu_torch.backend.groth16.setup")
+
+    curve = _curves()["bn254"]
+    g1, r = curve.g1, curve.fr.modulus
+    phases, split = [], {}
+    grab = _StageLog("groth16", phases, split)
+    g1_batches, pedersen_runs = [], []
+    batch, pedersen_msms = setup_mod.batch_scalar_mul_host, prove_mod._pedersen_msms
+
+    def recorded_batch(tc, grp, base, scalars, *args, **kw):
+        if grp is g1:
+            g1_batches.append(scalars)
+        return batch(tc, grp, base, scalars, *args, **kw)
+
+    def counted_pedersen(ctx, pk, i, values):
+        """_pedersen_msms with its launches, its seconds and those of its
+        msm_batch alone (the card's part: digits, sort, the kernels)."""
+        kernel, inner = ctx.msm_g1, []
+
+        def timed_batch(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = type(kernel).msm_batch(kernel, *args)
+            torch.cuda.synchronize()
+            inner.append(time.perf_counter() - t0)
+            return res
+
+        before = _counts("bn254")
+        kernel.msm_batch = timed_batch
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = pedersen_msms(ctx, pk, i, values)
+            torch.cuda.synchronize()
+        finally:
+            del kernel.msm_batch
+        pedersen_runs.append({"values": values, "out": out, "seconds": time.perf_counter() - t0,
+                              "msm_batch_s": inner,
+                              "launches": {k: c - before[k] for k, c in _counts("bn254").items()
+                                           if c != before[k]}})
+        return out
+
+    setup_mod.batch_scalar_mul_host, prove_mod._pedersen_msms = recorded_batch, counted_pedersen
+    try:
+        _zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        pk, vk = groth16.setup(cs, curve, rng=random.Random(1), device=device)
+        t_setup = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        groth16.prove(cs, pk, [], sec, curve, rng=random.Random(2), device=device)
+        t_first = time.perf_counter() - t0
+        first_phases = dict(phases)
+        phases.clear()
+        before = _counts("bn254")
+        holder = {}
+        profiled = _profiled(lambda: holder.setdefault("proof", groth16.prove(
+            cs, pk, [], sec, curve, rng=random.Random(3), device=device)))
+        launches = _counts("bn254")
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        setup_mod.batch_scalar_mul_host, prove_mod._pedersen_msms = batch, pedersen_msms
+        grab.close()
+    proof = holder["proof"]
+    warm = {k: c - before[k] for k, c in launches.items() if c != before[k]}
+    _check_msm_launches("bn254", launches, "bn254 precompiles ecrecover")
+    # the warm prove's Pedersen MSMs: one msm_batch, one launch set
+    run = pedersen_runs[-1]
+    _check_one_set("the Pedersen commitment and proof of knowledge", run["launches"], "g1")
+    n = len(pk.commitment_keys[0].basis)
+    if len(pedersen_runs) != 2 or n != ECRECOVER_COMMITTED or len(run["values"]) != n \
+            or len(run["msm_batch_s"]) != 1:
+        raise AssertionError(f"Pedersen MSMs: {len(pedersen_runs)} runs over {n} bases")
+    scal = g1_batches[0]
+    s, s_sigma = scal[len(scal) - 2 * n:len(scal) - n], scal[len(scal) - n:]
+    key, gen = pk.commitment_keys[0], g1.generator
+    rng = random.Random(5)
+    for i in rng.sample(range(n), PEDERSEN_SPOT):
+        if (key.basis[i], key.basis_exp_sigma[i]) != (g1.scalar_mul(gen, s[i]),
+                                                      g1.scalar_mul(gen, s_sigma[i])):
+            raise AssertionError(f"Pedersen basis point {i} is not its scalar's product")
+    vals = run["values"]
+    host_cm = g1.scalar_mul(gen, sum(v * w for v, w in zip(vals, s)) % r)
+    host_pok = g1.scalar_mul(gen, sum(v * w for v, w in zip(vals, s_sigma)) % r)
+    if (proof.commitments[0], run["out"][0]) != (host_cm, host_cm) or \
+            (run["out"][1], proof.commitment_pok) != (host_pok, host_pok):
+        raise AssertionError("the card's Pedersen commitment or proof of knowledge is not "
+                             "the host's")
+    t0 = time.perf_counter()
+    groth16.verify(proof, vk, [], curve)
+    t_verify = time.perf_counter() - t0
+    tampers = {"ar_doubled": dataclasses.replace(proof, ar=g1.scalar_mul(proof.ar, 2)),
+               "commitment_plus_g": dataclasses.replace(
+                   proof, commitments=[g1.add(proof.commitments[0], gen)]),
+               "pok_plus_g": dataclasses.replace(proof,
+                                                 commitment_pok=g1.add(proof.commitment_pok, gen))}
+    for kind, bad in tampers.items():
+        if groth16.is_valid(bad, vk, [], curve):
+            raise AssertionError(f"the verifier accepted a proof with {kind}")
+    _say("precompiles", circuit="ecrecover", system="groth16", curve=curve.name,
+         constraints=cs.nb_constraints, wires=cs.nb_wires, domain_log_n=pk.domain_log_n,
+         committed_wires=n, setup_s=t_setup, setup_split=split, first_prove_s=t_first,
+         first_prove=first_phases, warm_prove={"seconds": profiled["wall_s"], **dict(phases)},
+         profiled_prove=profiled, warm_launches=warm, peak_device_bytes=peak,
+         pedersen={"values": n, "seconds": run["seconds"], "msm_batch_s": run["msm_batch_s"],
+                   "launches": run["launches"],
+                   "equals_host": True, "basis_points_checked": PEDERSEN_SPOT},
+         verify_s=t_verify, verified=True, rejected={k: True for k in tampers})
+    return {"precompiles_ecrecover": launches}
+
+
+def phase_precompiles_ecadd(device, scs, sec) -> dict:
+    """EcAdd through PLONK on the card (one BSB22 commitment: Qcp): setup, a
+    first and a warm prove (stage times), verify, a tampered commitment
+    rejected. Returns {path: launches}."""
+    import dataclasses
+
+    from gnark_icicle_tpu_torch.backend import plonk
+
+    curve = _curves()["bn254"]
+    g1 = curve.g1
+    phases, split = [], {}
+    grab = _StageLog("plonk", phases, split)
+    try:
+        _zero_counts()
+        t0 = time.perf_counter()
+        pk, vk = plonk.setup(scs, curve, rng=random.Random(1), device=device)
+        t_setup = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        plonk.prove(scs, pk, [], sec, curve, rng=random.Random(2), device=device)
+        t_first = time.perf_counter() - t0
+        phases.clear()
+        t0 = time.perf_counter()
+        proof = plonk.prove(scs, pk, [], sec, curve, rng=random.Random(3), device=device)
+        warm = {"seconds": time.perf_counter() - t0, **dict(phases)}
+        launches = _counts("bn254")
+    finally:
+        grab.close()
+    _check_msm_launches("bn254", launches, "bn254 precompiles ecadd")
+    t0 = time.perf_counter()
+    plonk.verify(proof, vk, [], curve)
+    t_verify = time.perf_counter() - t0
+    bad = dataclasses.replace(proof, bsb22_commitments=[
+        g1.add(proof.bsb22_commitments[0], g1.generator)])
+    if plonk.is_valid(bad, vk, [], curve):
+        raise AssertionError("the verifier accepted a tampered commitment")
+    _say("precompiles", circuit="ecadd", system="plonk", curve=curve.name,
+         gates=scs.nb_gates, domain_log_n=pk.log_n, setup_s=t_setup, setup_split=split,
+         first_prove_s=t_first, warm_prove=warm, verify_s=t_verify, verified=True,
+         rejected={"commitment_plus_g": True},
+         launches={k: c for k, c in launches.items() if c})
+    return {"precompiles_ecadd": launches}
+
+
+def _precompiles_lane(t_start: float, card_free, out) -> None:
+    """Phase precompiles in a process of its own (spawned): its host part
+    (precompiles_host) while nvcc and phases 2 and 3 run, niced as the
+    compile workers are; then, once main sets `card_free` (phases 2 and 3
+    done), its paths on the card, with launch counts of its own. Puts
+    ("ok", [(curve, path, launches)]) or ("error", traceback) on `out`."""
+    try:
+        import torch
+
+        from gnark_icicle_tpu_torch.ops import cuda as kc
+
+        _START["t"] = t_start
+        os.nice(10)
+        host = precompiles_host()
+        card_free.wait()
+        device = torch.device("cuda", 0)
+        kc.load("bn254")
+        runs = {**phase_precompiles_ecrecover(device, *host["ecrecover"]),
+                **phase_precompiles_ecadd(device, *host["ecadd"])}
+        out.put(("ok", [("bn254", path, c) for path, c in runs.items()]))
+    except BaseException:   # noqa: BLE001 (raised again by main)
+        out.put(("error", traceback.format_exc()))
+
+
+def start_precompiles(t_start: float) -> tuple:
+    """_precompiles_lane started: (the event that frees the card to it,
+    (its process, its result's queue))."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    card_free, out = ctx.Event(), ctx.Queue()
+    proc = ctx.Process(target=_precompiles_lane, args=(t_start, card_free, out))
+    proc.start()
+    return card_free, (proc, out)
+
+
+def precompiles_result(lane: tuple) -> list:
+    """The lane's [(curve, path, launches)]; its failure, or its end
+    without a result, raised here."""
+    import queue
+
+    proc, out = lane
+    while True:
+        try:
+            status, value = out.get(timeout=10)
+            break
+        except queue.Empty:
+            if not proc.is_alive():
+                raise AssertionError(f"phase precompiles ended with code {proc.exitcode} "
+                                     "and no result") from None
+    if status != "ok":
+        raise AssertionError(f"phase precompiles failed:\n{value}")
+    return value
+
+
 def main() -> int:
     # the profiler detaches CUPTI at the end of each session (_profiled, the
     # served request's device_trace), in this process and the lane's: kept
@@ -2638,6 +3044,15 @@ def main() -> int:
 
     t_start = _START["t"] = time.perf_counter()
     device = torch.device("cuda", 0)
+    # phase precompiles in a third process: its host part now, its card part
+    # once phases 2 and 3 are done
+    card_free, precompiles = start_precompiles(t_start)
+    if sys.argv[1:] == ["precompiles"]:     # that phase alone, after the build
+        kc.build()
+        card_free.set()
+        precompiles_result(precompiles)
+        _say("done", seconds=time.perf_counter() - t_start)
+        return 0
     # nvcc runs in processes of its own, and the circuits compile in niced
     # processes of their own (host Python) while nvcc and then phases 2 and 3
     # run, which need no circuit; a failed build or compile is re-raised
@@ -2686,6 +3101,7 @@ def main() -> int:
     builder.join()
     if "error" in build:
         raise build["error"]
+    card_free.set()
     phase_build(build["seconds"])
     compiler.join()
     if "error" in circuits:
@@ -2752,6 +3168,7 @@ def main() -> int:
     extra += lane_extra
     extra += [(SERVE_CURVE, path, c) for path, c in
               phase_service(device, served, srv_runs, srv_others).items()]
+    extra += precompiles_result(precompiles)
     for k in kernels:
         k["launches_by_path"] = {path: counts[k["name"]] for curve, path, counts in paths + extra
                                  if curve == k["curve"]}

@@ -45,12 +45,16 @@ class ProvingKey(_Carry):
     # prover's h (bit-reversed out of the coset INTT) pairs positionally
     g1_z: list
     domain_log_n: int = 0
-    # per-commitment Pedersen proving keys (BSB22; not proved by the port yet)
+    # per-commitment Pedersen proving keys (BSB22)
     commitment_keys: list = field(default_factory=list)
     _device: dict = field(default_factory=dict, repr=False)
 
     def device_arrays(self, ctx):
-        """Upload-once device staging of all MSM point tables on ctx.device."""
+        """Upload-once device staging of all MSM point tables on ctx.device;
+        "pedersen" holds, per commitment, its basis and σ·basis stacked
+        (2·N rows; None where it commits no private wire), the table of the
+        commitment and proof-of-knowledge ``msm_batch``
+        (``prove._pedersen_msms``)."""
         if ctx.device not in self._device:
             self._device[ctx.device] = {
                 "a": ctx.g1_points(self.g1_a),
@@ -58,6 +62,8 @@ class ProvingKey(_Carry):
                 "b2": ctx.g2_points(self.g2_b),
                 "k": ctx.g1_points(self.g1_k),
                 "z": ctx.g1_points(self.g1_z),
+                "pedersen": [ctx.g1_points(ck.basis + ck.basis_exp_sigma) if ck.basis
+                             else None for ck in self.commitment_keys],
             }
         return self._device[ctx.device]
 

@@ -14,7 +14,10 @@ BSB22 commitments (the placeholder hint's override :199-246, the folded
 proofs of knowledge :313-330, K without the committed wires :410-425),
 checkpoints (``_Checkpoint`` :134-185: stages solve, h, msms) and the
 batched MSM branch (:484-526, the keyword ``batch_msm``) are the
-reference's. Each phase's wall time is logged (the port's ``logger``) after
+reference's, but for each commitment's Pedersen commitment and proof of
+knowledge, which the reference computes as host MSMs: here they are one
+``msm_batch`` of two problems on the device, inside the override
+(``_pedersen_msms``). Each phase's wall time is logged (the port's ``logger``) after
 the device has finished it. Not ported yet: a device mesh and the host
 engine; asking for one raises NotImplementedError.
 """
@@ -155,11 +158,34 @@ def _batched_g1_msms(ctx: DeviceCtx, ops: list) -> dict:
     return out
 
 
-def _bsb22_override(cs, pk, curve, commitment_hash, commitment_pts, committed_values):
+def _pedersen_msms(ctx: DeviceCtx, pk: ProvingKey, i: int, values: list) -> tuple:
+    """Commitment i's Pedersen commitment Σ vᵢ·basisᵢ and proof of knowledge
+    Σ vᵢ·(σ·basisᵢ) (the host's ``pedersen.commit`` and
+    ``prove_knowledge``, pedersen.py:37-44) as one ``msm_batch`` of two
+    problems on ctx.device: the same scalars over the key's two tables,
+    staged once per key (``device_arrays`` "pedersen"). Host affine points;
+    (None, None) where nothing is committed."""
+    if not values:
+        return None, None
+    t0 = time.perf_counter()
+    table, inf = pk.device_arrays(ctx)["pedersen"][i]
+    n = len(values)
+    scal = ctx.fr_plain(values)
+    res = ctx.msm_g1.msm_batch(table, inf.view(2, n), torch.stack([scal, scal]),
+                               pick_window(n))
+    cm, pok = ctx.g1.to_affine_host(res)
+    logger().info("groth16 prove: pedersen msms took=%.3fs", time.perf_counter() - t0)
+    return cm, pok
+
+
+def _bsb22_override(ctx, cs, pk, curve, commitment_hash, commitment_pts, committed_values,
+                    poks):
     """The BSB22 placeholder hint's replacement (prove.py:199-246, ≙
     solver.OverrideHint in prove.go:82-108): the Pedersen commitment of the
-    committed private values, its point kept in commitment_pts, and the
-    commitment wire's value its hash under ``commitment_hash``."""
+    committed private values and its proof of knowledge, made where the
+    values are first known (``_pedersen_msms``), kept in commitment_pts and
+    poks, and the commitment wire's value the commitment's hash under
+    ``commitment_hash``."""
     q = curve.fr.modulus
     fr_bytes = (q.bit_length() + 7) // 8
 
@@ -169,7 +195,7 @@ def _bsb22_override(cs, pk, curve, commitment_hash, commitment_pts, committed_va
         rest = inputs[1:]
         hashed = rest[:len(cinfo.public_and_commitment_committed)]
         committed_values[i] = [v % qmod for v in rest[len(hashed):]]
-        cm = pedersen.commit(curve, pk.commitment_keys[i], committed_values[i])
+        cm, poks[i] = _pedersen_msms(ctx, pk, i, committed_values[i])
         commitment_pts[i] = cm
         if isinstance(commitment_hash, tuple) and commitment_hash[0] == "mimc":
             # recursion-friendly proof: the outer circuit replays this hash
@@ -231,13 +257,24 @@ def prove(cs, pk: ProvingKey, public_values, secret_values, curve,
 
     commitment_pts = [None] * len(cs.commitments)
     committed_values = [None] * len(cs.commitments)
-    overrides = (_bsb22_override(cs, pk, curve, commitment_hash, commitment_pts,
-                                 committed_values) if cs.commitments else None)
+    poks = [None] * len(cs.commitments)
+    overrides = (_bsb22_override(ctx, cs, pk, curve, commitment_hash, commitment_pts,
+                                 committed_values, poks) if cs.commitments else None)
     ck = None
     if checkpoint_dir is not None:
         ck = _Checkpoint(checkpoint_dir, _binding(cs, pk, q, commitment_hash, public_values,
                                                   secret_values))
 
+    def stage():
+        t0 = time.perf_counter()
+        dev = pk.device_arrays(ctx)
+        log.info("groth16 prove: pk staging took=%.3fs", time.perf_counter() - t0)
+        return dev
+
+    # the solve's commitment override reads the Pedersen tables: the key is
+    # staged before it
+    dev = stage() if cs.commitments and not (ck is not None and ck.has("msms")) else None
+    t_solve = time.perf_counter()
     res = None
     if ck is not None:
         saved = ck.load("solve")
@@ -248,15 +285,17 @@ def prove(cs, pk: ProvingKey, public_values, secret_values, curve,
         if ck is not None:
             ck.save("solve", (res, commitment_pts, committed_values))
     t_solved = time.perf_counter()
-    log.info("groth16 prove: solve took=%.3fs", t_solved - t_start)
+    log.info("groth16 prove: solve took=%.3fs", t_solved - t_solve)
 
     # proofs of knowledge, folded with the G16-BSB22 challenge
-    # (prove.py:313-330, ≙ prove.go:121-141)
+    # (prove.py:313-330, ≙ prove.go:121-141); a solve read from a checkpoint
+    # made none, and they are made again from its committed values
     commitment_pok = None
     if cs.commitments:
         fr_bytes = (q.bit_length() + 7) // 8
-        poks = [pedersen.prove_knowledge(curve, pk.commitment_keys[i], committed_values[i])
-                for i in range(len(cs.commitments))]
+        for i, values in enumerate(committed_values):
+            if values and poks[i] is None:
+                poks[i] = _pedersen_msms(ctx, pk, i, values)[1]
         # the commitment wires only (res.wires would make every wire an int)
         words = solved_u32(res, "wires", ctx.fr.n32)
         msg = b"".join(int.from_bytes(words[c.commitment_index].astype("<u4").tobytes(),
@@ -284,19 +323,11 @@ def prove(cs, pk: ProvingKey, public_values, secret_values, curve,
     log.info("groth16 prove: computeH took=%.3fs", t_h - t_com)
 
     if msms is None:
-        dev = pk.device_arrays(ctx)
+        dev = dev if dev is not None else stage()
         t_pk = time.perf_counter()
-        log.info("groth16 prove: pk staging took=%.3fs", t_pk - t_h)
         wires = ctx.fr_scalars(solved_u32(res, "wires", W))
         if cs.commitments:
-            # pk.K excludes the commitment wires and the committed private
-            # wires (their K points became vk.K entries and Pedersen bases)
-            excluded = {c.commitment_index for c in cs.commitments}
-            for c in cs.commitments:
-                excluded.update(c.private_committed)
-            k_idx = torch.tensor([w for w in range(cs.nb_public, wires.shape[1])
-                                  if w not in excluded], dtype=torch.int64, device=ctx.device)
-            priv = wires.index_select(1, k_idx)
+            priv = wires.index_select(1, _k_index(cs, dev, wires.shape[1], ctx.device))
         else:
             priv = wires[:, cs.nb_public:].contiguous()
         out = _g1_msms(ctx, dev, wires, priv, h, batch_msm)
@@ -314,6 +345,21 @@ def prove(cs, pk: ProvingKey, public_values, secret_values, curve,
         cs, pk, curve, q, rand, ar_msm, bs1_msm, bs2_msm, krs_msm,
         commitment_pts, commitment_pok, logger, t_start, str(ctx.device),
     )
+
+
+def _k_index(cs, dev: dict, nb_wires: int, device) -> torch.Tensor:
+    """The wires of pk.K where the system has commitments: every private
+    wire but the commitment wires and the committed private wires (their K
+    points became vk.K entries and Pedersen bases). Built once per key and
+    device, beside its staged tables (``dev``)."""
+    if "k_idx" not in dev:
+        keep = np.ones(nb_wires, dtype=bool)
+        keep[:cs.nb_public] = False
+        for c in cs.commitments:
+            keep[c.commitment_index] = False
+            keep[list(c.private_committed)] = False
+        dev["k_idx"] = torch.from_numpy(np.flatnonzero(keep)).to(device)
+    return dev["k_idx"]
 
 
 def _g1_msms(ctx: DeviceCtx, dev: dict, wires, priv, h, batch_msm: bool) -> dict:

@@ -12,9 +12,12 @@ e(C, −σ·G₂)·e(π, G₂) == 1. Batch verification folds n commitments (dis
 σᵢ, shared G₂) with challenge powers into one (n+1)-pairing product.
 
 Copied from gnark_icicle_tpu/backend/pedersen.py:1, so that the port
-imports nothing of the JAX package; the MSMs over the committed values run
-on the host (``curves/ec.py`` ``msm``), as in the original.
-tests/test_torch_copies.py holds it to the original.
+imports nothing of the JAX package; tests/test_torch_copies.py holds it to
+the original. Its MSMs run on the host (``curves/ec.py`` ``msm``), as in the
+original: the Groth16 prover makes the commitment and proof of knowledge on
+the device instead (``backend/groth16/prove.py`` ``_pedersen_msms``), and
+``commit`` and ``prove_knowledge`` are the plain versions the tests hold it
+to; ``fold_proofs`` (a few points) stays the prover's.
 """
 
 from __future__ import annotations

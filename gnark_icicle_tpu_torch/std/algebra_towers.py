@@ -12,21 +12,21 @@ Tower shape (BN254): Fp2 = Fp[u]/(u²−β), Fp6 = Fp2[v]/(v³−ξ),
 Fp12 = Fp6[w]/(w²−v). Values are structural pairs/triples of Elements.
 
 Copied from gnark_icicle_tpu/std/algebra_towers.py:1, so that the port imports nothing of
-the JAX package; tests/test_torch_copies.py holds it to the original.
-Only E2, E6 and E12 are copied: the original's import of std/emulated.py
-(:17) serves only ``bn254_towers`` (:234), which builds the towers over
-an emulated BN254 field; both are left out. Here the towers run over
-``algebra_native.NativeField``, the BLS12-377 pairing gadget's field.
+the JAX package; tests/test_torch_copies.py holds the native towers (over
+``algebra_native.NativeField``, the BLS12-377 pairing gadget's field) to the
+original and tests/test_torch_emulated.py ``bn254_towers``, over an emulated
+BN254 field.
 """
 
 from __future__ import annotations
 
+from .emulated import EmulatedField, Element, BN254_FP
 
 
 class E2:
     """Fp2 arithmetic over an EmulatedField (≙ fields_bn254.Ext2)."""
 
-    def __init__(self, fp, beta: int = -1, xi=(9, 1)):
+    def __init__(self, fp: EmulatedField, beta: int = -1, xi=(9, 1)):
         self.fp = fp
         self.beta = beta % fp.p    # u² = β (reduced)
         self.beta_signed = beta    # signed form: cheap ±small scaling
@@ -235,3 +235,11 @@ class E12:
     def assert_equal(self, a, b):
         self.e6.assert_equal(a[0], b[0])
         self.e6.assert_equal(a[1], b[1])
+
+
+def bn254_towers(api, native_modulus: int):
+    """(fp, e2, e6, e12) instantiated for the BN254 base field."""
+    fp = EmulatedField(api, BN254_FP, native_modulus)
+    e2 = E2(fp, beta=-1, xi=(9, 1))
+    e6 = E6(e2)
+    return fp, e2, e6, E12(e6)

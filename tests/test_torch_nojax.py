@@ -12,7 +12,9 @@ through gnark's .r1cs, the key and the witness through their bytes, a
 resident prover, and the proof's bytes, which are the direct proof's; then
 the deploy path: a ceremony's keys prove a small circuit, whose exported
 Groth16 contract accepts the proof in the EVM interpreter and reverts on a
-tampered input, and a PLONK contract's export parses. chip_smoke.py refuses to run without a GPU, and the
+tampered input, and a PLONK contract's export parses; then the emulated-field
+layer (std/emulated.py and the EVM precompile modules among the imports): an
+emulated product compiled and solved with the port's own hints. chip_smoke.py refuses to run without a GPU, and the
 entry points raise where there is no card and no ``device="cpu"``.
 """
 
@@ -57,7 +59,10 @@ for name in ("curves.bls12_377", "curves.bw6_761", "std.algebra_native",
              "backend.hash_to_field", "std.hash.mimc", "io.cbor", "io.intcomp",
              "io.gnark_cs", "io.keys", "io.plonk_serialize", "backend.prover_service",
              "profile", "std.pedersen", "curves.hash_to_g2", "backend.groth16.mpcsetup",
-             "backend.solidity", "backend.plonk_solidity", "backend.calldata", "evm"):
+             "backend.solidity", "backend.plonk_solidity", "backend.calldata", "evm",
+             "std.math_cmp", "std.multicommit", "std.logderivlookup", "std.rangecheck",
+             "std.emulated", "std.sw_emulated", "std.ecdsa", "std.math_bits", "std.hash.sha2",
+             "std.pairing_bn254", "std.evmprecompiles", "curves.secp256k1"):
     assert "gnark_icicle_tpu_torch." + name in sys.modules, name
 
 from gnark_icicle_tpu_torch.curves import bn254
@@ -135,6 +140,33 @@ except evm.Revert as e:
 _, pvk = plonk.setup(compile_circuit(R, Square, builder="scs"), bn254.BN254,
                      rng=random.Random(6), device="cpu")
 assert evm.load_contract(export_plonk_solidity(pvk, bn254.BN254)).functions["verifyProof"]
+# the emulated-field layer: a secp256k1 product compiled and solved by the
+# native solver (its hints, the deferred mulcheck and the range table's
+# commitment the port's own), a wrong product refused
+from gnark_icicle_tpu_torch.constraint.solver import UnsatisfiedConstraintError, solve
+from gnark_icicle_tpu_torch.std.emulated import SECP256K1_FP, EmulatedField
+
+class EmulMul(Circuit):
+    x = Secret(shape=4)
+    y = Secret(shape=4)
+    z = Public(shape=4)
+
+    def define(self, api):
+        f = EmulatedField(api, SECP256K1_FP, R)
+        f.assert_equal(f.mul(f.from_limbs(self.x), f.from_limbs(self.y)), f.from_limbs(self.z))
+
+def limbs(v):
+    return [(v >> (64 * i)) & ((1 << 64) - 1) for i in range(4)]
+
+ecs = compile_circuit(R, EmulMul)
+a, b, p = 3 ** 150, 5 ** 100, SECP256K1_FP.modulus
+solve(ecs, *EmulMul(x=limbs(a % p), y=limbs(b % p), z=limbs(a * b % p)).witness_values(R))
+try:
+    solve(ecs, *EmulMul(x=limbs(a % p), y=limbs(b % p),
+                        z=limbs((a * b + 1) % p)).witness_values(R))
+    raise AssertionError("the solver accepted a wrong emulated product")
+except UnsatisfiedConstraintError:
+    pass
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "gnark_icicle_tpu"))
 assert not leaked, leaked
