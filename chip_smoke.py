@@ -23,9 +23,12 @@ at 12, G2 over Fp), phases print one JSON line each on stdout:
      PLONK path, as fr_add is; the batch inversion of the quotient's
      tables at 2^16 + 37 lanes with those edges, zeros at the first and the
      last lane of threads, a thread all zeros and threads of fewer than k
-     lanes, then timed at the 4n rows; the NTT passes on the path's own domains,
-     computeH's 2^18 coset (BW6-761: 2^16) and PLONK's 4n coset (2^19 on
-     BN254 and BLS12-381, 2^12 on the others), each pass with the
+     lanes, then timed at the 4n rows (BN254's fr_add, quotient and
+     inversion also at the 2^20 rows of phase rollup's keccak256); the NTT
+     passes on the path's own domains, computeH's 2^18 coset (BW6-761:
+     2^16; BN254 also ecrecover's and the rollup's 2^20) and PLONK's 4n
+     coset (2^19 on BN254 and BLS12-381, 2^12 on the others; BN254 also
+     keccak256's 2^20), each pass with the
      scalings it carries there, and each whole transform, timed beside its
      bound;
      G1 and G2 masked signed mixed add, add and double at 2^14 lanes, with
@@ -159,7 +162,7 @@ at 12, G2 over Fp), phases print one JSON line each on stdout:
   precompiles: the zkEVM precompile circuits over the emulated-field layer
      (std/emulated.py's deferred mulcheck, rangecheck and logderivlookup
      under one multicommit api.commit), in a third process
-     (_precompiles_lane) started with the run: while nvcc and phases 2 and
+     (_lane) started with the run: while nvcc and phases 2 and
      3 run, EcRecover (0x01, the circuit of
      tests/test_evmprecompiles_compiled.py, copied) compiled with the port's
      gadgets (867,307 constraints, 710,886 privately committed wires),
@@ -174,9 +177,32 @@ at 12, G2 over Fp), phases print one JSON line each on stdout:
      host pedersen's (by linearity from setup's scalars), verify, and Ar
      doubled, the commitment + G and the proof of knowledge + G rejected;
      EcAdd through PLONK (a 2^15 domain, one BSB22 commitment): setup, a
-     first and a warm prove, verify, the commitment + G rejected.
+     first and a warm prove, the warm one under torch.profiler (as the
+     rollup's paths: _lane_prove), verify, the commitment + G rejected.
      ``python3 chip_smoke.py precompiles`` runs the build and this phase
      alone;
+  rollup: the rollup and hashing gadgets (std/eddsa.py over
+     curves/twisted_edwards.py, std/merkle.py's MiMC paths,
+     std/hash/keccakf.py under sha3.py) on BN254, in a fourth process
+     (_lane) started with the run: while nvcc and phases 2 and 3
+     run, gnark's rollup (examples/rollup.py's TransferCircuit, copied) as
+     RollupBatch, 8 transfers on a depth-24 account tree chained through
+     secret roots (637,208 constraints), compiled, its witness built by the
+     example's operator on a sparse tree (16 funded accounts, every other
+     leaf zero, one hash of an empty subtree a level; held to
+     MerkleTreeHost at depth 8, root and proofs, before and after an
+     update), solved once, and refused by the solver with one signature's
+     s + 1 and with an overdraft; keccak256 of 64 secret bytes (a Solidity
+     mapping slot's preimage, key ‖ slot) against a public digest from the
+     host keccak256, compiled with the SCS builder (229,712 gates),
+     solved, and a wrong digest refused by the solver; once phases 2 and 3
+     are done, on the card: RollupBatch through Groth16 (a 2^20 domain)
+     and keccak256 through PLONK (a 2^18 domain, its quotient on 2^20
+     rows), each with setup (its split), a first prove and a warm prove
+     under torch.profiler (stage times, launches, device ms by kernel,
+     busy share, peak device bytes), verify, and the tampers rejected
+     (root_after + 1 and Ar doubled; a changed digest byte). ``python3
+     chip_smoke.py rollup`` runs the build and this phase alone;
   The paths of phases 4 to deploy run in two processes at once, each
      with its own launch counts: BN254's paths, BLS12-381's PLONK and
      deploy in this one, the others (LANE_*), the committed 2-chain and
@@ -184,8 +210,8 @@ at 12, G2 over Fp), phases print one JSON line each on stdout:
      curves' proofs and vks through their bytes; the service phase runs
      when both have ended;
   5. the JSON line of all kernels (each with its launches on each of its
-     curve's paths, the batched proves, bsb22, checkpoint, service and
-     precompiles included, and their sum; every kernel but *_double and
+     curve's paths, the batched proves, bsb22, checkpoint, service,
+     precompiles and rollup included, and their sum; every kernel but *_double and
      *_add_mixed_masked ran on one);
   6. the card's name and power limit from nvidia-smi.
 The last line is {"ok": true, "device": {...}}. Any failure raises: the
@@ -650,11 +676,13 @@ def phase_kernels(device, name: str, rates: dict) -> list:
     # PLONK: fr_add and the quotient at N_FR rows with 0, 1, p − 1, p − 2 and
     # values near R in every input (each array's edges on rows of their
     # own), then at the 4n rows of the curve's PLONK path
-    m4 = shapes["plonk"]
-    big4 = list(_rand_dev(fr, 2, m4, device))
-    record("fr_add", max(_max_abs_err(tf.add(a, b), fr.add(a, b)),
-                         _max_abs_err(tf.add(a, a), fr.add(a, a))),
-           f"({fr.n32}, {m4})", big4, tf.add, fr.add, 3 * lane * m4, 0, fr.n32)
+    # (BN254 also at the 4n rows of phase rollup's keccak256, 2^20)
+    rows4 = [shapes["plonk"]] + ([4 << KECCAK_LOG] if name == "bn254" else [])
+    add_err = max(_max_abs_err(tf.add(a, b), fr.add(a, b)),
+                  _max_abs_err(tf.add(a, a), fr.add(a, a)))
+    for m4 in rows4:
+        record("fr_add", add_err, f"({fr.n32}, {m4})", list(_rand_dev(fr, 2, m4, device)),
+               tf.add, fr.add, 3 * lane * m4, 0, fr.n32)
     edge_vals = _rand_fe(rng, R, n)
     n_in = len(QUOTIENT_INPUTS) + 2
     q_in = torch.stack([fr.encode(edge_vals[3 * i:] + edge_vals[:3 * i], device)
@@ -674,12 +702,15 @@ def phase_kernels(device, name: str, rates: dict) -> list:
     run_q_plain = quotient(lambda *args: plonk_quotient_plain(fr, *args))
     # the bound at the reference's 21 products a row, so that rows before
     # and after the kernel's 20 compare, and at the kernel's own count
-    q_bytes = (n_in + 1) * lane * m4 + 11 * lane
-    record("plonk_quotient", _max_abs_err(run_q(q_in, zh, consts), run_q_plain(q_in, zh, consts)),
-           f"{n_in} x ({fr.n32}, {m4})", [_rand_dev(fr, n_in, m4, device), zh, consts],
-           run_q, run_q_plain, q_bytes, 21 * m4, fr.n32,
-           products_per_row=21, kernel_products_per_row=QUOTIENT_PRODUCTS,
-           kernel_products_bound_ms=_bound(rates, q_bytes, QUOTIENT_PRODUCTS * m4, fr.n32)[0])
+    q_err = _max_abs_err(run_q(q_in, zh, consts), run_q_plain(q_in, zh, consts))
+    for m4 in rows4:
+        q_bytes = (n_in + 1) * lane * m4 + 11 * lane
+        record("plonk_quotient", q_err, f"{n_in} x ({fr.n32}, {m4})",
+               [_rand_dev(fr, n_in, m4, device), zh, consts],
+               run_q, run_q_plain, q_bytes, 21 * m4, fr.n32,
+               products_per_row=21, kernel_products_per_row=QUOTIENT_PRODUCTS,
+               kernel_products_bound_ms=_bound(rates, q_bytes, QUOTIENT_PRODUCTS * m4,
+                                               fr.n32)[0])
 
     # the batch inversion of the quotient's tables: edge values, zeros at
     # the first and the last lane of threads, a thread all zeros and a last
@@ -694,11 +725,12 @@ def phase_kernels(device, name: str, rates: dict) -> list:
     for i in range(k):
         vals[7 + i * T] = 0
     xb = fr.encode(vals, device)
-    big_inv = _rand_dev(fr, 1, m4, device)[0]
-    big_inv[:, ::1021] = 0
-    record("fr_batch_inv", _max_abs_err(tf.mont_inv(xb), fr.mont_inv(xb)),
-           f"({fr.n32}, {m4}), k = {k}", [big_inv], tf.mont_inv, fr.mont_inv,
-           2 * lane * m4, batch_inv_products(R, big_inv), fr.n32, k=k)
+    inv_err = _max_abs_err(tf.mont_inv(xb), fr.mont_inv(xb))
+    for m4 in rows4:
+        big_inv = _rand_dev(fr, 1, m4, device)[0]
+        big_inv[:, ::1021] = 0
+        record("fr_batch_inv", inv_err, f"({fr.n32}, {m4}), k = {k}", [big_inv], tf.mont_inv,
+               fr.mont_inv, 2 * lane * m4, batch_inv_products(R, big_inv), fr.n32, k=k)
 
     ntt_rows(device, name, rates, record, shapes)
 
@@ -1123,10 +1155,15 @@ def ntt_rows(device, name: str, rates: dict, record, shapes: dict) -> None:
               if name == "bn254" else None)
     if dom_pc is not None:
         computeh_rows(dom_pc)
-    low4, *upper4 = pass_split(dom4.log_n)
-    top4 = upper4[-1] if upper4 else low4
-    pass_row(dom4, top4, "f", True, ("mul",), "PLONK's 4n coset NTT, first pass: g^i on the load")
-    pass_row(dom4, low4, "i", True, ("post",), "PLONK's 4n coset INTT, last pass")
+    # PLONK's 4n coset; on BN254 also phase rollup's keccak256 (2^20 rows)
+    doms4 = [dom4] + ([domain_for(fr, curve.fr, KECCAK_LOG + 2, device, coset=True)]
+                      if name == "bn254" else [])
+    for d4 in doms4:
+        low4, *upper4 = pass_split(d4.log_n)
+        top4 = upper4[-1] if upper4 else low4
+        pass_row(d4, top4, "f", True, ("mul",),
+                 "PLONK's 4n coset NTT, first pass: g^i on the load")
+        pass_row(d4, low4, "i", True, ("post",), "PLONK's 4n coset INTT, last pass")
 
     def rand(d):
         return _rand_dev(fr, 1, d.n, device)[0]
@@ -1142,17 +1179,20 @@ def ntt_rows(device, name: str, rates: dict, record, shapes: dict) -> None:
              lambda: _plain_transform(d, x, "i", True, post=d._coset_unscale_rev, mul=b, sub=c,
                                       scale=den), d.n, 3))
 
-    x4 = rand(dom4)
+    def coset_cases(d4):
+        x4 = rand(d4)
+        return (
+            (d4, "coset_ntt_nat", (x4,),
+             lambda: d4.bit_reverse(_plain_transform(d4, x4, "f", True, mul=d4.coset_pows)),
+             d4.n, 1),
+            (d4, "coset_intt_nat", (x4,),
+             lambda: d4.bit_reverse(_plain_transform(d4, x4, "i", True,
+                                                     post=d4._coset_unscale_rev)), d4.n, 1))
+
     # (domain, method, its arguments, its plain version, the columns of its
     # scaling table: n, or 1 for n^-1; products a row for the scalings)
-    cases = computeh_cases(dom) + (computeh_cases(dom_pc) if dom_pc is not None else ()) + (
-        (dom4, "coset_ntt_nat", (x4,),
-         lambda: dom4.bit_reverse(_plain_transform(dom4, x4, "f", True, mul=dom4.coset_pows)),
-         dom4.n, 1),
-        (dom4, "coset_intt_nat", (x4,),
-         lambda: dom4.bit_reverse(_plain_transform(dom4, x4, "i", True,
-                                                   post=dom4._coset_unscale_rev)), dom4.n, 1),
-    )
+    cases = computeh_cases(dom) + (computeh_cases(dom_pc) if dom_pc is not None else ()) + sum(
+        (coset_cases(d4) for d4 in doms4), ())
     main["transforms"] = []
     for d, method, args, plain, table, scalings in cases:
         run = getattr(d, method)
@@ -2662,7 +2702,7 @@ def _other_lane(t_start: float, compiled: dict, compiled_scs: dict,
 # phase precompiles: the zkEVM precompile circuits over the emulated-field
 # layer (std/emulated.py's deferred mulcheck, rangecheck and logderivlookup
 # under one multicommit api.commit), on BN254 in a third process
-# (_precompiles_lane): ecrecover (0x01) through Groth16 at its full size,
+# (_lane): ecrecover (0x01) through Groth16 at its full size,
 # ecAdd (0x06) through PLONK
 ECRECOVER_CONSTRAINTS = 867_307    # tests/test_evmprecompiles_compiled.py:28
 PRECOMPILES_LOG = 20               # its domain: phase 2 checks BN254's ntt_pass there too
@@ -2926,55 +2966,542 @@ def phase_precompiles_ecrecover(device, cs, sec) -> dict:
     return {"precompiles_ecrecover": launches}
 
 
+def _lane_prove(device, system: str, cs, pub, sec) -> dict:
+    """One path of a lane on the card (system "groth16" or "plonk", BN254):
+    setup (its log's split), a first prove, and a warm prove under
+    torch.profiler, with the backend's stage times of each prove; launch
+    counts from 0 just before setup to just after the warm prove, the warm
+    prove's own, and the peak device bytes of the three. Returns the keys,
+    the warm proof and the report."""
+    import importlib
+
+    import torch
+
+    backend = importlib.import_module(f"gnark_icicle_tpu_torch.backend.{system}")
+    curve = _curves()["bn254"]
+    phases, split = [], {}
+    grab = _StageLog(system, phases, split)
+    try:
+        _zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        pk, vk = backend.setup(cs, curve, rng=random.Random(1), device=device)
+        t_setup = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        backend.prove(cs, pk, pub, sec, curve, rng=random.Random(2), device=device)
+        first = {"seconds": time.perf_counter() - t0, **dict(phases)}
+        phases.clear()
+        before = _counts("bn254")
+        holder = {}
+        profiled = _profiled(lambda: holder.setdefault("proof", backend.prove(
+            cs, pk, pub, sec, curve, rng=random.Random(3), device=device)))
+        launches = _counts("bn254")
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        grab.close()
+    t0 = time.perf_counter()
+    backend.verify(holder["proof"], vk, pub, curve)
+    return {"pk": pk, "vk": vk, "proof": holder["proof"], "launches": launches,
+            "report": {"setup_s": t_setup, "setup_split": split, "first_prove": first,
+                       "warm_prove": {"seconds": profiled["wall_s"], **dict(phases)},
+                       "profiled_prove": profiled,
+                       "warm_launches": {k: c - before[k] for k, c in launches.items()
+                                         if c != before[k]},
+                       "launches": {k: c for k, c in launches.items() if c},
+                       "peak_device_bytes": peak, "verify_s": time.perf_counter() - t0,
+                       "verified": True}}
+
+
 def phase_precompiles_ecadd(device, scs, sec) -> dict:
-    """EcAdd through PLONK on the card (one BSB22 commitment: Qcp): setup, a
-    first and a warm prove (stage times), verify, a tampered commitment
-    rejected. Returns {path: launches}."""
+    """EcAdd through PLONK on the card (one BSB22 commitment: Qcp;
+    _lane_prove): the proof verifies, a tampered commitment is rejected.
+    Returns {path: launches}."""
     import dataclasses
 
     from gnark_icicle_tpu_torch.backend import plonk
 
     curve = _curves()["bn254"]
     g1 = curve.g1
-    phases, split = [], {}
-    grab = _StageLog("plonk", phases, split)
-    try:
-        _zero_counts()
-        t0 = time.perf_counter()
-        pk, vk = plonk.setup(scs, curve, rng=random.Random(1), device=device)
-        t_setup = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        plonk.prove(scs, pk, [], sec, curve, rng=random.Random(2), device=device)
-        t_first = time.perf_counter() - t0
-        phases.clear()
-        t0 = time.perf_counter()
-        proof = plonk.prove(scs, pk, [], sec, curve, rng=random.Random(3), device=device)
-        warm = {"seconds": time.perf_counter() - t0, **dict(phases)}
-        launches = _counts("bn254")
-    finally:
-        grab.close()
-    _check_msm_launches("bn254", launches, "bn254 precompiles ecadd")
-    t0 = time.perf_counter()
-    plonk.verify(proof, vk, [], curve)
-    t_verify = time.perf_counter() - t0
+    run = _lane_prove(device, "plonk", scs, [], sec)
+    _check_msm_launches("bn254", run["launches"], "bn254 precompiles ecadd")
+    proof, vk = run["proof"], run["vk"]
     bad = dataclasses.replace(proof, bsb22_commitments=[
         g1.add(proof.bsb22_commitments[0], g1.generator)])
     if plonk.is_valid(bad, vk, [], curve):
         raise AssertionError("the verifier accepted a tampered commitment")
     _say("precompiles", circuit="ecadd", system="plonk", curve=curve.name,
-         gates=scs.nb_gates, domain_log_n=pk.log_n, setup_s=t_setup, setup_split=split,
-         first_prove_s=t_first, warm_prove=warm, verify_s=t_verify, verified=True,
-         rejected={"commitment_plus_g": True},
-         launches={k: c for k, c in launches.items() if c})
-    return {"precompiles_ecadd": launches}
+         gates=scs.nb_gates, domain_log_n=run["pk"].log_n, **run["report"],
+         rejected={"commitment_plus_g": True})
+    return {"precompiles_ecadd": run["launches"]}
 
 
-def _precompiles_lane(t_start: float, card_free, out) -> None:
-    """Phase precompiles in a process of its own (spawned): its host part
-    (precompiles_host) while nvcc and phases 2 and 3 run, niced as the
-    compile workers are; then, once main sets `card_free` (phases 2 and 3
-    done), its paths on the card, with launch counts of its own. Puts
-    ("ok", [(curve, path, launches)]) or ("error", traceback) on `out`."""
+# phase rollup: the rollup and hashing gadgets of std/ (eddsa over
+# curves/twisted_edwards, merkle's MiMC paths; hash/keccakf under
+# hash/sha3) on BN254 in a fourth process (_lane): gnark's rollup
+# (examples/rollup.py) as one batch of EdDSA-signed transfers on a MiMC
+# account tree through Groth16, and the EVM's keccak256 of 64 bytes through
+# PLONK
+ROLLUP_DEPTH = 24                  # the account tree's depth
+ROLLUP_TRANSFERS = 8               # transfers a batch, chained through secret roots
+ROLLUP_ACCOUNTS = 16               # funded accounts; every other leaf is zero
+# RollupBatch as the JAX package compiles it (8 x 79,651; the slow test of
+# tests/test_torch_rollup.py holds the two packages' systems equal)
+ROLLUP_CONSTRAINTS = 637_208
+ROLLUP_LOG = 20                    # its domain
+SPARSE_CHECK_DEPTH = 8             # the sparse tree held to MerkleTreeHost there
+KECCAK_BYTES = 64                  # a Solidity mapping's slot preimage: key ‖ slot
+KECCAK_GATES = 229_712             # keccak256 of 64 bytes under the SCS builder
+KECCAK_LOG = 18                    # its domain; PLONK's 4n coset has 2^20 rows
+
+
+def rollup_circuits(depth: int, transfers: int) -> tuple:
+    """gnark's rollup over the port's gadgets: TransferCircuit, copied from
+    examples/rollup.py:41-126 with the tree's depth a parameter, and
+    RollupBatch: `transfers` of them, each transfer's root_after the next
+    one's root_before; the batch's first root_before and last root_after
+    are public, the roots between them secret (`roots`), and every other
+    input of transfer i is entry i of the batch's input of the same name."""
+    from gnark_icicle_tpu_torch.curves import bn254
+    from gnark_icicle_tpu_torch.frontend import Circuit, Public, Secret
+    from gnark_icicle_tpu_torch.std.eddsa import verify_signature
+    from gnark_icicle_tpu_torch.std.hash.mimc import MiMC
+
+    Q = bn254.R
+
+    class TransferCircuit(Circuit):
+        """One rollup transfer (the reference batches these; batch = repeat)."""
+
+        root_before = Public()
+        root_after = Public()
+
+        sender_pub_x = Secret()
+        sender_pub_y = Secret()
+        receiver_pub_x = Secret()
+        receiver_pub_y = Secret()
+        sender_balance = Secret()
+        sender_nonce = Secret()
+        receiver_balance = Secret()
+        receiver_nonce = Secret()
+        amount = Secret()
+        # signature
+        sig_rx = Secret()
+        sig_ry = Secret()
+        sig_s = Secret()
+        # merkle paths: sender against root_before, receiver against root_mid
+        sender_sibs = Secret(shape=depth)
+        sender_dirs = Secret(shape=depth)
+        receiver_sibs = Secret(shape=depth)
+        receiver_dirs = Secret(shape=depth)
+
+        def _leaf(self, api, px, py, bal, nonce):
+            h = MiMC(api, Q)
+            h.write(px, py, bal, nonce)
+            return h.sum()
+
+        def _root(self, api, leaf, sibs, dirs):
+            cur = leaf
+            for sib, bit in zip(sibs, dirs):
+                api.assert_is_boolean(bit)
+                left = api.select(bit, sib, cur)
+                right = api.select(bit, cur, sib)
+                h = MiMC(api, Q)
+                h.write(left, right)
+                cur = h.sum()
+            return cur
+
+        def define(self, api):
+            sender_pub = (self.sender_pub_x, self.sender_pub_y)
+
+            # 1. the sender authorized this transfer
+            h = MiMC(api, Q)
+            h.write(self.sender_pub_x, self.receiver_pub_x, self.amount,
+                    self.sender_nonce)
+            msg = h.sum()
+            verify_signature(api, Q, sender_pub, (self.sig_rx, self.sig_ry),
+                             self.sig_s, msg)
+
+            # 2. funds are sufficient (64-bit balances)
+            api.assert_is_less_or_equal(self.amount, self.sender_balance)
+
+            # 3. sender pre-state is in root_before
+            sender_leaf = self._leaf(api, self.sender_pub_x, self.sender_pub_y,
+                                     self.sender_balance, self.sender_nonce)
+            root = self._root(api, sender_leaf, self.sender_sibs,
+                              self.sender_dirs)
+            api.assert_is_equal(root, self.root_before)
+
+            # 4. sender post-state defines the mid root
+            sender_after = self._leaf(
+                api, self.sender_pub_x, self.sender_pub_y,
+                api.sub(self.sender_balance, self.amount),
+                api.add(self.sender_nonce, 1),
+            )
+            root_mid = self._root(api, sender_after, self.sender_sibs,
+                                  self.sender_dirs)
+
+            # 5. receiver pre-state is in root_mid; post-state gives root_after
+            recv_leaf = self._leaf(api, self.receiver_pub_x, self.receiver_pub_y,
+                                   self.receiver_balance, self.receiver_nonce)
+            root2 = self._root(api, recv_leaf, self.receiver_sibs,
+                               self.receiver_dirs)
+            api.assert_is_equal(root2, root_mid)
+            recv_after = self._leaf(
+                api, self.receiver_pub_x, self.receiver_pub_y,
+                api.add(self.receiver_balance, self.amount),
+                self.receiver_nonce,
+            )
+            root3 = self._root(api, recv_after, self.receiver_sibs,
+                               self.receiver_dirs)
+            api.assert_is_equal(root3, self.root_after)
+
+    inputs = [d for d in TransferCircuit._inputs() if not d.public]
+
+    def define(self, api):
+        roots = [self.root_before, *self.roots, self.root_after]
+        for i in range(transfers):
+            TransferCircuit(root_before=roots[i], root_after=roots[i + 1],
+                            **{d.name: getattr(self, d.name)[i] for d in inputs}).define(api)
+
+    batch = {"root_before": Public(), "root_after": Public(),
+             "roots": Secret(shape=transfers - 1)}
+    batch.update((d.name, Secret(shape=transfers if d.shape is None else (transfers, d.shape)))
+                 for d in inputs)
+    return TransferCircuit, type("RollupBatch", (Circuit,), {**batch, "define": define})
+
+
+def batch_assignment(RollupBatch, transfers: list):
+    """RollupBatch's assignment from its transfers' (TransferCircuit
+    assignments as dicts, in order)."""
+    names = [d.name for d in RollupBatch._inputs()
+             if d.name not in ("root_before", "root_after", "roots")]
+    return RollupBatch(root_before=transfers[0]["root_before"],
+                       root_after=transfers[-1]["root_after"],
+                       roots=[t["root_after"] for t in transfers[:-1]],
+                       **{k: [t[k] for t in transfers] for k in names})
+
+
+def _mimc(*values) -> int:
+    from gnark_icicle_tpu_torch.curves import bn254
+    from gnark_icicle_tpu_torch.std.hash.mimc import MiMCHost
+
+    h = MiMCHost(bn254.R)
+    h.write(*values)
+    return h.h
+
+
+class SparseTree:
+    """The MiMC Merkle tree of std/merkle.py's MerkleTreeHost over 2^depth
+    leaves, most of them zero, without its 2^depth leaves: the nodes above a
+    leaf ever set are kept by level and index, every other node of a level
+    is the hash of an empty subtree there (one hash a level). The same root
+    and proofs (sparse_tree_check)."""
+
+    def __init__(self, depth: int, leaves: dict):
+        self.depth = depth
+        self.empty = [0]
+        for _ in range(depth):
+            self.empty.append(_mimc(self.empty[-1], self.empty[-1]))
+        self.nodes = [{} for _ in range(depth + 1)]
+        for index, value in leaves.items():
+            self.update(index, value)
+
+    def node(self, level: int, index: int) -> int:
+        return self.nodes[level].get(index, self.empty[level])
+
+    @property
+    def root(self) -> int:
+        return self.node(self.depth, 0)
+
+    def proof(self, index: int) -> tuple:
+        """(siblings, direction_bits) bottom-up for leaf `index`, as
+        MerkleTreeHost.proof."""
+        sibs, dirs = [], []
+        for level in range(self.depth):
+            sibs.append(self.node(level, index ^ 1))
+            dirs.append(index & 1)
+            index >>= 1
+        return sibs, dirs
+
+    def update(self, index: int, value: int) -> None:
+        from gnark_icicle_tpu_torch.curves import bn254
+
+        self.nodes[0][index] = value % bn254.R
+        for level in range(self.depth):
+            base = index & ~1
+            index >>= 1
+            self.nodes[level + 1][index] = _mimc(self.node(level, base),
+                                                 self.node(level, base + 1))
+
+
+class RollupOperator:
+    """examples/rollup.py's Operator (:129-176) on a SparseTree of the
+    given depth: ROLLUP_ACCOUNTS funded accounts (balance 1000, nonce 0)
+    spread over the leaves, every other leaf zero. transfer() returns the
+    TransferCircuit assignment as a dict."""
+
+    def __init__(self, depth: int):
+        from gnark_icicle_tpu_torch.curves import twisted_edwards as te
+
+        n = ROLLUP_ACCOUNTS
+        stride = (1 << depth) // n
+        self.keys = [te.generate_key(f"acct{i}".encode()) for i in range(n)]
+        self.index = [i * stride + i % stride for i in range(n)]
+        self.balances = [1000] * n
+        self.nonces = [0] * n
+        self.tree = SparseTree(depth, {self.index[i]: self.leaf(i) for i in range(n)})
+
+    def leaf(self, i: int) -> int:
+        """H(pub.x, pub.y, balance, nonce) (examples/rollup.py
+        account_leaf_host)."""
+        pub = self.keys[i].public
+        return _mimc(pub[0], pub[1], self.balances[i], self.nonces[i])
+
+    def transfer(self, frm: int, to: int, amount: int) -> dict:
+        """Execute + build the witness for one transfer."""
+        from gnark_icicle_tpu_torch.curves import twisted_edwards as te
+
+        kp, dest = self.keys[frm], self.keys[to]
+        msg = _mimc(kp.public[0], dest.public[0], amount, self.nonces[frm])
+        R, s = te.sign(kp, msg)
+        sender_sibs, sender_dirs = self.tree.proof(self.index[frm])
+        w = dict(root_before=self.tree.root,
+                 sender_pub_x=kp.public[0], sender_pub_y=kp.public[1],
+                 receiver_pub_x=dest.public[0], receiver_pub_y=dest.public[1],
+                 sender_balance=self.balances[frm], sender_nonce=self.nonces[frm],
+                 receiver_balance=self.balances[to], receiver_nonce=self.nonces[to],
+                 amount=amount, sig_rx=R[0], sig_ry=R[1], sig_s=s,
+                 sender_sibs=sender_sibs, sender_dirs=sender_dirs)
+        # apply sender side, take receiver proof from the mid tree
+        self.balances[frm] -= amount
+        self.nonces[frm] += 1
+        self.tree.update(self.index[frm], self.leaf(frm))
+        w["receiver_sibs"], w["receiver_dirs"] = self.tree.proof(self.index[to])
+        self.balances[to] += amount
+        self.tree.update(self.index[to], self.leaf(to))
+        w["root_after"] = self.tree.root
+        return w
+
+
+def rollup_batch(depth: int, seed: int, overdraw: bool = False) -> list:
+    """ROLLUP_TRANSFERS transfers of a fresh RollupOperator (account 2i to
+    2i + 1, amounts from `seed`); with `overdraw` the first one moves one
+    more than the sender holds, the rest of its witness as the operator
+    computes it."""
+    rng = random.Random(seed)
+    op = RollupOperator(depth)
+    out = []
+    for i in range(ROLLUP_TRANSFERS):
+        amount = rng.randrange(1, 251)
+        if overdraw and i == 0:
+            amount = op.balances[0] + 1
+        out.append(op.transfer(2 * i, 2 * i + 1, amount))
+    return out
+
+
+def sparse_tree_check(depth: int = SPARSE_CHECK_DEPTH) -> dict:
+    """RollupOperator's sparse tree against std/merkle.py's MerkleTreeHost
+    over all 2^depth leaves: the same root and the proofs of every funded
+    account, before and after a batch of transfers and an update of a zero
+    leaf."""
+    from gnark_icicle_tpu_torch.curves import bn254
+    from gnark_icicle_tpu_torch.std.merkle import MerkleTreeHost
+
+    op = RollupOperator(depth)
+    dense = MerkleTreeHost(bn254.R, [op.tree.node(0, i) for i in range(1 << depth)])
+
+    def same(when: str):
+        if dense.root != op.tree.root or any(dense.proof(i) != op.tree.proof(i)
+                                             for i in op.index + [1, (1 << depth) - 1]):
+            raise AssertionError(f"the sparse tree differs from MerkleTreeHost {when}")
+
+    same("after its build")
+    for i in range(ROLLUP_TRANSFERS):
+        op.transfer(2 * i, 2 * i + 1, 10 + i)
+        for j in (2 * i, 2 * i + 1):
+            dense.update(op.index[j], op.leaf(j))
+    op.tree.update(1, 77)
+    dense.update(1, 77)
+    same("after the transfers")
+    return {"depth": depth, "accounts": len(op.index), "transfers": ROLLUP_TRANSFERS}
+
+
+def keccak_circuit():
+    """keccak256 of KECCAK_BYTES secret bytes (std/hash/sha3.py keccak256)
+    held to a public 32-byte digest."""
+    from gnark_icicle_tpu_torch.frontend import Circuit, Public, Secret
+    from gnark_icicle_tpu_torch.std.hash.sha3 import keccak256
+
+    class Keccak256(Circuit):
+        data = Secret(shape=KECCAK_BYTES)
+        digest = Public(shape=32)
+
+        def define(self, api):
+            for have, want in zip(keccak256(api, list(self.data)), self.digest):
+                api.assert_is_equal(have, want)
+
+    return Keccak256
+
+
+def keccak_witness(seed: int) -> tuple:
+    """A Solidity mapping's slot preimage, key ‖ slot (a 20-byte address
+    left-padded to 32 bytes, then the mapping's slot number, both
+    big-endian), and its keccak256 from the port's host hash
+    (std/hash/mimc.py keccak256, which evm.py's SHA3 runs): (public, secret)."""
+    from gnark_icicle_tpu_torch.std.hash.mimc import keccak256
+
+    rng = random.Random(seed)
+    data = bytes(12) + rng.randbytes(20) + rng.randrange(1 << 8).to_bytes(32, "big")
+    return list(keccak256(data)), list(data)
+
+
+def rollup_host() -> dict:
+    """The host part of phase rollup, which needs no card: the sparse tree
+    held to MerkleTreeHost (sparse_tree_check); RollupBatch compiled at
+    ROLLUP_DEPTH (ROLLUP_CONSTRAINTS), its batch of transfers solved once
+    (which builds the solver's schedule), and refused by the solver with
+    one signature's s + 1 and with an overdraft; keccak256 compiled with
+    the SCS builder (KECCAK_GATES), solved, and refused with a wrong
+    digest."""
+    from gnark_icicle_tpu_torch.constraint.scs import SparseUnsatisfiedError, solve_scs
+    from gnark_icicle_tpu_torch.constraint.solver import UnsatisfiedConstraintError, solve
+    from gnark_icicle_tpu_torch.curves import bn254
+    from gnark_icicle_tpu_torch.frontend import compile_circuit
+
+    t = {}
+    t0 = time.perf_counter()
+    tree = sparse_tree_check()
+    t["sparse_tree_check_s"] = time.perf_counter() - t0
+    _, RollupBatch = rollup_circuits(ROLLUP_DEPTH, ROLLUP_TRANSFERS)
+    t0 = time.perf_counter()
+    cs = compile_circuit(bn254.R, RollupBatch)
+    t["compile_s"] = time.perf_counter() - t0
+    if cs.nb_constraints != ROLLUP_CONSTRAINTS:
+        raise AssertionError(f"RollupBatch: {cs.nb_constraints} constraints")
+    t0 = time.perf_counter()
+    transfers = rollup_batch(ROLLUP_DEPTH, 11)
+    forged = [dict(tr) for tr in transfers]
+    forged[3]["sig_s"] += 1
+    overdraft = rollup_batch(ROLLUP_DEPTH, 11, overdraw=True)
+    t["witnesses_s"] = time.perf_counter() - t0
+    pub, sec = batch_assignment(RollupBatch, transfers).witness_values(bn254.R)
+    t0 = time.perf_counter()
+    solve(cs, pub, sec)
+    t["solve_s"] = time.perf_counter() - t0
+    for kind, bad in (("forged_signature", forged), ("overdraft", overdraft)):
+        t0 = time.perf_counter()
+        try:
+            solve(cs, *batch_assignment(RollupBatch, bad).witness_values(bn254.R))
+        except UnsatisfiedConstraintError:
+            t[f"{kind}_refused_s"] = time.perf_counter() - t0
+        else:
+            raise AssertionError(f"the solver accepted the batch with a {kind}")
+    t0 = time.perf_counter()
+    scs = compile_circuit(bn254.R, keccak_circuit(), builder="scs")
+    t["keccak_compile_s"] = time.perf_counter() - t0
+    if scs.nb_gates != KECCAK_GATES:
+        raise AssertionError(f"keccak256: {scs.nb_gates} gates")
+    digest, data = keccak_witness(5)
+    t0 = time.perf_counter()
+    solve_scs(scs, digest, data)
+    t["keccak_solve_s"] = time.perf_counter() - t0
+    try:
+        solve_scs(scs, [digest[0] ^ 1] + digest[1:], data)
+    except SparseUnsatisfiedError:
+        pass
+    else:
+        raise AssertionError("the SCS solver accepted a wrong keccak256 digest")
+    _say("rollup", part="host", circuit="rollup", depth=ROLLUP_DEPTH,
+         transfers=ROLLUP_TRANSFERS, constraints=cs.nb_constraints, wires=cs.nb_wires,
+         public=cs.nb_public, secret=cs.nb_secret, sparse_tree=tree,
+         refused=["forged_signature", "overdraft"], keccak_gates=scs.nb_gates,
+         keccak_wrong_digest_refused=True, **t)
+    return {"rollup": (cs, pub, sec), "keccak": (scs, digest, data)}
+
+
+def _check_ran(label: str, launches: dict, ran: tuple, zero: tuple = ()) -> None:
+    """Each entry of `ran` (unprefixed, BN254) launched on the path, none of
+    `zero`, and every MSM one launch set (_check_msm_launches)."""
+    from gnark_icicle_tpu_torch.ops import cuda as kc
+
+    pre = kc.CURVES["bn254"]
+    bad = [e for e in ran if not launches.get(pre + e)] + [
+        e for e in zero if launches.get(pre + e)]
+    if bad:
+        raise AssertionError(f"{label}: launches of {bad} are not the path's: {launches}")
+    _check_msm_launches("bn254", launches, label)
+
+
+def phase_rollup_groth16(device, cs, pub, sec) -> dict:
+    """RollupBatch through Groth16 on the card (_lane_prove: a 2^ROLLUP_LOG
+    domain, the G2 MSM B2 over its wires): the proof verifies; the proof
+    checked against root_after + 1, and the proof with Ar replaced by 2·Ar,
+    are rejected. Returns {path: launches}."""
+    import dataclasses
+
+    from gnark_icicle_tpu_torch.backend import groth16
+
+    curve = _curves()["bn254"]
+    run = _lane_prove(device, "groth16", cs, pub, sec)
+    pk, vk, proof = run["pk"], run["vk"], run["proof"]
+    if pk.domain_log_n != ROLLUP_LOG:
+        raise AssertionError(f"RollupBatch's domain is 2^{pk.domain_log_n}")
+    _check_ran("bn254 rollup groth16", run["launches"],
+               ("fr_mont_mul", "ntt_pass", "g1_bucket_accumulate", "g2_bucket_accumulate",
+                "g1_fixed_base", "g1_normalize", "g2_fixed_base", "g2_normalize"),
+               ("fr_add", "plonk_quotient", "fr_batch_inv"))
+    tampers = {"root_after_changed": (proof, [pub[0], (pub[1] + 1) % curve.fr.modulus]),
+               "ar_doubled": (dataclasses.replace(proof, ar=curve.g1.scalar_mul(proof.ar, 2)),
+                              pub)}
+    for kind, (bad, bad_pub) in tampers.items():
+        if groth16.is_valid(bad, vk, bad_pub, curve):
+            raise AssertionError(f"the verifier accepted the rollup proof with {kind}")
+    _say("rollup", circuit="rollup", system="groth16", curve=curve.name,
+         depth=ROLLUP_DEPTH, transfers=ROLLUP_TRANSFERS, constraints=cs.nb_constraints,
+         wires=cs.nb_wires, domain_log_n=pk.domain_log_n, **run["report"],
+         rejected={k: True for k in tampers}, card=_smi("name,power.limit"))
+    return {"rollup_groth16": run["launches"]}
+
+
+def phase_rollup_keccak(device, scs, digest, data) -> dict:
+    """keccak256 of KECCAK_BYTES bytes through PLONK on the card
+    (_lane_prove: a 2^KECCAK_LOG domain, its quotient on 2^(KECCAK_LOG + 2)
+    rows): the proof verifies; the proof checked against a digest with one
+    byte changed is rejected. Returns {path: launches}."""
+    from gnark_icicle_tpu_torch.backend import plonk
+
+    curve = _curves()["bn254"]
+    run = _lane_prove(device, "plonk", scs, digest, data)
+    pk, vk, proof = run["pk"], run["vk"], run["proof"]
+    if pk.log_n != KECCAK_LOG:
+        raise AssertionError(f"keccak256's domain is 2^{pk.log_n}")
+    _check_ran("bn254 keccak256 plonk", run["launches"],
+               ("fr_mont_mul", "ntt_pass", "fr_add", "plonk_quotient", "fr_batch_inv",
+                "fr_sub", "g1_bucket_accumulate", "g1_fixed_base", "g1_normalize"),
+               ("g2_bucket_accumulate", "g2_fixed_base", "g2_normalize"))
+    bad = list(digest)
+    bad[7] ^= 0x40
+    if plonk.is_valid(proof, vk, bad, curve):
+        raise AssertionError("the verifier accepted the keccak256 proof with a changed digest")
+    _say("rollup", circuit="keccak256", system="plonk", curve=curve.name, bytes=KECCAK_BYTES,
+         gates=scs.nb_gates, domain_log_n=pk.log_n, **run["report"],
+         rejected={"digest_byte_changed": True}, card=_smi("name,power.limit"))
+    return {"keccak_plonk": run["launches"]}
+
+
+# the phases that run in a process of their own: phase -> (its host part,
+# which returns {name: arguments}, and its paths on the card by those names)
+LANES = {"precompiles": (precompiles_host, {"ecrecover": phase_precompiles_ecrecover,
+                                            "ecadd": phase_precompiles_ecadd}),
+         "rollup": (rollup_host, {"rollup": phase_rollup_groth16,
+                                  "keccak": phase_rollup_keccak})}
+
+
+def _lane(phase: str, t_start: float, card_free, out) -> None:
+    """A phase of LANES in a process of its own (spawned): its host part
+    while nvcc and phases 2 and 3 run, niced as the compile workers are;
+    then, once main sets `card_free` (phases 2 and 3 done), its paths on the
+    card, with launch counts of its own. Puts ("ok", [(curve, path,
+    launches)]) or ("error", traceback) on `out`."""
     try:
         import torch
 
@@ -2982,30 +3509,32 @@ def _precompiles_lane(t_start: float, card_free, out) -> None:
 
         _START["t"] = t_start
         os.nice(10)
-        host = precompiles_host()
+        host_part, paths = LANES[phase]
+        host = host_part()
         card_free.wait()
         device = torch.device("cuda", 0)
         kc.load("bn254")
-        runs = {**phase_precompiles_ecrecover(device, *host["ecrecover"]),
-                **phase_precompiles_ecadd(device, *host["ecadd"])}
+        runs = {}
+        for name, run in paths.items():
+            runs.update(run(device, *host[name]))
         out.put(("ok", [("bn254", path, c) for path, c in runs.items()]))
     except BaseException:   # noqa: BLE001 (raised again by main)
         out.put(("error", traceback.format_exc()))
 
 
-def start_precompiles(t_start: float) -> tuple:
-    """_precompiles_lane started: (the event that frees the card to it,
-    (its process, its result's queue))."""
+def start_lane(phase: str, t_start: float, card_free) -> tuple:
+    """_lane of `phase` started in a spawned process, its card part held
+    until `card_free` is set: (its process, its result's queue)."""
     import multiprocessing
 
     ctx = multiprocessing.get_context("spawn")
-    card_free, out = ctx.Event(), ctx.Queue()
-    proc = ctx.Process(target=_precompiles_lane, args=(t_start, card_free, out))
+    out = ctx.Queue()
+    proc = ctx.Process(target=_lane, args=(phase, t_start, card_free, out))
     proc.start()
-    return card_free, (proc, out)
+    return proc, out
 
 
-def precompiles_result(lane: tuple) -> list:
+def lane_result(phase: str, lane: tuple) -> list:
     """The lane's [(curve, path, launches)]; its failure, or its end
     without a result, raised here."""
     import queue
@@ -3017,10 +3546,10 @@ def precompiles_result(lane: tuple) -> list:
             break
         except queue.Empty:
             if not proc.is_alive():
-                raise AssertionError(f"phase precompiles ended with code {proc.exitcode} "
+                raise AssertionError(f"phase {phase} ended with code {proc.exitcode} "
                                      "and no result") from None
     if status != "ok":
-        raise AssertionError(f"phase precompiles failed:\n{value}")
+        raise AssertionError(f"phase {phase} failed:\n{value}")
     return value
 
 
@@ -3044,13 +3573,18 @@ def main() -> int:
 
     t_start = _START["t"] = time.perf_counter()
     device = torch.device("cuda", 0)
-    # phase precompiles in a third process: its host part now, its card part
-    # once phases 2 and 3 are done
-    card_free, precompiles = start_precompiles(t_start)
-    if sys.argv[1:] == ["precompiles"]:     # that phase alone, after the build
+    # phases precompiles and rollup in a third and a fourth process: their
+    # host parts now, their card parts once phases 2 and 3 are done
+    alone = sys.argv[1:]
+    card_free = multiprocessing.get_context("spawn").Event()
+    lanes = {phase: start_lane(phase, t_start, card_free)
+             for phase in LANES if alone in ([], [phase])}
+    if alone:               # that phase alone, after the build
+        if not lanes:
+            raise SystemExit(f"chip_smoke.py: no phase {alone}; precompiles or rollup")
         kc.build()
         card_free.set()
-        precompiles_result(precompiles)
+        lane_result(alone[0], lanes[alone[0]])
         _say("done", seconds=time.perf_counter() - t_start)
         return 0
     # nvcc runs in processes of its own, and the circuits compile in niced
@@ -3168,7 +3702,8 @@ def main() -> int:
     extra += lane_extra
     extra += [(SERVE_CURVE, path, c) for path, c in
               phase_service(device, served, srv_runs, srv_others).items()]
-    extra += precompiles_result(precompiles)
+    for phase, lane in lanes.items():
+        extra += lane_result(phase, lane)
     for k in kernels:
         k["launches_by_path"] = {path: counts[k["name"]] for curve, path, counts in paths + extra
                                  if curve == k["curve"]}

@@ -14,7 +14,10 @@ the deploy path: a ceremony's keys prove a small circuit, whose exported
 Groth16 contract accepts the proof in the EVM interpreter and reverts on a
 tampered input, and a PLONK contract's export parses; then the emulated-field
 layer (std/emulated.py and the EVM precompile modules among the imports): an
-emulated product compiled and solved with the port's own hints. chip_smoke.py refuses to run without a GPU, and the
+emulated product compiled and solved with the port's own hints; then the rollup
+gadgets (std/eddsa.py, merkle.py, keccakf, sha3, gkr, fri, compress_lzss and the
+others among the imports): chip_smoke.py's TransferCircuit at depth 2 compiled
+and solved, an overdraft refused. chip_smoke.py refuses to run without a GPU, and the
 entry points raise where there is no card and no ``device="cpu"``.
 """
 
@@ -62,7 +65,10 @@ for name in ("curves.bls12_377", "curves.bw6_761", "std.algebra_native",
              "backend.solidity", "backend.plonk_solidity", "backend.calldata", "evm",
              "std.math_cmp", "std.multicommit", "std.logderivlookup", "std.rangecheck",
              "std.emulated", "std.sw_emulated", "std.ecdsa", "std.math_bits", "std.hash.sha2",
-             "std.pairing_bn254", "std.evmprecompiles", "curves.secp256k1"):
+             "std.pairing_bn254", "std.evmprecompiles", "curves.secp256k1",
+             "curves.twisted_edwards", "std.eddsa", "std.merkle", "std.selector",
+             "std.bitslice", "std.hash.keccakf", "std.hash.sha3", "std.fiat_shamir",
+             "std.polynomial", "std.sumcheck", "std.gkr", "std.fri", "std.compress_lzss"):
     assert "gnark_icicle_tpu_torch." + name in sys.modules, name
 
 from gnark_icicle_tpu_torch.curves import bn254
@@ -165,6 +171,46 @@ try:
     solve(ecs, *EmulMul(x=limbs(a % p), y=limbs(b % p),
                         z=limbs((a * b + 1) % p)).witness_values(R))
     raise AssertionError("the solver accepted a wrong emulated product")
+except UnsatisfiedConstraintError:
+    pass
+# the rollup gadgets: chip_smoke.py's TransferCircuit at depth 2 (EdDSA over
+# Baby Jubjub, MiMC paths) compiled and solved on an operator's transfer
+# (examples/rollup.py Operator.transfer over the port's host modules), an
+# overdraft refused
+import chip_smoke
+from gnark_icicle_tpu_torch.curves import twisted_edwards as te
+from gnark_icicle_tpu_torch.std.hash.mimc import MiMCHost
+from gnark_icicle_tpu_torch.std.merkle import MerkleTreeHost
+
+def mimc(*values):
+    h = MiMCHost(R)
+    h.write(*values)
+    return h.h
+
+keys = [te.generate_key(f"acct{i}".encode()) for i in range(4)]
+tree = MerkleTreeHost(R, [mimc(k.public[0], k.public[1], 1000, 0) for k in keys])
+
+def transfer(amount):
+    a, b = keys[0].public, keys[1].public
+    sig_r, sig_s = te.sign(keys[0], mimc(a[0], b[0], amount, 0))
+    sibs, dirs = tree.proof(0)
+    after = MerkleTreeHost(R, [l for l in tree.levels[0]])
+    after.update(0, mimc(a[0], a[1], 1000 - amount, 1))
+    rsibs, rdirs = after.proof(1)
+    after.update(1, mimc(b[0], b[1], 1000 + amount, 0))
+    return dict(root_before=tree.root, root_after=after.root, sender_pub_x=a[0],
+                sender_pub_y=a[1], receiver_pub_x=b[0], receiver_pub_y=b[1],
+                sender_balance=1000, sender_nonce=0, receiver_balance=1000, receiver_nonce=0,
+                amount=amount, sig_rx=sig_r[0], sig_ry=sig_r[1], sig_s=sig_s,
+                sender_sibs=sibs, sender_dirs=dirs, receiver_sibs=rsibs, receiver_dirs=rdirs)
+
+Transfer, _ = chip_smoke.rollup_circuits(2, 1)
+tcs = compile_circuit(R, Transfer)
+assert tcs.nb_constraints == 21_351, tcs.nb_constraints
+solve(tcs, *Transfer(**transfer(250)).witness_values(R))
+try:
+    solve(tcs, *Transfer(**transfer(1001)).witness_values(R))
+    raise AssertionError("the solver accepted an overdraft")
 except UnsatisfiedConstraintError:
     pass
 leaked = sorted(m for m in sys.modules
