@@ -10,7 +10,8 @@ at 12, G2 over Fp), phases print one JSON line each on stdout:
      gnark_icicle_tpu_torch/csrc/ (BW6-761 builds no g2.cu), all nvcc
      processes at once, and report each one's seconds and ptxas's registers
      and spills; phases 2 and 3 of a curve start as soon as its libraries
-     are in place, while nvcc builds the others'; the circuits of phases 4,
+     are in place, while nvcc builds the others' (the curves in the order
+     their builds end); the circuits of phases 4,
      plonk and bsb22 are compiled (host Python, a spawned, niced process
      each) while nvcc and then phases 2 and 3 run, each R1CS solved once
      there, so that its solver schedule (about 25 s at 2^17) is built with
@@ -203,12 +204,35 @@ at 12, G2 over Fp), phases print one JSON line each on stdout:
      busy share, peak device bytes), verify, and the tampers rejected
      (root_after + 1 and Ar doubled; a changed digest byte). ``python3
      chip_smoke.py rollup`` runs the build and this phase alone;
+  recursion: the recursion verifiers (std/recursion/groth16.py, plonk.py,
+     native_plonk.py, std/kzg_gadget.py, over the emulated pairings of
+     std/pairing_bn254.py, pairing_bls12_381.py, pairing_bw6_761.py and
+     the native BLS12-377 one) check proofs made on the card, in the Engine
+     (frontend/engine.py), in a fifth process (_recursion_lane) started
+     with the run, to which each path sends its proof as it makes it:
+     Groth16Verifier in a BN254 Engine on phase 4's BN254 Chain 2^17 proof
+     (same curve), BLS12-381 Chain 2^17 proof (cross-curve) and phase
+     2chain's BW6-761 outer proof (the wrap); PlonkVerifier in BN254 on one
+     more prove of phase plonk's BN254 and BLS12-381 Chain 2^17 keys with
+     fs_hash="mimc" (same-curve, cross-curve); NativePlonkVerifier in a
+     BW6-761 Engine on such a prove of BLS12-377's 2^10 key; KzgVerifier in
+     BN254 on an opening of 2^16 coefficients made by the card's kzg.open
+     over phase plonk's BN254 and BLS12-381 SRS; each verifier accepts and
+     refuses its tamper (the public input + 1, the claimed value + 1) with
+     EngineUnsatisfiedError, each verdict and its seconds on a line of its
+     own. And the host engine against the card: the fifth process proves a
+     BN254 Chain of 2^10 with engine="host" (Groth16 and PLONK, setup rng 1,
+     prove rng 2) while nvcc runs; the card does the same in this process;
+     the vks' and proofs' bytes must be equal. The card part of each curve
+     (the MiMC proves, the openings, the Chain of 2^10) is a path of its
+     own ("recursion"), its launches counted;
   The paths of phases 4 to deploy run in two processes at once, each
      with its own launch counts: BN254's paths, BLS12-381's PLONK and
      deploy in this one, the others (LANE_*), the committed 2-chain and
      the ceremony in a spawned one (_other_lane), which also sends its
-     curves' proofs and vks through their bytes; the service phase runs
-     when both have ended;
+     curves' proofs and vks through their bytes, and its proofs of phase
+     recursion to the fifth process; the service phase runs when both have
+     ended, and the recursion checks' result is read after it;
   5. the JSON line of all kernels (each with its launches on each of its
      curve's paths, the batched proves, bsb22, checkpoint, service,
      precompiles and rollup included, and their sum; every kernel but *_double and
@@ -1759,7 +1783,8 @@ def phase_2chain(device, inner_vk, inner_proof, inner_pub) -> tuple:
     """The BW6-761 outer proof that the BLS12-377 proof of phase 4 verifies:
     _outer_circuit compiled over BW6-761's r (= BLS12-377's p) with the
     port's std/ gadgets, then _prove_path; the tampered input is the inner
-    public value + 1. Returns (launches, the batched prove's launches)."""
+    public value + 1. Returns (launches, the batched prove's launches, the
+    outer (vk, proof, public inputs))."""
     from gnark_icicle_tpu_torch.curves import bls12_377
     from gnark_icicle_tpu_torch.frontend import compile_circuit
 
@@ -1770,9 +1795,9 @@ def phase_2chain(device, inner_vk, inner_proof, inner_pub) -> tuple:
     w = OuterG16(inner_pub=inner_pub[0], pr=_outer_words(inner_proof))
     opub, osec = w.witness_values(bls12_377.P)
     bad = [(inner_pub[0] + 1) % bls12_377.R]
-    launches, _, _, _, batched, _ = _prove_path(device, "bw6_761", "groth16", cs, opub, osec,
-                                                bad, "2chain", compile_s=t_compile)
-    return launches, batched
+    launches, vk, proof, _, batched, _ = _prove_path(device, "bw6_761", "groth16", cs, opub,
+                                                     osec, bad, "2chain", compile_s=t_compile)
+    return launches, batched, (vk, proof, opub)
 
 
 def phase_2chain_committed(device, inner_vk, inner_proof, inner_pub) -> dict:
@@ -2657,8 +2682,9 @@ def _other_lane(t_start: float, compiled: dict, compiled_scs: dict,
     ceremony's keys (`ceremony`: ceremony_keys, which this process ran
     before) on the card.
     `caches`: _solver_caches of the R1CS systems of `compiled` and then of
-    `compiled_bsb22`'s Groth16 ones, in order. Returns (paths, extra) as
-    main keeps them."""
+    `compiled_bsb22`'s Groth16 ones, in order. Its proofs of phase
+    recursion go to the recursion lane (send_recursion). Returns (paths,
+    extra) as main keeps them, and the count of checks it sent there."""
     import torch
 
     from gnark_icicle_tpu_torch.ops import cuda as kc
@@ -2678,15 +2704,21 @@ def _other_lane(t_start: float, compiled: dict, compiled_scs: dict,
         others.append((name, "groth16", vk, proof, pub))
         if name == "bls12_377":
             inner = (vk, proof, pub)
-    counts, batched = phase_2chain(device, *inner)
+        if name == "bls12_381":     # phase recursion: the cross-curve verifier
+            send_recursion(groth16_job(name, vk, proof, pub, "bls12-381 chain 2^17"))
+    counts, batched, outer = phase_2chain(device, *inner)
     paths.append(("bw6_761", "2chain", counts))
     extra.append(("bw6_761", "2chain_batched", batched))
+    send_recursion(groth16_job("bw6_761", *outer, "bw6-761 2-chain outer proof (the wrap)"))
     for name in LANE_PLONK:
-        counts, vk, proof, _, batched, _ = phase_plonk(device, name, compiled_scs[name])
+        counts, vk, proof, pk, batched, _ = phase_plonk(device, name, compiled_scs[name])
         paths.append((name, "plonk", counts))
         extra.append((name, "plonk_batched", batched))
         if name in CHAIN_CURVES:
             others.append((name, "plonk", vk, proof, [compiled_scs[name][2]]))
+        if name == "bls12_377":     # phase recursion: the native PLONK verifier
+            extra += [(name, path, c) for path, c in phase_recursion_card(
+                device, name, compiled_scs[name], pk, vk).items()]
     for name in LANE_BSB22:
         extra += [(name, path, c) for path, c in
                   phase_bsb22(device, name, compiled_bsb22[name])[0].items()]
@@ -2696,7 +2728,7 @@ def _other_lane(t_start: float, compiled: dict, compiled_scs: dict,
               phase_2chain_committed(device, *committed_inner).items()]
     service_others(others)
     extra += [("bn254", path, c) for path, c in phase_ceremony(device, ceremony).items()]
-    return paths, extra
+    return paths, extra, _REC["sent"]
 
 
 # phase precompiles: the zkEVM precompile circuits over the emulated-field
@@ -3418,17 +3450,18 @@ def rollup_host() -> dict:
     return {"rollup": (cs, pub, sec), "keccak": (scs, digest, data)}
 
 
-def _check_ran(label: str, launches: dict, ran: tuple, zero: tuple = ()) -> None:
-    """Each entry of `ran` (unprefixed, BN254) launched on the path, none of
-    `zero`, and every MSM one launch set (_check_msm_launches)."""
+def _check_ran(label: str, launches: dict, ran: tuple, zero: tuple = (),
+               name: str = "bn254") -> None:
+    """Each entry of `ran` (unprefixed, of curve `name`) launched on the path,
+    none of `zero`, and every MSM one launch set (_check_msm_launches)."""
     from gnark_icicle_tpu_torch.ops import cuda as kc
 
-    pre = kc.CURVES["bn254"]
+    pre = kc.CURVES[name]
     bad = [e for e in ran if not launches.get(pre + e)] + [
         e for e in zero if launches.get(pre + e)]
     if bad:
         raise AssertionError(f"{label}: launches of {bad} are not the path's: {launches}")
-    _check_msm_launches("bn254", launches, label)
+    _check_msm_launches(name, launches, label)
 
 
 def phase_rollup_groth16(device, cs, pub, sec) -> dict:
@@ -3486,6 +3519,252 @@ def phase_rollup_keccak(device, scs, digest, data) -> dict:
          gates=scs.nb_gates, domain_log_n=pk.log_n, **run["report"],
          rejected={"digest_byte_changed": True}, card=_smi("name,power.limit"))
     return {"keccak_plonk": run["launches"]}
+
+
+# phase recursion: the recursion verifiers of std/recursion/ and the KZG
+# gadget (std/kzg_gadget.py, over the emulated pairings of std/) check proofs
+# made on the card, in the Engine (frontend/engine.py), in a fifth process
+# (_recursion_lane) that the paths send their proofs to as they make them;
+# and the host engine (engine="host") proves a small Chain as the card does
+HOST_CHECK_LOG = 10                # the Chain of the host engine against the card
+KZG_POLY_LOG = 16                  # the polynomial that the card's kzg.open opens
+RECURSION_CHECKS = 10              # 3 Groth16, 2 PLONK, 1 native PLONK, 2 KZG, 2 host engine
+RECURSION_WAIT_S = 600             # the lane's longest wait for its next job
+# the recursion lane's job queue and the jobs this process sent there
+_REC = {"q": None, "sent": 0}
+
+
+def _recursion_queue(jobs) -> None:
+    """A process's handle on the recursion lane's job queue (the second
+    process's Pool initializer: a queue passes to a spawned process only as
+    it starts)."""
+    _REC["q"] = jobs
+
+
+def send_recursion(job) -> None:
+    """One check for the recursion lane (check_recursion); ("end", n) once
+    all processes together have sent n."""
+    _REC["q"].put(job)
+    _REC["sent"] += not isinstance(job, tuple)
+
+
+def host_check_circuits() -> dict:
+    """The BN254 Chain of 2^HOST_CHECK_LOG for each proof system (_chain's
+    tuples), as chain_circuit and plonk_circuit size theirs."""
+    return {"groth16": _chain("bn254", (1 << HOST_CHECK_LOG) - 2, "r1cs"),
+            "plonk": _chain("bn254", ((1 << HOST_CHECK_LOG) - 16) // 3, "scs")}
+
+
+def _artifacts(system: str, curve, vk, proof) -> tuple:
+    """(vk bytes, proof bytes) in gnark's formats (io/)."""
+    from gnark_icicle_tpu_torch.io import plonk_serialize, serialize
+
+    if system == "groth16":
+        return serialize.vk_to_bytes(curve, vk), serialize.proof_to_bytes(curve, proof)
+    return (plonk_serialize.plonk_vk_to_bytes(curve, vk),
+            plonk_serialize.plonk_proof_to_bytes(curve, proof))
+
+
+def engine_artifacts(**engine) -> dict:
+    """host_check_circuits' keys (setup rng 1) and proofs (prove rng 2) under
+    `engine` (engine="host", or device=...): {system: (vk bytes, proof
+    bytes, setup seconds, prove seconds)}."""
+    import importlib
+
+    curve = _curves()["bn254"]
+    out = {}
+    for system, (cs, _, v) in host_check_circuits().items():
+        backend = importlib.import_module(f"gnark_icicle_tpu_torch.backend.{system}")
+        t0 = time.perf_counter()
+        pk, vk = backend.setup(cs, curve, rng=random.Random(1), **engine)
+        t_setup = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        proof = backend.prove(cs, pk, [v], [3], curve, rng=random.Random(2), **engine)
+        out[system] = (*_artifacts(system, curve, vk, proof), t_setup,
+                       time.perf_counter() - t0)
+    return out
+
+
+def _verifier_run(job: dict, tampered: bool):
+    """The job's verifier, made anew in a BN254 Engine (a BW6-761 one for the
+    native PLONK verifier), run on its proof: the job's inputs, or its tamper
+    (the public input + 1; for KZG the claimed value + 1)."""
+    from gnark_icicle_tpu_torch.curves import bls12_377, bn254
+    from gnark_icicle_tpu_torch.frontend.engine import Engine
+    from gnark_icicle_tpu_torch.std.kzg_gadget import KzgVerifier
+    from gnark_icicle_tpu_torch.std.recursion import Groth16Verifier, PlonkVerifier
+    from gnark_icicle_tpu_torch.std.recursion.native_plonk import NativePlonkVerifier
+    from gnark_icicle_tpu_torch.std.sw_emulated import AffinePoint
+
+    q, kind = bn254.R, job["kind"]
+    if kind == "kzg":
+        (cm, z, v, w), (g2_gen, g2_tau) = job["opening"], job["g2"]
+        kv = KzgVerifier(Engine(q), q, g2_gen, g2_tau, curve_id=job["curve_id"])
+        fp, fr = kv.curve.fp, kv.curve.fr
+
+        def pt(p):
+            return AffinePoint(fp.constant(p[0]), fp.constant(p[1]))
+
+        v = (v + int(tampered)) % job["r"]
+        return kv.assert_opening(pt(cm), fr.constant(z), fr.constant(v), pt(w))
+    if kind == "native_plonk":
+        ver = NativePlonkVerifier(Engine(bls12_377.P), job["vk"])
+    else:
+        cls = Groth16Verifier if kind == "groth16" else PlonkVerifier
+        ver = cls(Engine(q), q, job["vk"], curve_id=job["curve_id"])
+    pub = [(p + int(tampered)) % job["r"] for p in job["pub"]]
+    return ver.assert_proof(ver.proof_witness(job["proof"]), pub)
+
+
+def check_recursion(job: dict, host: dict) -> dict:
+    """One check of the recursion lane: a verifier accepts its proof and
+    refuses its tamper with EngineUnsatisfiedError (_verifier_run), or the
+    host engine's keys and proof are the card's bytes. Raises otherwise;
+    prints its line and returns it."""
+    from gnark_icicle_tpu_torch.frontend.engine import EngineUnsatisfiedError
+
+    if job["kind"] == "host":
+        vk_h, proof_h, setup_h, prove_h = host[job["system"]]
+        vk_c, proof_c, setup_c, prove_c = job["card"]
+        line = {"check": f"{job['system']} host engine against the card", "curve": "bn254",
+                "domain_log_n": HOST_CHECK_LOG, "vk_equal": vk_h == vk_c,
+                "proof_equal": proof_h == proof_c, "proof_bytes": len(proof_c),
+                "host_setup_s": setup_h, "host_prove_s": prove_h, "card_setup_s": setup_c,
+                "card_prove_s": prove_c}
+        if not (line["vk_equal"] and line["proof_equal"]):
+            raise AssertionError(f"the host engine's bytes differ from the card's: {line}")
+        _say("recursion", **line)
+        return line
+    t0 = time.perf_counter()
+    _verifier_run(job, tampered=False)
+    t_accept = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    try:
+        _verifier_run(job, tampered=True)
+    except EngineUnsatisfiedError:
+        pass
+    else:
+        raise AssertionError(f"{job['label']}: the verifier accepted its tamper")
+    line = {"check": job["label"], "verifier": job["kind"], "inner": job["inner"],
+            "accepted": True, "accept_s": t_accept,
+            "tamper": "claimed value + 1" if job["kind"] == "kzg" else "public input + 1",
+            "rejected": True, "reject_s": time.perf_counter() - t0}
+    _say("recursion", **line)
+    return line
+
+
+def _recursion_lane(t_start: float, jobs, out) -> None:
+    """Phase recursion's checks in a process of their own (spawned, niced as
+    the compile workers are): first the host engine's part of the check
+    against the card (engine_artifacts), while nvcc runs; then each job that
+    a path sends (send_recursion) as it comes, until it has checked as many
+    as ("end", n) says were sent. Puts ("ok", [the checks' lines]) or
+    ("error", traceback) on `out`."""
+    try:
+        _START["t"] = t_start
+        os.nice(10)
+        host = engine_artifacts(engine="host")
+        lines, total = [], None
+        while total is None or len(lines) < total:
+            job = jobs.get(timeout=RECURSION_WAIT_S)
+            if isinstance(job, tuple):
+                total = job[1]
+            else:
+                lines.append(check_recursion(job, host))
+        out.put(("ok", lines))
+    except BaseException:   # noqa: BLE001 (raised again by main)
+        out.put(("error", traceback.format_exc()))
+
+
+def start_recursion(t_start: float) -> tuple:
+    """_recursion_lane started in a spawned process: (its process, its
+    result's queue); this process's handle on its job queue set."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    jobs, out = ctx.Queue(), ctx.Queue()
+    _recursion_queue(jobs)
+    proc = ctx.Process(target=_recursion_lane, args=(t_start, jobs, out))
+    proc.start()
+    return proc, out
+
+
+def groth16_job(name: str, vk, proof, pub: list, inner: str) -> dict:
+    """The Groth16 verifier's check of a card's proof on `name`'s curve."""
+    curve = _curves()[name]
+    return {"kind": "groth16", "label": f"groth16 {inner} in bn254", "inner": inner,
+            "curve_id": "bn254" if name == "bn254" else curve.name, "vk": vk, "proof": proof,
+            "pub": pub, "r": curve.fr.modulus}
+
+
+def recursion_plonk(device, name: str, compiled: tuple, pk, vk) -> dict:
+    """One more prove of a curve's PLONK path on the card, with the MiMC
+    transcript (fs_hash="mimc", which the in-circuit verifiers replay),
+    under its key, and the verifier's check of it: PlonkVerifier in BN254
+    (same-curve on BN254, cross-curve on BLS12-381), NativePlonkVerifier in
+    BW6-761 for BLS12-377. Returns the job."""
+    from gnark_icicle_tpu_torch.backend import plonk
+
+    cs, _, v = compiled
+    curve = _curves()[name]
+    t0 = time.perf_counter()
+    proof = plonk.prove(cs, pk, [v], [3], curve, rng=random.Random(4), device=device,
+                        fs_hash="mimc")
+    t_prove = time.perf_counter() - t0
+    kind = "native_plonk" if name == "bls12_377" else "plonk"
+    where = "bw6-761" if kind == "native_plonk" else "bn254"
+    _say("recursion", curve=curve.name, prove="plonk, fs_hash=mimc", gates=cs.nb_gates,
+         domain_log_n=pk.log_n, prove_s=t_prove)
+    return {"kind": kind, "label": f"{kind} {curve.name} 2^{pk.log_n} in {where}",
+            "inner": f"{curve.name} plonk chain 2^{pk.log_n}, fs_hash=mimc",
+            "curve_id": curve.name, "vk": vk, "proof": proof, "pub": [v],
+            "r": curve.fr.modulus}
+
+
+def recursion_kzg(device, name: str, srs) -> dict:
+    """A polynomial of 2^KZG_POLY_LOG seeded coefficients committed and
+    opened at a seeded point by the card's KZG (backend/kzg.py: both
+    commitments MSMs on the card) over a path's SRS, and the KZG gadget's
+    check of the opening in BN254. Returns the job."""
+    from gnark_icicle_tpu_torch.backend.kzg import KZG
+
+    curve = _curves()[name]
+    r = curve.fr.modulus
+    rng = random.Random(5)
+    coeffs = [rng.randrange(r) for _ in range(1 << KZG_POLY_LOG)]
+    z = rng.randrange(r)
+    kzg = KZG(curve, srs, device)
+    t0 = time.perf_counter()
+    cm = kzg.commit(coeffs)
+    v, w = kzg.open(coeffs, z)
+    _say("recursion", curve=curve.name, kzg_open=f"2^{KZG_POLY_LOG} coefficients",
+         commit_open_s=time.perf_counter() - t0)
+    return {"kind": "kzg", "label": f"kzg {curve.name} opening in bn254",
+            "inner": f"{curve.name} kzg.open of 2^{KZG_POLY_LOG} coefficients",
+            "curve_id": curve.name, "opening": (cm, z, v, w), "g2": (srs.g2_gen, srs.g2_tau),
+            "r": r}
+
+
+def phase_recursion_card(device, name: str, compiled: tuple, pk, vk) -> dict:
+    """Phase recursion's card part on one curve, with the launch counts set
+    to 0 just before it and read just after: the MiMC-transcript PLONK prove
+    (recursion_plonk), on BN254 and BLS12-381 the KZG opening
+    (recursion_kzg), and on BN254 the host engine's Chain proved on the card
+    (engine_artifacts). Each check goes to the recursion lane. Returns
+    {path: launches}."""
+    _zero_counts()
+    send_recursion(recursion_plonk(device, name, compiled, pk, vk))
+    if name != "bls12_377":
+        send_recursion(recursion_kzg(device, name, pk.srs))
+    if name == "bn254":
+        for system, card in engine_artifacts(device=device).items():
+            send_recursion({"kind": "host", "system": system, "card": card})
+    launches = _counts(name)
+    ran = ["g1_bucket_accumulate", "ntt_pass", "plonk_quotient", "fr_add"]
+    if name == "bn254":    # the Chain's Groth16 setup and prove
+        ran += ["g1_fixed_base", "g1_normalize", "g2_fixed_base", "g2_bucket_accumulate"]
+    _check_ran(f"{name} recursion", launches, tuple(ran), name=name)
+    return {"recursion": launches}
 
 
 # the phases that run in a process of their own: phase -> (its host part,
@@ -3577,6 +3856,9 @@ def main() -> int:
     # host parts now, their card parts once phases 2 and 3 are done
     alone = sys.argv[1:]
     card_free = multiprocessing.get_context("spawn").Event()
+    # phase recursion's checks in a fifth process, started now: the host
+    # engine's proofs while nvcc runs, then the card's proofs as they come
+    recursion = start_recursion(t_start) if not alone else None
     lanes = {phase: start_lane(phase, t_start, card_free)
              for phase in LANES if alone in ([], [phase])}
     if alone:               # that phase alone, after the build
@@ -3593,7 +3875,8 @@ def main() -> int:
     build, circuits = {}, {}
     # the second process: the ceremony's host part (ceremony_keys) once nvcc
     # is done, while this one runs phases 2 and 3; then the lane's paths
-    pool = multiprocessing.get_context("spawn").Pool(1)
+    pool = multiprocessing.get_context("spawn").Pool(1, initializer=_recursion_queue,
+                                                     initargs=(_REC["q"],))
     jobs = ([("groth16", name) for name in CHAIN_CURVES] + [("plonk", name) for name in CURVE_NAMES]
             + [(f"bsb22_{system}", name) for name in BSB22_CURVES
                for system in ("groth16", "plonk")])
@@ -3619,14 +3902,20 @@ def main() -> int:
     builder.start()
     compiler.start()
     # phases 2 and 3 of a curve start as soon as its libraries are in place,
-    # while nvcc builds the others' (all start at once; BN254's are done
-    # first, in about half the build)
+    # while nvcc builds the others': the curves in the order their builds end
+    # (all start at once; BW6-761's three sources and BN254's are done first,
+    # in under half the build, BLS12-377's 12-word G2 last)
     rates, kernels = None, []
-    for name in CURVE_NAMES:
-        while builder.is_alive() and not kc.built(name):
+    pending = list(CURVE_NAMES)
+    while pending:
+        ready = [name for name in pending if kc.built(name)]
+        if not ready and builder.is_alive():
             time.sleep(0.5)
+            continue
         if "error" in build:
             raise build["error"]
+        name = (ready or pending)[0]
+        pending.remove(name)
         load_curve(name)
         if rates is None:
             rates = card_rates()
@@ -3668,6 +3957,7 @@ def main() -> int:
             extra.append((name, "groth16_batched", batched))
             if name == "bn254":
                 ck_runs["groth16"] = (compiled[name][0], pk, vk, pub, [3], proof)
+                send_recursion(groth16_job(name, vk, proof, pub, "bn254 chain 2^17"))
             if name == SERVE_CURVE:
                 srv_runs["groth16"] = (pk, vk, proof, pub, timed)
             else:
@@ -3679,6 +3969,8 @@ def main() -> int:
             paths.append((name, "plonk", counts))
             extra.append((name, "plonk_batched", batched))
             pub = [compiled_scs[name][2]]
+            extra += [(name, path, c) for path, c in phase_recursion_card(
+                device, name, compiled_scs[name], pk, vk).items()]
             if name == "bn254":
                 ck_runs["plonk"] = (compiled_scs[name][0], pk, vk, pub, [3], proof)
             if name == SERVE_CURVE:
@@ -3695,15 +3987,21 @@ def main() -> int:
         extra += [("bn254", path, c) for path, c in phase_deploy(
             device, srv_runs["groth16"][1:4], srv_runs["plonk"][1:4],
             bsb22_runs["bn254"]).items()]
-        lane_paths, lane_extra = lane.get()
+        lane_paths, lane_extra, lane_sent = lane.get()
         _say("lane", curves=sorted({c for c, _, _ in lane_paths + lane_extra}),
              paths=[p for _, p, _ in lane_paths + lane_extra])
+        send_recursion(("end", _REC["sent"] + lane_sent))
     paths += lane_paths
     extra += lane_extra
     extra += [(SERVE_CURVE, path, c) for path, c in
               phase_service(device, served, srv_runs, srv_others).items()]
     for phase, lane in lanes.items():
         extra += lane_result(phase, lane)
+    checks = lane_result("recursion", recursion)
+    if len(checks) != RECURSION_CHECKS:
+        raise AssertionError(f"phase recursion made {len(checks)} checks, "
+                             f"not {RECURSION_CHECKS}")
+    _say("recursion", checks=len(checks), all_passed=True)
     for k in kernels:
         k["launches_by_path"] = {path: counts[k["name"]] for curve, path, counts in paths + extra
                                  if curve == k["curve"]}

@@ -18,8 +18,11 @@ reference's, but for each commitment's Pedersen commitment and proof of
 knowledge, which the reference computes as host MSMs: here they are one
 ``msm_batch`` of two problems on the device, inside the override
 (``_pedersen_msms``). Each phase's wall time is logged (the port's ``logger``) after
-the device has finished it. Not ported yet: a device mesh and the host
-engine; asking for one raises NotImplementedError.
+the device has finished it. ``engine="host"`` is the reference's host engine
+(:342-369, ``host_compute.py``): computeH and the MSMs, and the BSB22
+commitments' Pedersen products, in host big-int arithmetic, with no device;
+under one rng its proof is the device engine's. Not ported yet: a device
+mesh; asking for one raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from ...constraint.solver import solve, solved_u32
 from ...device import DeviceCtx
 from ...io.serialize import g1_to_bytes
 from ...logger import logger
+from ...ops.field import words_for
 from ...ops.field_t import TField
 from ...ops.msm import pick_window
 from .. import pedersen
@@ -45,6 +49,7 @@ from ..hash_to_field import (
     COMMITMENT_DST, G16_FOLD_DST, evm_commitment_hash, hash_to_fr, mimc_commitment_hash,
     serialize_commitment,
 )
+from .host_compute import compute_h_host, msm_host, z_scalars_bitreversed
 from .keys import Proof, ProvingKey
 
 
@@ -178,13 +183,23 @@ def _pedersen_msms(ctx: DeviceCtx, pk: ProvingKey, i: int, values: list) -> tupl
     return cm, pok
 
 
+def _host_pedersen(curve, pk: ProvingKey, i: int, values: list) -> tuple:
+    """_pedersen_msms's two products on the host (the host engine's, as the
+    reference makes them, prove.py:229-231 and :318-321)."""
+    if not values:
+        return None, None
+    key = pk.commitment_keys[i]
+    return pedersen.commit(curve, key, values), pedersen.prove_knowledge(curve, key, values)
+
+
 def _bsb22_override(ctx, cs, pk, curve, commitment_hash, commitment_pts, committed_values,
                     poks):
     """The BSB22 placeholder hint's replacement (prove.py:199-246, ≙
     solver.OverrideHint in prove.go:82-108): the Pedersen commitment of the
     committed private values and its proof of knowledge, made where the
-    values are first known (``_pedersen_msms``), kept in commitment_pts and
-    poks, and the commitment wire's value the commitment's hash under
+    values are first known (``_pedersen_msms``; ``_host_pedersen`` where ctx
+    is None, the host engine), kept in commitment_pts and poks, and the
+    commitment wire's value the commitment's hash under
     ``commitment_hash``."""
     q = curve.fr.modulus
     fr_bytes = (q.bit_length() + 7) // 8
@@ -195,7 +210,8 @@ def _bsb22_override(ctx, cs, pk, curve, commitment_hash, commitment_pts, committ
         rest = inputs[1:]
         hashed = rest[:len(cinfo.public_and_commitment_committed)]
         committed_values[i] = [v % qmod for v in rest[len(hashed):]]
-        cm, poks[i] = _pedersen_msms(ctx, pk, i, committed_values[i])
+        cm, poks[i] = (_pedersen_msms(ctx, pk, i, committed_values[i]) if ctx is not None
+                       else _host_pedersen(curve, pk, i, committed_values[i]))
         commitment_pts[i] = cm
         if isinstance(commitment_hash, tuple) and commitment_hash[0] == "mimc":
             # recursion-friendly proof: the outer circuit replays this hash
@@ -240,17 +256,18 @@ def prove(cs, pk: ProvingKey, public_values, secret_values, curve,
     batch_msm: run the G1 MSMs of one padded size as one ``msm_batch``
     (A, B1 and K on the Chain; the JAX package's ``GNARK_TPU_BATCH_MSM=1``);
     the proof is the same.
+    engine: "device" (the kernels on ``device``) or "host" (host big-int
+    computeH and MSMs, ≙ the reference's non-accelerated prover: no device,
+    right for small systems; ``device`` and ``batch_msm`` are not read).
     """
     if mesh is not None:
         raise NotImplementedError("a device mesh is not ported yet")
-    if engine != "device":
-        raise NotImplementedError(
-            "only engine='device' is ported; the host engine is "
-            "gnark_icicle_tpu's")
+    if engine not in ("device", "host"):
+        raise ValueError(f"engine must be 'device' or 'host', not {engine!r}")
     log = logger()
     t_start = time.perf_counter()
     q = curve.fr.modulus
-    ctx = DeviceCtx(curve, device)
+    ctx = DeviceCtx(curve, device) if engine == "device" else None
     rand = rng.randrange if rng is not None else (
         lambda m: secrets.randbelow(m - 1) + 1
     )
@@ -273,7 +290,8 @@ def prove(cs, pk: ProvingKey, public_values, secret_values, curve,
 
     # the solve's commitment override reads the Pedersen tables: the key is
     # staged before it
-    dev = stage() if cs.commitments and not (ck is not None and ck.has("msms")) else None
+    dev = (stage() if ctx is not None and cs.commitments and not (ck is not None and ck.has("msms"))
+           else None)
     t_solve = time.perf_counter()
     res = None
     if ck is not None:
@@ -295,18 +313,17 @@ def prove(cs, pk: ProvingKey, public_values, secret_values, curve,
         fr_bytes = (q.bit_length() + 7) // 8
         for i, values in enumerate(committed_values):
             if values and poks[i] is None:
-                poks[i] = _pedersen_msms(ctx, pk, i, values)[1]
-        # the commitment wires only (res.wires would make every wire an int)
-        words = solved_u32(res, "wires", ctx.fr.n32)
-        msg = b"".join(int.from_bytes(words[c.commitment_index].astype("<u4").tobytes(),
-                                      "little").to_bytes(fr_bytes, "big")
-                       for c in cs.commitments)
+                poks[i] = (_pedersen_msms(ctx, pk, i, values)[1] if ctx is not None
+                           else _host_pedersen(curve, pk, i, values)[1])
+        msg = b"".join(v.to_bytes(fr_bytes, "big") for v in _commitment_wires(cs, res, q))
         challenge = hash_to_fr(msg, G16_FOLD_DST, q)[0]
         commitment_pok = pedersen.fold_proofs(curve, poks, challenge)
         log.info("groth16 prove: commitments took=%.3fs", time.perf_counter() - t_solved)
     t_com = time.perf_counter()
 
     log_n = pk.domain_log_n
+    if ctx is None:
+        return _prove_host(cs, pk, curve, res, rand, commitment_pts, commitment_pok, t_start)
     W = ctx.fr.n32
     msms = ck.load("msms") if ck is not None else None
     h = None
@@ -345,6 +362,41 @@ def prove(cs, pk: ProvingKey, public_values, secret_values, curve,
         cs, pk, curve, q, rand, ar_msm, bs1_msm, bs2_msm, krs_msm,
         commitment_pts, commitment_pok, logger, t_start, str(ctx.device),
     )
+
+
+def _commitment_wires(cs, res, q: int) -> list:
+    """The commitment wires' values as ints, read from the solver's words
+    (res.wires would make every wire an int)."""
+    words = solved_u32(res, "wires", words_for(q))
+    return [int.from_bytes(words[c.commitment_index].astype("<u4").tobytes(), "little")
+            for c in cs.commitments]
+
+
+def _prove_host(cs, pk: ProvingKey, curve, res, rand, commitment_pts, commitment_pok,
+                t_start: float) -> Proof:
+    """The host engine's computeH and MSMs, then the assembly. Copied from
+    gnark_icicle_tpu/backend/groth16/prove.py:342-369."""
+    log_n = pk.domain_log_n
+    h = compute_h_host(res.a, res.b, res.c, log_n, curve.fr)
+    wires_i = res.wires
+    if cs.commitments:
+        excluded = {c.commitment_index for c in cs.commitments}
+        for c in cs.commitments:
+            excluded.update(c.private_committed)
+        priv_i = [wires_i[w] for w in range(cs.nb_public, len(wires_i))
+                  if w not in excluded]
+    else:
+        priv_i = wires_i[cs.nb_public:]
+    g1h, g2h = curve.g1, curve.g2
+    ar_msm = msm_host(g1h, pk.g1_a, wires_i)
+    bs1_msm = msm_host(g1h, pk.g1_b, wires_i)
+    bs2_msm = msm_host(g2h, pk.g2_b, wires_i)
+    krs_msm = []
+    if priv_i:
+        krs_msm.append(msm_host(g1h, pk.g1_k, priv_i))
+    krs_msm.append(msm_host(g1h, pk.g1_z, z_scalars_bitreversed(h, log_n, len(pk.g1_z))))
+    return _assemble_proof(cs, pk, curve, curve.fr.modulus, rand, ar_msm, bs1_msm, bs2_msm,
+                           krs_msm, commitment_pts, commitment_pok, logger, t_start, "host")
 
 
 def _k_index(cs, dev: dict, nb_wires: int, device) -> torch.Tensor:

@@ -10,6 +10,9 @@ key (A, B, K, Z and the BSB22 Pedersen bases, :99-113 and :173-226) share
 one ladder run. ``curve`` is one of the port's curves (BN254,
 BLS12-381, BLS12-377, BW6-761); the scalar bits, the ladders and the key's
 points follow it, and BW6-761's G2 points keep their Fp coordinates.
+``engine="host"`` runs every scalar multiplication on the host (the
+reference's :154-168) and touches no device; it is the one engine of
+BLS24-315, whose G2 over Fp4 no kernel covers.
 """
 
 from __future__ import annotations
@@ -82,19 +85,19 @@ def setup(cs, curve, rng=None, engine: str = "auto", device=None):
 
     Batches of 256 or more scalars run on the fixed-base ladder of
     ``device`` (default: the first CUDA card; raises without one), smaller
-    ones as host scalar multiplications, as in the reference. ``engine`` keeps the
-    reference's signature; its "host" engine is gnark_icicle_tpu's."""
-    if engine == "host":
-        raise NotImplementedError(
-            "only the device engine is ported; the host engine is "
-            "gnark_icicle_tpu's")
+    ones as host scalar multiplications, as in the reference. ``engine``:
+    "auto" or "device" as just said; "host" makes every batch host scalar
+    multiplications and builds no device context (``device`` is not read).
+    The keys are the same under one rng."""
+    if engine not in ("auto", "device", "host"):
+        raise ValueError(f"engine must be 'auto', 'device' or 'host', not {engine!r}")
     q = curve.fr.modulus
     assert q == cs.q, "constraint system field != curve scalar field"
     rand = rng.randrange if rng is not None else (
         lambda n: secrets.randbelow(n - 1) + 1
     )
-    ctx = DeviceCtx(curve, device)  # resolves the device before any work
-    dev = ctx.device
+    # resolves the device before any work
+    ctx = DeviceCtx(curve, device) if engine != "host" else None
     t0 = time.perf_counter()
 
     log_n = _next_pow2_log(max(cs.nb_constraints, 2))
@@ -149,14 +152,16 @@ def setup(cs, curve, rng=None, engine: str = "auto", device=None):
 
     split: dict = {}   # the device batches' parts (batch_scalar_mul_host)
 
-    def batch(tc, grp, base, scalars):
-        if len(scalars) < 256:
-            return [grp.scalar_mul(base, s) for s in scalars]
-        return batch_scalar_mul_host(tc, grp, base, scalars, bits, dev, times=split)
+    def batch(group: str, scalars):
+        grp = getattr(curve, group)
+        if ctx is None or len(scalars) < 256:
+            return [grp.scalar_mul(grp.generator, s) for s in scalars]
+        return batch_scalar_mul_host(getattr(ctx, group), grp, grp.generator, scalars, bits,
+                                     ctx.device, times=split)
 
     # one G1 batch: A, B, K, Z and the Pedersen bases (plain and σ-scaled)
     parts = [A, B, pk_k_scalars, z_scalars] + ck_k_scalars + ck_sigma_scalars
-    g1_all = batch(ctx.g1, g1, G1, [s for part in parts for s in part])
+    g1_all = batch("g1", [s for part in parts for s in part])
     cut = [0]
     for part in parts:
         cut.append(cut[-1] + len(part))
@@ -177,7 +182,7 @@ def setup(cs, curve, rng=None, engine: str = "auto", device=None):
         [w if w < nb_pub else nb_pub + cw_pos[w] for w in c.public_and_commitment_committed]
         for c in cs.commitments
     ]
-    g2_b = batch(ctx.g2, g2, G2, B)
+    g2_b = batch("g2", B)
     t_keys = time.perf_counter()
 
     pk = ProvingKey(
@@ -188,7 +193,7 @@ def setup(cs, curve, rng=None, engine: str = "auto", device=None):
         g2_delta=g2.scalar_mul(G2, delta),
         g1_a=g1_a,
         g1_b=g1_b,
-        g2_b=[_fp2_point(curve, p) for p in g2_b],
+        g2_b=[_fp2_point(curve, p) for p in g2_b] if ctx is not None else g2_b,
         g1_k=g1_k,
         g1_z=_bit_reverse_list(g1_z, n),
         domain_log_n=log_n,
@@ -199,7 +204,7 @@ def setup(cs, curve, rng=None, engine: str = "auto", device=None):
         g2_beta=pk.g2_beta,
         g2_gamma=g2.scalar_mul(G2, gamma),
         g2_delta=pk.g2_delta,
-        g1_k=batch(ctx.g1, g1, G1, vk_k_scalars),
+        g1_k=batch("g1", vk_k_scalars),
         nb_public=nb_pub,
         commitment_keys=ck_vks,
         public_and_commitment_committed=pub_and_com_committed,

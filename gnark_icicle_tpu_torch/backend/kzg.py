@@ -67,15 +67,16 @@ class SRS:
 
 
 def unsafe_srs(curve, size: int, tau: int | None = None, rng=None,
-               device=None) -> SRS:
+               device=None, engine: str = "auto") -> SRS:
     """Insecure SRS for tests/benchmarks (≙ test/unsafekzg, kzgsrs.go:64).
 
     τ is drawn from rng first, as in the reference, so one rng gives one
     SRS. 256 powers or more run on the fixed-base ladder of ``device``
     (None: the first CUDA card, raising without one), fewer as host scalar
-    multiplications."""
+    multiplications; with ``engine="host"`` (the reference's keyword, :39,
+    :54) all of them on the host, and no device is read."""
     q = curve.fr.modulus
-    ctx = DeviceCtx(curve, resolve_device(device))
+    ctx = DeviceCtx(curve, resolve_device(device)) if engine != "host" else None
     if tau is None:
         tau = (rng.randrange if rng else (lambda m: secrets.randbelow(m - 1) + 1))(q)
     g1 = curve.g1
@@ -84,7 +85,7 @@ def unsafe_srs(curve, size: int, tau: int | None = None, rng=None,
     for _ in range(size):
         scalars.append(acc)
         acc = acc * tau % q
-    if size >= 256:  # device fixed-base batch
+    if ctx is not None and size >= 256:  # device fixed-base batch
         powers = batch_scalar_mul_host(ctx.g1, g1, g1.generator, scalars,
                                        q.bit_length(), ctx.device)
     else:

@@ -24,7 +24,10 @@ checkpoints (stages solve, round1, round2, quotient) and the batched commits
 (:441-446, :578-581, the keyword ``batch_msm``; the JAX package reads
 ``GNARK_TPU_BATCH_MSM``) are the reference's. Each stage's wall time is
 logged (``plonk prove: <stage> took=``) after the device has finished it.
-Not ported yet, and raising NotImplementedError: ``engine="host"``.
+``engine="host"`` is the reference's host engine (:300-312, :550-561,
+:672-689 over ``host_engine.py``): the transforms, the quotient, the linear
+combinations and the commitments in host big-int arithmetic, with no device;
+under one rng its proof is the device engine's.
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ from ..groth16.prove import _Checkpoint
 from ..hash_to_field import hash_to_fr, mimc_commitment_hash
 from ..kzg import KZG
 from ..transcript import kzg_fold_challenge, make_transcript
+from .host_engine import HostKZG, coset_ntt_host, intt_host, quotient_host
 from .keys import Proof, ProvingKey
 
 CHALLENGES = (b"gamma", b"beta", b"alpha", b"zeta")
@@ -157,6 +161,34 @@ def _linear_combo_dev(ctx: DeviceCtx, terms, length: int, q: int):
     return acc
 
 
+def _linear_combo_host(terms, q: int) -> list:
+    """Σ sᵢ·Pᵢ over host coefficient lists (the host engine's linearization
+    and batch fold, prove.py:659-661 and :681-685)."""
+    acc = []
+    for coeffs, s in terms:
+        acc = _add_poly(acc, [c * s % q for c in coeffs] if s != 1 else list(coeffs), q)
+    return acc
+
+
+def _quotient_host(coset4, kzg, pk, n_commit: int, pi2_coeffs: list, shard: int, n: int,
+                   beta, gamma, alpha, k1, k2, fr, **columns) -> tuple:
+    """The host engine's round 3 (prove.py:534-561): every column's evals on
+    the 4n coset (``coset4``; `columns` the proof's own: a, b, c, z, zw and
+    qk), ``quotient_host``, T cut into three shards of n + 2 and each
+    committed. Returns (t1, t2, t3, their commitments)."""
+    ev = {name: coset4(coeffs) for name, coeffs in columns.items()}
+    for name in ("ql", "qr", "qm", "qo", "s1", "s2", "s3"):
+        ev[name] = coset4(pk.trace_coeffs[name])
+    for i in range(n_commit):
+        ev[f"qcp{i}"] = coset4(pk.trace_coeffs[f"qcp{i}"])
+        ev[f"pi2_{i}"] = coset4(pi2_coeffs[i])
+    t_coeffs = quotient_host(ev, n, beta, gamma, alpha, k1, k2, fr)
+    t1, t2, t3 = (t_coeffs[k * shard:(k + 1) * shard] for k in range(3))
+    for c in t_coeffs[3 * shard:]:
+        assert c == 0, "quotient degree overflow"
+    return t1, t2, t3, (kzg.commit(t1), kzg.commit(t2), kzg.commit(t3))
+
+
 def _binding(cs, pk, q, fs_hash, commitment_hash, public_values, secret_values) -> bytes:
     """The checkpoint's task binding, the reference's bytes (prove.py:286-299;
     a value wider than 32 bytes, BW6-761's r, takes its Fr width)."""
@@ -186,13 +218,15 @@ def prove(cs, pk: ProvingKey, public_values, secret_values, curve, rng=None,
     "BSB22-Plonk") or ("mimc", outer_modulus).
     batch_msm: commit round 1's a, b, c and round 3's three quotient shards
     each as one ``msm_batch`` (the JAX package's ``GNARK_TPU_BATCH_MSM=1``);
-    the proof is the same."""
-    if engine != "device":
-        raise NotImplementedError(
-            "only engine='device' is ported; the host engine is "
-            "gnark_icicle_tpu's")
+    the proof is the same.
+    engine: "device" (the kernels on ``device``) or "host" (host big-int
+    arithmetic, ≙ the reference's non-accelerated prover: no device;
+    ``device`` and ``batch_msm`` are not read)."""
+    if engine not in ("device", "host"):
+        raise ValueError(f"engine must be 'device' or 'host', not {engine!r}")
     q = curve.fr.modulus
-    ctx = DeviceCtx(curve, device)  # resolves the device before any work
+    # resolves the device before any work
+    ctx = DeviceCtx(curve, device) if engine == "device" else None
     rand = rng.randrange if rng is not None else (
         lambda m: secrets.randbelow(m - 1) + 1
     )
@@ -206,29 +240,41 @@ def prove(cs, pk: ProvingKey, public_values, secret_values, curve, rng=None,
     n = 1 << log_n
     omega = curve.fr.root_of_unity(log_n)
     k1, k2 = pk.k1, pk.k2
-    F = ctx.fr
-    tf = TField(F)
-    dom = ctx.domain(log_n)
-    dom4 = ctx.domain(log_n + 2, coset=True)
-    kzg = KZG(curve, pk.srs, ctx.device)
+    g = curve.fr.multiplicative_generator
+    if ctx is None:
+        kzg = HostKZG(curve, pk.srs)
 
-    def decode(x):
-        return F.decode_plain(tf.from_mont(x))
+        def evals_to_coeffs(evals):
+            return intt_host(evals, log_n, curve.fr)
 
-    def evals_to_coeffs(evals):
-        """Lagrange evals (host ints) -> coefficient host ints; both
-        Montgomery conversions on the device."""
-        return decode(dom.intt(ctx.fr_mont(evals)))
+        def coset4_evals(coeffs):
+            """host coeffs -> host evals on the 4n coset."""
+            return coset_ntt_host(coeffs, log_n + 2, curve.fr, g)
+    else:
+        F = ctx.fr
+        tf = TField(F)
+        dom = ctx.domain(log_n)
+        dom4 = ctx.domain(log_n + 2, coset=True)
+        kzg = KZG(curve, pk.srs, ctx.device)
 
-    def coset4_evals_dev(coeffs):
-        """host coeffs -> device Montgomery evals on the 4n coset."""
-        assert len(coeffs) <= 4 * n, "degree exceeds 4n"
-        return dom4.coset_ntt_nat(_pad(ctx.fr_mont(coeffs), 4 * n))
+        def decode(x):
+            return F.decode_plain(tf.from_mont(x))
+
+        def evals_to_coeffs(evals):
+            """Lagrange evals (host ints) -> coefficient host ints; both
+            Montgomery conversions on the device."""
+            return decode(dom.intt(ctx.fr_mont(evals)))
+
+        def coset4_evals(coeffs):
+            """host coeffs -> device Montgomery evals on the 4n coset."""
+            assert len(coeffs) <= 4 * n, "degree exceeds 4n"
+            return dom4.coset_ntt_nat(_pad(ctx.fr_mont(coeffs), 4 * n))
 
     _t = {"last": time.perf_counter()}
 
     def _mark(stage):
-        ctx.sync()
+        if ctx is not None:
+            ctx.sync()
         now = time.perf_counter()
         logger().info("plonk prove: %s took=%.3fs", stage, now - _t["last"])
         _t["last"] = now
@@ -296,7 +342,7 @@ def prove(cs, pk: ProvingKey, public_values, secret_values, curve, rng=None,
         a_coeffs = blind(evals_to_coeffs(av), 1)
         b_coeffs = blind(evals_to_coeffs(bv), 1)
         c_coeffs = blind(evals_to_coeffs(cv), 1)
-        if batch_msm:
+        if batch_msm and ctx is not None:
             a_com, b_com, c_com = kzg.commit_batch([a_coeffs, b_coeffs, c_coeffs])
         else:
             a_com = kzg.commit(a_coeffs)
@@ -382,25 +428,31 @@ def prove(cs, pk: ProvingKey, public_values, secret_values, curve, rng=None,
     quo = ck.load("quotient") if ck is not None else None
     if quo is not None:
         t1, t2, t3, h_coms = quo
+    elif ctx is None:
+        t1, t2, t3, h_coms = _quotient_host(
+            coset4_evals, kzg, pk, len(commitment_info), pi2_coeffs, shard, n, beta,
+            gamma, alpha, k1, k2, curve.fr,
+            a=a_coeffs, b=b_coeffs, c=c_coeffs, z=z_coeffs, zw=zw_coeffs, qk=qk_full_coeffs)
+        if ck is not None:
+            ck.save("quotient", (t1, t2, t3, h_coms))
     else:
         ev = {
-            "a": coset4_evals_dev(a_coeffs),
-            "b": coset4_evals_dev(b_coeffs),
-            "c": coset4_evals_dev(c_coeffs),
-            "z": coset4_evals_dev(z_coeffs),
-            "zw": coset4_evals_dev(zw_coeffs),
-            "qk": coset4_evals_dev(qk_full_coeffs),
+            "a": coset4_evals(a_coeffs),
+            "b": coset4_evals(b_coeffs),
+            "c": coset4_evals(c_coeffs),
+            "z": coset4_evals(z_coeffs),
+            "zw": coset4_evals(zw_coeffs),
+            "qk": coset4_evals(qk_full_coeffs),
         }
         # BSB22: the gate's Σ qcp_i·PI2_i rides Qk's evals (the reference adds
         # it to the gate, prove.py:200-202; the sum is the same)
         for i in range(len(commitment_info)):
             ev["qk"] = tf.add(ev["qk"], tf.mont_mul(
-                coset4_evals_dev(pk.trace_coeffs[f"qcp{i}"]), coset4_evals_dev(pi2_coeffs[i])))
+                coset4_evals(pk.trace_coeffs[f"qcp{i}"]), coset4_evals(pi2_coeffs[i])))
         for name in ("ql", "qr", "qm", "qo", "s1", "s2", "s3"):
-            ev[name] = coset4_evals_dev(pk.trace_coeffs[name])
+            ev[name] = coset4_evals(pk.trace_coeffs[name])
         t_mont = _quotient_device(
-            ctx, dom4, ev, n, beta, gamma, alpha, k1, k2,
-            curve.fr.multiplicative_generator,
+            ctx, dom4, ev, n, beta, gamma, alpha, k1, k2, g,
             curve.fr.root_of_unity(log_n + 2), q,
         )
         ev.clear()  # free the 4n coset evals
@@ -464,9 +516,13 @@ def prove(cs, pk: ProvingKey, public_values, secret_values, curve, rng=None,
         (t3, (-zh_z) * zeta_n2 % q * zeta_n2 % q),
     ]
     L = n + 4  # covers blinded z (n+3) and the n+2 shards
-    lin_m = _linear_combo_dev(ctx, lin_terms, L, q)
-    lin = decode(lin_m)
-    lin_com = kzg.commit_mont(lin_m)
+    if ctx is None:
+        lin = _linear_combo_host(lin_terms, q)
+        lin_com = kzg.commit(lin)
+    else:
+        lin_m = _linear_combo_dev(ctx, lin_terms, L, q)
+        lin = decode(lin_m)
+        lin_com = kzg.commit_mont(lin_m)
     lin_z = _eval_poly(lin, zeta, q)
 
     polys = [lin, a_coeffs, b_coeffs, c_coeffs,
@@ -484,9 +540,10 @@ def prove(cs, pk: ProvingKey, public_values, secret_values, curve, rng=None,
     gi = 1
     fold_terms = []
     for idx, p in enumerate(polys):
-        fold_terms.append((lin_m if idx == 0 else p, gi))
+        fold_terms.append((lin_m if idx == 0 and ctx is not None else p, gi))
         gi = gi * gamma_kzg % q
-    folded = decode(_linear_combo_dev(ctx, fold_terms, L, q))
+    folded = (_linear_combo_host(fold_terms, q) if ctx is None
+              else decode(_linear_combo_dev(ctx, fold_terms, L, q)))
     _, batch_h = kzg.open(folded, zeta)
 
     _mark("round4 linearization+openings")

@@ -8,8 +8,9 @@ first, ``kzg.unsafe_srs``), so one rng gives the reference's keys. The SRS
 powers run on the fixed-base ladder, each column's INTT on the NTT stage
 kernel and each commitment on the G1 MSM of ``device`` (None: the first
 CUDA card; raises without one). A circuit's BSB22 commitments add one Qcp
-column each (:89-95), committed as the others are. Not ported yet, and
-raising NotImplementedError: ``engine="host"``.
+column each (:89-95), committed as the others are. ``engine="host"`` is the
+reference's host branch (:112-120, ``host_engine.py``): the SRS, the INTTs
+and the commitments in host big-int arithmetic, with no device.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from ...device import DeviceCtx
 from ...logger import logger
 from ...ops.field_t import TField
 from ..kzg import KZG, SRS, unsafe_srs
+from .host_engine import HostKZG, intt_host
 from .keys import ProvingKey, VerifyingKey
 
 
@@ -71,19 +73,21 @@ def setup(cs, curve, srs: SRS | None = None, rng=None,
           engine: str = "device", device=None):
     """(ProvingKey, VerifyingKey). srs defaults to an unsafe test SRS
     (≙ plonk.Setup(ccs, srs, srsLagrange) with test/unsafekzg). The log
-    line ``plonk setup:`` gives the SRS, host and commit seconds."""
-    if engine != "device":
-        raise NotImplementedError(
-            "only the device engine is ported; the host engine is "
-            "gnark_icicle_tpu's")
-    ctx = DeviceCtx(curve, device)  # resolves the device before any work
+    line ``plonk setup:`` gives the SRS, host and commit seconds.
+    engine: "device" (the kernels on ``device``) or "host" (no device;
+    ``device`` is not read). The keys are the same under one rng."""
+    if engine not in ("device", "host"):
+        raise ValueError(f"engine must be 'device' or 'host', not {engine!r}")
+    # resolves the device before any work
+    ctx = DeviceCtx(curve, device) if engine == "device" else None
     t0 = time.perf_counter()
     q = curve.fr.modulus
     assert cs.q == q
     log_n = max(_next_pow2_log(max(cs.nb_gates, 2)), 3)  # quotient shards need n >= 8
     n = 1 << log_n
     if srs is None:
-        srs = unsafe_srs(curve, n + 5, rng=rng, device=ctx.device)
+        srs = (unsafe_srs(curve, n + 5, rng=rng, device=ctx.device) if ctx is not None
+               else unsafe_srs(curve, n + 5, rng=rng, engine="host"))
     t_srs = time.perf_counter()
     # coset shifts: gnark uses 5 (the fr generator) per vanilla-PLONK; any
     # pair with H, k1H, k2H pairwise disjoint works
@@ -128,14 +132,24 @@ def setup(cs, curve, srs: SRS | None = None, rng=None,
     # Lagrange -> coefficients (INTT on the card), then KZG commitments
     trace_coeffs = {}
     commitments = {}
-    dom = ctx.domain(log_n)
-    tf = TField(ctx.fr)
-    kzg = KZG(curve, srs, ctx.device)
+    if ctx is None:
+        kzg = HostKZG(curve, srs)
+
+        def intt(evals):
+            return intt_host(evals, log_n, curve.fr)
+    else:
+        dom = ctx.domain(log_n)
+        tf = TField(ctx.fr)
+        kzg = KZG(curve, srs, ctx.device)
+
+        def intt(evals):
+            return ctx.fr.decode_plain(tf.from_mont(dom.intt(ctx.fr_mont(evals))))
     for name, evals in cols.items():
-        coeffs = ctx.fr.decode_plain(tf.from_mont(dom.intt(ctx.fr_mont(evals))))
+        coeffs = intt(evals)
         trace_coeffs[name] = coeffs
         commitments[name] = kzg.commit(coeffs)
-    ctx.sync()
+    if ctx is not None:
+        ctx.sync()
     logger().info("plonk setup: srs took=%.3fs, host took=%.3fs, commits took=%.3fs",
                   t_srs - t0, t_host - t_srs, time.perf_counter() - t_host)
 

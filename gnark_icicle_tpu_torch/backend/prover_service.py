@@ -14,8 +14,9 @@ prover process alive per (circuit, key) pair rather than one per proof.
 
 The device is resolved once, at construction: the first CUDA card unless the
 caller passes another (``device="cpu"`` runs the plain PyTorch versions);
-without a card and without ``device`` the constructor raises. Only the
-device engine is ported: ``engine="host"`` raises ``NotImplementedError``.
+without a card and without ``device`` the constructor raises. With
+``engine="host"`` (the reference's keyword, tests/test_aux.py:170,180) the
+prover runs the host engine and binds no device (``device`` is None).
 """
 
 from __future__ import annotations
@@ -31,15 +32,13 @@ class _Prover:
     the warm-up prove."""
 
     def __init__(self, cs, pk, curve, engine: str = "device", device=None):
-        if engine != "device":
-            raise NotImplementedError(
-                "only engine='device' is ported; the host engine is "
-                "gnark_icicle_tpu's")
+        if engine not in ("device", "host"):
+            raise ValueError(f"engine must be 'device' or 'host', not {engine!r}")
         self.cs = cs
         self.pk = pk
         self.curve = curve
         self.engine = engine
-        self.device = DeviceCtx(curve, device).device
+        self.device = DeviceCtx(curve, device).device if engine == "device" else None
 
     def warmup(self, public_values, secret_values, rng=None) -> float:
         """One throwaway prove that pays every one-time cost (see the module

@@ -8,20 +8,23 @@ limb tensors and CUDA kernels.
 
 Copied from gnark_icicle_tpu/curves/__init__.py:1, so that the port imports nothing of
 the JAX package; tests/test_torch_copies.py holds it to the original. The
-registry adds the two curves of the 2-chain, BLS12-377 and BW6-761, which the
-original leaves to their modules.
+registry adds the two curves of the 2-chain, BLS12-377 and BW6-761, and
+BLS24-315 (host engine only: no device context covers its G2 over Fp4), which
+the original leaves to their modules.
 """
 
 from .bn254 import BN254  # noqa: F401
 from .bls12_381 import BLS12_381  # noqa: F401
 from .bls12_377 import BLS12_377  # noqa: F401
 from .bw6_761 import BW6_761  # noqa: F401
+from .bls24_315 import BLS24_315  # noqa: F401
 
 CURVES = {
     "bn254": BN254,
     "bls12-381": BLS12_381,
     "bls12-377": BLS12_377,
     "bw6-761": BW6_761,
+    "bls24-315": BLS24_315,
 }
 
 

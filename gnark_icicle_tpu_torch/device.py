@@ -44,12 +44,19 @@ class DeviceCtx:
     _cache: dict = {}
 
     def __new__(cls, curve, device=None):
+        if curve.name not in CURVES:    # refused by __init__, whatever the device
+            return super().__new__(cls)
         ctx = cls._cache.get((curve.name, resolve_device(device)))
         return ctx if ctx is not None else super().__new__(cls)
 
     def __init__(self, curve, device=None):
         if getattr(self, "_initialized", False):
             return
+        if curve.name == "bls24-315":
+            raise NotImplementedError(
+                "bls24-315 runs on the host engine only (engine=\"host\"): its G2 lies "
+                "over Fp4, which no kernel of the port covers, as in the reference "
+                "(gnark_icicle_tpu/device.py:64-78)")
         if curve.name not in CURVES:
             raise NotImplementedError(
                 f"the port's kernels cover {', '.join(CURVES)}, not {curve.name}")

@@ -17,8 +17,12 @@ layer (std/emulated.py and the EVM precompile modules among the imports): an
 emulated product compiled and solved with the port's own hints; then the rollup
 gadgets (std/eddsa.py, merkle.py, keccakf, sha3, gkr, fri, compress_lzss and the
 others among the imports): chip_smoke.py's TransferCircuit at depth 2 compiled
-and solved, an overdraft refused. chip_smoke.py refuses to run without a GPU, and the
-entry points raise where there is no card and no ``device="cpu"``.
+and solved, an overdraft refused; then the host engine (the recursion verifiers,
+the emulated pairings, BLS24-315, testing.py and stats.py among the imports):
+the slice's circuit proved again with ``engine="host"``, to the device
+engine's bytes. chip_smoke.py refuses to run without a GPU, and the entry
+points raise where there is no card and no ``device="cpu"`` under their
+default engines.
 """
 
 import os
@@ -68,7 +72,11 @@ for name in ("curves.bls12_377", "curves.bw6_761", "std.algebra_native",
              "std.pairing_bn254", "std.evmprecompiles", "curves.secp256k1",
              "curves.twisted_edwards", "std.eddsa", "std.merkle", "std.selector",
              "std.bitslice", "std.hash.keccakf", "std.hash.sha3", "std.fiat_shamir",
-             "std.polynomial", "std.sumcheck", "std.gkr", "std.fri", "std.compress_lzss"):
+             "std.polynomial", "std.sumcheck", "std.gkr", "std.fri", "std.compress_lzss",
+             "std.pairing_bls12_381", "std.pairing_bw6_761", "std.kzg_gadget",
+             "std.recursion.groth16", "std.recursion.plonk", "std.recursion.native_plonk",
+             "backend.groth16.host_compute", "backend.plonk.host_engine", "curves.bls24_315",
+             "testing", "stats"):
     assert "gnark_icicle_tpu_torch." + name in sys.modules, name
 
 from gnark_icicle_tpu_torch.curves import bn254
@@ -98,6 +106,10 @@ proof = groth16.prove(cs, pk, [v], [3], bn254.BN254, rng=random.Random(2),
                       device="cpu", batch_msm=True)
 groth16.verify(proof, vk, [v], bn254.BN254)
 assert not groth16.is_valid(proof, vk, [v + 1], bn254.BN254)
+# the host engine: the same proof, with no device
+from gnark_icicle_tpu_torch.io import serialize
+hproof = groth16.prove(cs, pk, [v], [3], bn254.BN254, rng=random.Random(2), engine="host")
+assert serialize.proof_to_bytes(bn254.BN254, hproof) == serialize.proof_to_bytes(bn254.BN254, proof)
 
 # the serving path: the system, the key and the witness from bytes, a
 # resident prover, the proof in bytes: the direct proof's

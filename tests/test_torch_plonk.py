@@ -384,12 +384,14 @@ def test_dataclass_fields_match_reference(name):
 
 @pytest.mark.parametrize("option", ["engine", "setup_engine"])
 def test_unported_options_raise(bn254_run, option):
+    """An engine other than "device" and "host" (the host engine is
+    ported) does not exist, in prove and in setup."""
     r = bn254_run
     args = (r["cs"], r["pk"], r["pub"], r["sec"], r["curve"])
     calls = {
-        "engine": lambda: plonk.prove(*args, engine="host", device="cpu"),
-        "setup_engine": lambda: plonk.setup(r["cs"], r["curve"], engine="host",
+        "engine": lambda: plonk.prove(*args, engine="tpu", device="cpu"),
+        "setup_engine": lambda: plonk.setup(r["cs"], r["curve"], engine="tpu",
                                             device="cpu"),
     }
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="engine must be"):
         calls[option]()

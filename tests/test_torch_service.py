@@ -91,8 +91,11 @@ def test_served_proof_through_bytes_equals_the_direct_one(tmp_path, system):
 
 @pytest.mark.parametrize("Prover", [Groth16Prover, PlonkProver])
 def test_prover_device_rule(Prover):
-    with pytest.raises(NotImplementedError, match="engine='device'"):
-        Prover(None, None, CURVE, engine="host", device="cpu")
+    """The host engine binds no device; an unknown engine raises; without a
+    card and a device the device engine raises."""
+    assert Prover(None, None, CURVE, engine="host").device is None
+    with pytest.raises(ValueError, match="engine must be"):
+        Prover(None, None, CURVE, engine="tpu", device="cpu")
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the prover would bind to it")
     with pytest.raises(RuntimeError, match="no CUDA device"):
