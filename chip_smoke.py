@@ -31,7 +31,8 @@ at 12, G2 over Fp), phases print one JSON line each on stdout:
      coset (2^19 on BN254 and BLS12-381, 2^12 on the others; BN254 also
      keccak256's 2^20), each pass with the
      scalings it carries there, and each whole transform, timed beside its
-     bound;
+     bound; on BN254 also phase mesh's batched pass (128 transforms of 2^9
+     in one launch, the twiddle grid on the store);
      G1 and G2 masked signed mixed add, add and double at 2^14 lanes, with
      operands at 0, 1, p - 1, p - 2 and near R; the bucket accumulation on
      the lanes of a skewed 2^12-point MSM, whose long runs are split, the
@@ -226,6 +227,29 @@ at 12, G2 over Fp), phases print one JSON line each on stdout:
      the vks' and proofs' bytes must be equal. The card part of each curve
      (the MiMC proves, the openings, the Chain of 2^10) is a path of its
      own ("recursion"), its launches counted;
+  mesh: the multi-device layer (gnark_icicle_tpu_torch/parallel/) on
+     MESH_RANKS = 4 ranks, processes spawned with the run that share the
+     card over gloo (one card: this shows the sharded computations and every
+     collective's data movement on the card, not multi-card scaling), once
+     phase 4's BN254 Chain 2^17 is done: its compiled system (with its
+     solver schedule), key, vk and proof reach them through a file, by the
+     compile workers' pickled route (its write and load seconds and bytes
+     on the line). ShardedNTT at computeH's 2^18 (N1 = N2 = 2^9: each rank
+     one batched ntt_pass of 128 sub-transforms of 512 a side, then the row
+     ones) bit-equal to the card's Domain, forward and inverse, and its
+     inverse of the forward the input, each transform's ms on every rank and
+     the exchanges' share of it; sharded_msm (dispatch_msm) on G1 over the
+     Chain's 262,144 Z points and on G2 over its 131,512 B2 points, each
+     rank staging its rows, the same affine point as one msm on the card;
+     the sharded prove of the Chain (four sub-meshes of one rank) byte-equal
+     to phase 4's proof under its rng and verified, each rank's phase times;
+     then a one-rank NCCL group's sharded NTT and G1 MSM, equal to the
+     card's. Each part's launches are counted on every rank (the single
+     card's references left out) and checked (_check_mesh_launches): two
+     ntt_pass a sharded transform, fr_mont_mul and the MSM entries on every
+     rank, the tree-add's *_add; they join the kernels line as the paths
+     mesh, mesh_prove and mesh_nccl. ``python3 chip_smoke.py mesh`` runs
+     the build, the Chain's compile, setup and one prove, and this phase;
   The paths of phases 4 to deploy run in two processes at once, each
      with its own launch counts: BN254's paths, BLS12-381's PLONK and
      deploy in this one, the others (LANE_*), the committed 2-chain and
@@ -1129,7 +1153,9 @@ def ntt_rows(device, name: str, rates: dict, record, shapes: dict) -> None:
     import torch
 
     from gnark_icicle_tpu_torch.ops.field import field_for
-    from gnark_icicle_tpu_torch.ops.ntt import domain_for, ntt_pass, ntt_pass_plain, pass_split
+    from gnark_icicle_tpu_torch.ops.ntt import (
+        Domain, domain_for, ntt_pass, ntt_pass_plain, pass_split,
+    )
 
     curve = _curves()[name]
     fr = field_for(curve.fr.modulus)
@@ -1188,6 +1214,27 @@ def ntt_rows(device, name: str, rates: dict, record, shapes: dict) -> None:
         pass_row(d4, top4, "f", True, ("mul",),
                  "PLONK's 4n coset NTT, first pass: g^i on the load")
         pass_row(d4, low4, "i", True, ("post",), "PLONK's 4n coset INTT, last pass")
+
+    if name == MESH_CURVE:
+        # phase mesh's sub-transforms: at MESH_RANKS ranks the sharded 2^18
+        # NTT's 128 column transforms of 2^9 (one pass over the rank's 2^16
+        # elements, the m-wide table at its own stride, the twiddle grid on
+        # the store), held to the plain pass
+        log_m = MESH_NTT_LOG // 2
+        width = (1 << MESH_NTT_LOG) // MESH_RANKS
+        q = curve.fr.modulus
+        sub = Domain(fr, log_m, pow(curve.fr.root_of_unity(MESH_NTT_LOG),
+                                     1 << (MESH_NTT_LOG - log_m), q), None, device)
+        (p,) = pass_split(log_m)
+        tws = sub._twiddles("f")
+        record("ntt_pass", 0, f"batched: {width >> log_m} transforms of 2^{log_m}, stages "
+               f"0-{log_m - 1}, tile {1 << p.log_g}x{1 << p.c}x1: phase mesh's sharded 2^"
+               f"{MESH_NTT_LOG} NTT at {MESH_RANKS} ranks, its column transforms with the "
+               "twiddle grid on the store",
+               list(_rand_dev(fr, 2, width, device)),
+               lambda x, g: ntt_pass(fr, x, tws, p, True, post=g),
+               lambda x, g: ntt_pass_plain(fr, x, tws, p, True, post=g),
+               lane * (3 * width + (1 << log_m)), (width // 2) * log_m + width, W)
 
     def rand(d):
         return _rand_dev(fr, 1, d.n, device)[0]
@@ -3769,6 +3816,432 @@ def phase_recursion_card(device, name: str, compiled: tuple, pk, vk) -> dict:
 
 # the phases that run in a process of their own: phase -> (its host part,
 # which returns {name: arguments}, and its paths on the card by those names)
+# phase mesh: the multi-device layer (gnark_icicle_tpu_torch/parallel/) on
+# MESH_RANKS ranks that share the card over gloo, and a one-rank NCCL group
+MESH_RANKS = 4
+MESH_CURVE = "bn254"
+MESH_NTT_LOG = 18                  # computeH's domain of the Chain 2^17
+MESH_REPS = 3                      # timed runs of each sharded transform and MSM
+MESH_WAIT_S = 900                  # the longest wait for a rank's result
+MESH_NCCL = "nccl"                 # the one-rank group's backend
+
+
+def _mesh_scalars(W: int, n: int, seed: int, top: int, device):
+    """(W, n) random 32-bit words below 2^(32·(W − 1)) · top on the card,
+    the same on every rank (a seeded generator): Fr elements, Montgomery or
+    plain form alike."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    words = torch.randint(-2**31, 2**31, (W, n), generator=gen, device=device,
+                          dtype=torch.int64)
+    words[-1] = words[-1].remainder(top)
+    return words.to(torch.int32).contiguous()
+
+
+def _uncounted(fn):
+    """fn() with the kernels' launch counts put back as they were after it:
+    the single card's references of phase mesh are not its path."""
+    from gnark_icicle_tpu_torch.ops import cuda as kc
+
+    saved = {name: k.launches for name, k in kc.KERNELS.items()}
+    try:
+        return fn()
+    finally:
+        for name, k in kc.KERNELS.items():
+            k.launches = saved[name]
+
+
+def _mesh_synced(mesh, fn):
+    """fn() between two barriers, its wall ms on this rank with the card
+    synchronized at both ends, and its result."""
+    import torch
+
+    mesh.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    mesh.barrier()
+    return ms, out
+
+
+def mesh_ntt(world, ctx, line: dict) -> tuple:
+    """ShardedNTT at 2^MESH_NTT_LOG against the single card's Domain, forward
+    and inverse, bit for bit (the first rank's reference), the inverse of
+    the forward giving the slice back; each transform's ms on every rank
+    and the exchanges' share of it (a run with each all_to_all timed on its
+    own). Returns (the input, the reference's forward) for the NCCL check."""
+    import torch
+
+    from gnark_icicle_tpu_torch.ops.ntt import domain_for
+    from gnark_icicle_tpu_torch.parallel import ShardedNTT
+
+    F, fr, lead = ctx.fr, ctx.curve.fr, world.index == 0
+    n = 1 << MESH_NTT_LOG
+    x = _mesh_scalars(F.n32, n, 41, fr.modulus >> (32 * (F.n32 - 1)), ctx.device)
+    want = None
+    if lead:                            # the single card's
+        dom = domain_for(F, fr, MESH_NTT_LOG, ctx.device)
+        want = _uncounted(lambda: (dom.ntt(x), dom.intt(x)))
+    rows = n // world.size
+    mine = x[:, world.index * rows:(world.index + 1) * rows].contiguous()
+    sntt = ShardedNTT(F, fr, MESH_NTT_LOG, world)
+    got, timing = {}, {}
+    for name, run in (("ntt", sntt.ntt), ("intt", sntt.intt)):
+        ms = []
+        for _ in range(MESH_REPS):
+            t, y = _mesh_synced(world, lambda: run(mine))
+            ms.append(t)
+        got[name] = y
+        # one more run with each exchange synchronized and timed
+        spent = []
+        exchange = sntt._exchange
+
+        def timed(*args, _ex=exchange):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _ex(*args)
+            torch.cuda.synchronize()
+            spent.append(1e3 * (time.perf_counter() - t0))
+            return out
+
+        sntt._exchange = timed
+        t, _ = _mesh_synced(world, lambda: run(mine))
+        del sntt._exchange
+        timing[name] = {"ms": ms, "instrumented_ms": t, "exchanges_ms": spent,
+                        "exchange_share": sum(spent) / t}
+    back = sntt.intt(got["ntt"])
+    full = {k: torch.cat(world.all_gather(v), dim=1) for k, v in got.items()}
+    ok = world.all_gather_object(bool(torch.equal(back, mine)))
+    if lead:
+        if not (torch.equal(full["ntt"], want[0]) and torch.equal(full["intt"], want[1])):
+            raise AssertionError(f"the sharded NTT at 2^{MESH_NTT_LOG} differs from the card's "
+                                 "Domain")
+        if not all(ok):
+            raise AssertionError("the sharded inverse of the forward is not the input")
+    line["ntt"] = {"n": f"2^{MESH_NTT_LOG}", "n1": sntt.n1, "n2": sntt.n2,
+                   "sub_transforms_per_rank": {"columns": sntt.n2 // world.size,
+                                               "rows": sntt.n1 // world.size},
+                   "transforms_per_rank": 2 * (MESH_REPS + 1) + 1,
+                   "equal": True, "round_trip": True, **timing}
+    return x, (want[0] if lead else None)
+
+
+def mesh_msms(world, ctx, pk, line: dict) -> dict:
+    """sharded_msm (through dispatch_msm) on G1 over the Chain's Z table
+    (262,144 points) and on G2 over its B2 table (131,512), each rank its
+    rows staged as a mesh prove stages them, against one msm on the card
+    over the tables gathered on the first rank: the same affine point.
+    Returns the first rank's {group: (table, inf, scalars, point)} for the
+    NCCL check."""
+    import torch
+
+    from gnark_icicle_tpu_torch.ops.msm import pick_window
+    from gnark_icicle_tpu_torch.parallel.pipeline import dispatch_msm, padded_rows
+
+    lead, d = world.index == 0, world.size
+    r = ctx.curve.fr.modulus
+    W = ctx.fr.n32
+    dev = pk.device_arrays(ctx, {"z": (world.index, d), "b2": (world.index, d)})
+    keep = {}
+    for group, table_name, n, kernel, host in (
+            ("g1", "z", len(pk.g1_z), ctx.msm_g1, ctx.g1_to_host),
+            ("g2", "b2", len(pk.g2_b), ctx.msm_g2, ctx.g2_to_host)):
+        scal = _mesh_scalars(W, n, 43 if group == "g1" else 44, r >> (32 * (W - 1)), ctx.device)
+        table, inf = dev[table_name]
+        # the single card's, on the tables gathered (padded: infinity rows add nothing)
+        full_t = torch.cat(world.all_gather(table))
+        full_i = torch.cat(world.all_gather(inf))
+        n_pad = padded_rows(n, d)
+        scal_pad = torch.nn.functional.pad(scal, (0, n_pad - n))
+        want = (_uncounted(lambda: host(kernel.msm(full_t, full_i, scal_pad, pick_window(n))))
+                if lead else None)
+        ms = []
+        for _ in range(MESH_REPS):
+            t, point = _mesh_synced(world, lambda: dispatch_msm(kernel, world, table, inf, scal))
+            ms.append(t)
+        got = host(point)
+        every = world.all_gather_object(got)
+        if lead:
+            if got != want or any(e != got for e in every):
+                raise AssertionError(f"the sharded {group} MSM of {n} points differs from the "
+                                     "card's msm")
+            keep[group] = (full_t, full_i, scal_pad, want)
+        line[f"msm_{group}"] = {"points": n, "padded": n_pad, "rows_per_rank": n_pad // d,
+                                "c": pick_window(n_pad // d), "equal": True, "ms": ms}
+    return keep
+
+
+def mesh_prove(world, ctx, job: dict, line: dict) -> None:
+    """The sharded prove of phase 4's Chain 2^17 (MESH_RANKS ranks: four
+    sub-meshes of one), byte-equal to phase 4's proof under its rng, and
+    verified on the first rank; each rank's phase times (the prover's log)."""
+    from gnark_icicle_tpu_torch.backend import groth16
+    from gnark_icicle_tpu_torch.io.serialize import proof_to_bytes
+
+    curve = ctx.curve
+    phases = []
+    grab = _StageLog("groth16", phases)
+    try:
+        world.barrier()
+        t0 = time.perf_counter()
+        proof = groth16.prove(job["cs"], job["pk"], job["pub"], job["sec"], curve,
+                              rng=random.Random(BATCH_RNG), mesh=world)
+        seconds = time.perf_counter() - t0
+    finally:
+        grab.close()
+    got = proof_to_bytes(curve, proof)
+    every = world.all_gather_object(got)
+    line["prove"] = {"constraints": job["cs"].nb_constraints,
+                     "domain_log_n": job["pk"].domain_log_n, "seconds": seconds,
+                     "phases": dict(phases)}
+    if world.index == 0:
+        if any(e != job["proof"] for e in every):
+            raise AssertionError("the sharded proof differs from phase 4's")
+        t0 = time.perf_counter()
+        groth16.verify(proof, job["vk"], job["pub"], curve)
+        line["prove"].update(byte_equal=True, verified=True,
+                             verify_s=time.perf_counter() - t0)
+
+
+def mesh_nccl(nccl, ctx, x, want_ntt, msms: dict, line: dict) -> None:
+    """The one-rank NCCL group (the first rank): the sharded NTT at
+    2^MESH_NTT_LOG and the sharded G1 MSM over the Z table, so that every
+    collective they take (all_to_all_single, all_gather) runs on NCCL on the
+    card; each equal to the single card's."""
+    import torch
+
+    from gnark_icicle_tpu_torch.parallel import ShardedNTT, sharded_msm
+
+    sntt = ShardedNTT(ctx.fr, ctx.curve.fr, MESH_NTT_LOG, nccl)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y = sntt.ntt(x)
+    torch.cuda.synchronize()
+    ntt_ms = 1e3 * (time.perf_counter() - t0)
+    table, inf, scal, want = msms["g1"]
+    t0 = time.perf_counter()
+    point = ctx.g1_to_host(sharded_msm(ctx.msm_g1, nccl, table, inf, scal))
+    msm_ms = 1e3 * (time.perf_counter() - t0)
+    if not torch.equal(y, want_ntt) or point != want:
+        raise AssertionError("the one-rank NCCL group's NTT or MSM differs from the card's")
+    line["nccl"] = {"ranks": 1, "ntt_equal": True, "msm_g1_equal": True, "ntt_ms": ntt_ms,
+                    "msm_g1_ms": msm_ms}
+
+
+def _mesh_rank(rank: int, t_start: float, store: str, job_path: str, ready, out,
+               device=None) -> None:
+    """One rank of phase mesh, spawned with the run: it joins the gloo world
+    of MESH_RANKS ranks on the card (and the one-rank NCCL group) at once,
+    then waits until main has the libraries built and phase 4's system, key
+    and proof in `job_path` (`ready`). Then the sharded NTT and MSMs, the
+    sharded prove and, on the first rank, the NCCL checks, each with the
+    kernels' launch counts set to 0 just before and read just after. Puts
+    ("ok", rank, {line, launches by path, seconds}) or ("error", rank,
+    traceback) on `out`, and ends without the interpreter's finalization."""
+    code = 0
+    try:
+        import pickle
+
+        from gnark_icicle_tpu_torch.device import DeviceCtx
+        from gnark_icicle_tpu_torch.ops import cuda as kc
+        from gnark_icicle_tpu_torch.parallel import split_submeshes, world_mesh
+
+        _START["t"] = t_start
+        world = world_mesh("gloo", device=device, rank=rank, world_size=MESH_RANKS,
+                           init_method=f"file://{store}", local_rank=rank)
+        nccl = split_submeshes(world, {"nccl": 1}, backend=MESH_NCCL)["nccl"]
+        if not ready.wait(MESH_WAIT_S):
+            raise AssertionError("phase mesh: no job in time")
+        t0 = time.perf_counter()
+        with open(job_path, "rb") as f:
+            job = pickle.load(f)
+        vars(job["cs"]).update(job.pop("caches"))
+        load_s = time.perf_counter() - t0
+        kc.load(MESH_CURVE)
+        ctx = DeviceCtx(_curves()[MESH_CURVE], world.device)
+        line, launches = {"device": str(world.device), "job_load_s": load_s}, {}
+        t0 = time.perf_counter()
+        _zero_counts()
+        x, want_ntt = mesh_ntt(world, ctx, line)
+        msms = mesh_msms(world, ctx, job["pk"], line)
+        launches["mesh"] = _counts(MESH_CURVE)
+        _zero_counts()
+        mesh_prove(world, ctx, job, line)
+        launches["mesh_prove"] = _counts(MESH_CURVE)
+        if nccl.member:
+            _zero_counts()
+            mesh_nccl(nccl, ctx, x, want_ntt, msms, line)
+            launches["mesh_nccl"] = _counts(MESH_CURVE)
+        world.barrier()
+        out.put(("ok", rank, {"line": line, "launches": launches,
+                              "seconds": time.perf_counter() - t0}))
+    except BaseException:   # noqa: BLE001 (raised again by main)
+        out.put(("error", rank, traceback.format_exc()))
+        code = 1
+    out.close()
+    out.join_thread()
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(code)
+
+
+def start_mesh(t_start: float, device=None) -> dict:
+    """Phase mesh's MESH_RANKS ranks, spawned now (they join their group and
+    wait for `ready`) on `device` (None: the card): {procs, ready, out, dir,
+    job}."""
+    import multiprocessing
+    import tempfile
+
+    ctx = multiprocessing.get_context("spawn")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    mesh = {"ready": ctx.Event(), "out": ctx.Queue(), "dir": tmp,
+            "job": os.path.join(tmp, "job.pkl")}
+    mesh["procs"] = [ctx.Process(target=_mesh_rank, args=(
+        rank, t_start, os.path.join(tmp, "store"), mesh["job"], mesh["ready"], mesh["out"],
+        device))
+        for rank in range(MESH_RANKS)]
+    for p in mesh["procs"]:
+        p.start()
+    return mesh
+
+
+def mesh_job(mesh: dict, cs, pk, vk, pub: list, sec: list, proof) -> None:
+    """Phase 4's BN254 Chain for the ranks, through a file: the compiled
+    system with its solver schedule (SOLVER_CACHES, as the compile workers
+    send it), the key without its device staging, the vk, the witness and
+    the proof's bytes; then `ready`. Its seconds and bytes go on the phase's
+    line."""
+    import pickle
+
+    from gnark_icicle_tpu_torch.io.serialize import proof_to_bytes
+
+    t0 = time.perf_counter()
+    staged, pk._device = pk._device, {}
+    try:
+        with open(mesh["job"] + ".tmp", "wb") as f:
+            pickle.dump({"cs": cs, "caches": {k: v for k, v in vars(cs).items()
+                                             if k in SOLVER_CACHES},
+                         "pk": pk, "vk": vk, "pub": pub, "sec": sec,
+                         "proof": proof_to_bytes(_curves()[MESH_CURVE], proof)},
+                        f, protocol=pickle.HIGHEST_PROTOCOL)
+    finally:
+        pk._device = staged
+    os.replace(mesh["job"] + ".tmp", mesh["job"])
+    mesh["job_write_s"] = time.perf_counter() - t0
+    mesh["job_bytes"] = os.path.getsize(mesh["job"])
+    mesh["ready"].set()
+
+
+# each rank's MSM launch sets in the sharded prove at MESH_RANKS ranks:
+# {rank: (group, sets)} (A, B1, B2, then K and Z on the last sub-mesh)
+MESH_PROVE_SETS = {0: ("g1", 1), 1: ("g1", 1), 2: ("g2", 1), 3: ("g1", 2)}
+MESH_COMPUTEH_TRANSFORMS = 7       # 3 INTT, 3 NTT, 1 INTT, each sharded
+
+
+def _check_mesh_launches(rank: int, value: dict) -> None:
+    """Every rank ran the kernels of its part: in the NTT and MSM checks two
+    ntt_pass launches a sharded transform (the column and the row
+    sub-transforms, one pass each at 2^9), fr_mont_mul, a launch set an MSM
+    run of each group and the tree-add's *_add; in the prove 14 ntt_pass, the
+    Fr products and the subtraction of the sharded computeH, and the MSM
+    sets of its sub-mesh; on the NCCL rank one transform and one G1 MSM."""
+    pre = ""    # BN254's entries have no prefix
+    got = value["launches"]
+    line = value["line"]
+    want_passes = 2 * line["ntt"]["transforms_per_rank"]
+    m = got["mesh"]
+    bad = []
+    if m[pre + "ntt_pass"] != want_passes or m[pre + "fr_mont_mul"] == 0:
+        bad.append(f"mesh: ntt_pass {m['ntt_pass']} (want {want_passes}), "
+                   f"fr_mont_mul {m['fr_mont_mul']}")
+    for g in ("g1", "g2"):
+        if m[f"{g}_bucket_accumulate"] != MESH_REPS or m[f"{g}_add"] < (MESH_RANKS - 1) * MESH_REPS:
+            bad.append(f"mesh: {g} accumulate {m[f'{g}_bucket_accumulate']}, add {m[f'{g}_add']}")
+    _check_msm_launches(MESH_CURVE, m, f"phase mesh rank {rank}")
+    p = got["mesh_prove"]
+    group, sets = MESH_PROVE_SETS[rank]
+    other = "g2" if group == "g1" else "g1"
+    if (p["ntt_pass"] != 2 * MESH_COMPUTEH_TRANSFORMS or p["fr_mont_mul"] == 0
+            or p["fr_sub"] != 1 or p[f"{group}_bucket_accumulate"] != sets
+            or p[f"{other}_bucket_accumulate"] != 0):
+        bad.append(f"mesh_prove: {p}")
+    _check_msm_launches(MESH_CURVE, p, f"phase mesh rank {rank}, the prove")
+    if rank == 0:
+        n = got["mesh_nccl"]
+        if n["ntt_pass"] != 2 or n["g1_bucket_accumulate"] != 1:
+            bad.append(f"mesh_nccl: {n}")
+    if bad:
+        raise AssertionError(f"phase mesh rank {rank}: {bad}")
+
+
+def mesh_result(mesh: dict) -> list:
+    """Every rank's result (a failure or a rank's end without one raised),
+    checked (_check_mesh_launches) and printed as the phase's line; returns
+    [(curve, path, launches summed over the ranks)]."""
+    import queue
+    import shutil
+
+    results = {}
+    deadline = time.perf_counter() + MESH_WAIT_S
+    while len(results) < MESH_RANKS:
+        try:
+            status, rank, value = mesh["out"].get(timeout=10)
+        except queue.Empty:
+            dead = [p.exitcode for p in mesh["procs"] if not p.is_alive() and p.exitcode]
+            if dead or time.perf_counter() > deadline:
+                raise AssertionError(f"phase mesh: ranks ended with {dead} and no result, or "
+                                     "none in time") from None
+            continue
+        if status != "ok":
+            raise AssertionError(f"phase mesh, rank {rank} failed:\n{value}")
+        results[rank] = value
+    for p in mesh["procs"]:
+        p.join(30)
+    shutil.rmtree(mesh["dir"], ignore_errors=True)
+    for rank, value in results.items():
+        _check_mesh_launches(rank, value)
+    lead = results[0]["line"]
+    _say("mesh", curve=MESH_CURVE, ranks=MESH_RANKS, backend="gloo",
+         shared_card=results[0]["line"]["device"],
+         job={"write_s": mesh["job_write_s"], "bytes": mesh["job_bytes"],
+              "load_s": [results[r]["line"]["job_load_s"] for r in sorted(results)]},
+         ntt={**lead["ntt"], "by_rank": {r: {k: results[r]["line"]["ntt"][k]
+                                             for k in ("ntt", "intt")} for r in sorted(results)}},
+         msm_g1=lead["msm_g1"], msm_g2=lead["msm_g2"],
+         prove={**lead["prove"], "by_rank": {r: results[r]["line"]["prove"]["phases"]
+                                             for r in sorted(results)}},
+         nccl=lead["nccl"], seconds=max(v["seconds"] for v in results.values()),
+         launches_by_rank={r: {path: {k: c for k, c in counts.items() if c}
+                               for path, counts in results[r]["launches"].items()}
+                           for r in sorted(results)})
+    paths = {}
+    for value in results.values():
+        for path, counts in value["launches"].items():
+            acc = paths.setdefault(path, dict.fromkeys(counts, 0))
+            for k, c in counts.items():
+                acc[k] += c
+    return [(MESH_CURVE, path, counts) for path, counts in paths.items()]
+
+
+def mesh_alone(mesh: dict, device) -> None:
+    """``python3 chip_smoke.py mesh``: phase 4's BN254 Chain 2^17 compiled
+    here (a compile worker), set up and proved once on the card under the
+    timed prove's rng, for the ranks' job."""
+    from gnark_icicle_tpu_torch.backend import groth16
+
+    (compiled,), _ = compile_circuits([("groth16", MESH_CURVE)])
+    cs, _, v = compiled
+    curve = _curves()[MESH_CURVE]
+    t0 = time.perf_counter()
+    pk, vk = groth16.setup(cs, curve, rng=random.Random(1), device=device)
+    proof = groth16.prove(cs, pk, [v], [3], curve, rng=random.Random(BATCH_RNG), device=device)
+    _say("mesh_reference", constraints=cs.nb_constraints, setup_and_prove_s=time.perf_counter() - t0)
+    mesh_job(mesh, cs, pk, vk, [v], [3], proof)
+
+
 LANES = {"precompiles": (precompiles_host, {"ecrecover": phase_precompiles_ecrecover,
                                             "ecadd": phase_precompiles_ecadd}),
          "rollup": (rollup_host, {"rollup": phase_rollup_groth16,
@@ -3859,11 +4332,20 @@ def main() -> int:
     # phase recursion's checks in a fifth process, started now: the host
     # engine's proofs while nvcc runs, then the card's proofs as they come
     recursion = start_recursion(t_start) if not alone else None
+    # phase mesh's ranks: they join their group now and wait for phase 4's
+    # BN254 Chain
+    mesh = start_mesh(t_start) if alone in ([], ["mesh"]) else None
     lanes = {phase: start_lane(phase, t_start, card_free)
              for phase in LANES if alone in ([], [phase])}
+    if alone == ["mesh"]:   # the build, the Chain's reference proof, the phase
+        kc.build()
+        mesh_alone(mesh, device)
+        mesh_result(mesh)
+        _say("done", seconds=time.perf_counter() - t_start)
+        return 0
     if alone:               # that phase alone, after the build
         if not lanes:
-            raise SystemExit(f"chip_smoke.py: no phase {alone}; precompiles or rollup")
+            raise SystemExit(f"chip_smoke.py: no phase {alone}; precompiles, rollup or mesh")
         kc.build()
         card_free.set()
         lane_result(alone[0], lanes[alone[0]])
@@ -3958,6 +4440,8 @@ def main() -> int:
             if name == "bn254":
                 ck_runs["groth16"] = (compiled[name][0], pk, vk, pub, [3], proof)
                 send_recursion(groth16_job(name, vk, proof, pub, "bn254 chain 2^17"))
+            if name == MESH_CURVE:
+                mesh_job(mesh, compiled[name][0], pk, vk, pub, [3], proof)
             if name == SERVE_CURVE:
                 srv_runs["groth16"] = (pk, vk, proof, pub, timed)
             else:
@@ -3997,6 +4481,7 @@ def main() -> int:
               phase_service(device, served, srv_runs, srv_others).items()]
     for phase, lane in lanes.items():
         extra += lane_result(phase, lane)
+    extra += mesh_result(mesh)
     checks = lane_result("recursion", recursion)
     if len(checks) != RECURSION_CHECKS:
         raise AssertionError(f"phase recursion made {len(checks)} checks, "

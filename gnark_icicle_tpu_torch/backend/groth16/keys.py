@@ -7,6 +7,11 @@ device staging is cached per device after first use.
 
 ``from_reference`` builds a key or proof from any object with the same
 public fields (the JAX package's, in the tests), reading them by name.
+
+On a mesh a rank stages only the tables its MSMs read, and of each only its
+rows, padded as the reference pads (``device_arrays``'s ``shards``; the
+reference's row ``NamedSharding``, gnark_icicle_tpu/parallel/
+pipeline.py:98-102), so that a key larger than one card can be proved.
 """
 
 from __future__ import annotations
@@ -49,12 +54,24 @@ class ProvingKey(_Carry):
     commitment_keys: list = field(default_factory=list)
     _device: dict = field(default_factory=dict, repr=False)
 
-    def device_arrays(self, ctx):
+    def device_arrays(self, ctx, shards: dict | None = None):
         """Upload-once device staging of all MSM point tables on ctx.device;
         "pedersen" holds, per commitment, its basis and σ·basis stacked
         (2·N rows; None where it commits no private wire), the table of the
         commitment and proof-of-knowledge ``msm_batch``
-        (``prove._pedersen_msms``)."""
+        (``prove._pedersen_msms``).
+
+        shards ({table: (index, size)}, the tables "a", "b1", "b2", "k",
+        "z" that a rank's MSMs read on a mesh: ``parallel/pipeline.py``
+        ``table_shards``) stages only those tables, and of each only the
+        rows of member `index` of `size`, the table padded with infinity to
+        ``padded_rows(N, size)`` rows; cached per device and shards."""
+        if shards is not None:
+            key = (ctx.device, tuple(sorted(shards.items())))
+            if key not in self._device:
+                self._device[key] = {name: self._stage_rows(ctx, name, *shard)
+                                     for name, shard in shards.items()}
+            return self._device[key]
         if ctx.device not in self._device:
             self._device[ctx.device] = {
                 "a": ctx.g1_points(self.g1_a),
@@ -62,10 +79,35 @@ class ProvingKey(_Carry):
                 "b2": ctx.g2_points(self.g2_b),
                 "k": ctx.g1_points(self.g1_k),
                 "z": ctx.g1_points(self.g1_z),
-                "pedersen": [ctx.g1_points(ck.basis + ck.basis_exp_sigma) if ck.basis
-                             else None for ck in self.commitment_keys],
+                "pedersen": self._stage_pedersen(ctx),
             }
         return self._device[ctx.device]
+
+    def _stage_rows(self, ctx, name: str, index: int, size: int):
+        from ...parallel.pipeline import padded_rows
+
+        points = {"a": self.g1_a, "b1": self.g1_b, "b2": self.g2_b, "k": self.g1_k,
+                  "z": self.g1_z}[name]
+        n_pad = padded_rows(len(points), size)
+        rows = n_pad // size
+        block = (list(points) + [None] * (n_pad - len(points)))[index * rows:(index + 1) * rows]
+        if not block:
+            return None
+        return (ctx.g2_points if name == "b2" else ctx.g1_points)(block)
+
+    def _stage_pedersen(self, ctx) -> list:
+        return [ctx.g1_points(ck.basis + ck.basis_exp_sigma) if ck.basis else None
+                for ck in self.commitment_keys]
+
+    def pedersen_arrays(self, ctx) -> list:
+        """The "pedersen" tables of ``device_arrays`` on ctx.device, staged
+        alone where the whole key is not (the rank that solves on a mesh)."""
+        if ctx.device in self._device:
+            return self._device[ctx.device]["pedersen"]
+        key = (ctx.device, "pedersen")
+        if key not in self._device:
+            self._device[key] = self._stage_pedersen(ctx)
+        return self._device[key]
 
 
 @dataclass

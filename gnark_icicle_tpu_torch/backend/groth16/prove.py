@@ -21,8 +21,10 @@ knowledge, which the reference computes as host MSMs: here they are one
 the device has finished it. ``engine="host"`` is the reference's host engine
 (:342-369, ``host_compute.py``): computeH and the MSMs, and the BSB22
 commitments' Pedersen products, in host big-int arithmetic, with no device;
-under one rng its proof is the device engine's. Not ported yet: a device
-mesh; asking for one raises NotImplementedError.
+under one rng its proof is the device engine's. ``mesh=`` (the reference's
+:371-468 with ``_compute_h_sharded`` :93-131) proves on the ranks of a
+``parallel.Mesh``, each a process (``_prove_mesh``); its proof is the single
+device's under one rng.
 """
 
 from __future__ import annotations
@@ -82,6 +84,49 @@ def _compute_h(ctx: DeviceCtx, a, b, c, log_n: int):
     return tf.from_mont(h_rev)                   # plain = MSM scalar format
 
 
+def _compute_h_sharded(ctx: DeviceCtx, a, b, c, log_n: int, mesh):
+    """_compute_h over a mesh (gnark_icicle_tpu/backend/groth16/
+    prove.py:93-131): each rank holds n/d consecutive rows of a, b and c
+    ((N, Wr) uint32 plain-form limbs, N ≤ n, the whole vectors on every
+    rank), and the transforms are the mesh's ``ShardedNTT``; the coset
+    scaling g^i, the pointwise (a·b − c)·den and the g⁻ⁱ scaling act on each
+    rank's slice. The bit reversal of h moves elements across ranks: h is
+    gathered, whole, on every rank, and put in bit-reversed order there, so
+    that each rank's Z MSM finds the scalars of its rows. Returns the same
+    (Wr, n) plain-form scalars as _compute_h, on every rank."""
+    from ...ops.ntt import _pow_table
+    from ...parallel.ntt import sharded_ntt
+
+    q = ctx.curve.fr.modulus
+    n = 1 << log_n
+    F, tf = ctx.fr, TField(ctx.fr)
+    sntt = sharded_ntt(F, ctx.curve.fr, log_n, mesh)
+    rows = n // mesh.size
+    lo = mesh.index * rows
+
+    def slab(v):
+        v = np.pad(v, [(0, n - v.shape[0]), (0, 0)])[lo:lo + rows]
+        return tf.to_mont(ctx.fr_scalars(np.ascontiguousarray(v)))
+
+    def powers(base):
+        """base^i for this rank's rows i = lo .. lo + rows − 1"""
+        return tf.mont_mul(_pow_table(tf, F.const(base, ctx.device), rows),
+                           F.const(pow(base, lo, q), ctx.device))
+
+    ea, eb, ec = slab(a), slab(b), slab(c)
+    g = ctx.curve.fr.multiplicative_generator
+    g_pows, g_inv_pows = powers(g), powers(pow(g, -1, q))
+    den = F.const(pow((pow(g, n, q) - 1) % q, -1, q), ctx.device)
+
+    def to_coset(e):
+        return sntt.ntt(tf.mont_mul(sntt.intt(e), g_pows))
+
+    ca, cb, cc = to_coset(ea), to_coset(eb), to_coset(ec)
+    h_evals = tf.mont_mul(tf.sub(tf.mont_mul(ca, cb), cc), den)
+    h_nat = tf.from_mont(tf.mont_mul(sntt.intt(h_evals), g_inv_pows))
+    return ctx.domain(log_n).bit_reverse(torch.cat(mesh.all_gather(h_nat), dim=1))
+
+
 class _Checkpoint:
     """Stage checkpointing for preemptible accelerators. Copied from
     gnark_icicle_tpu/backend/groth16/prove.py:134-185: stages solve → h →
@@ -91,10 +136,12 @@ class _Checkpoint:
     witness) and dropped on mismatch. The port saves host objects only
     (ints, numpy, CPU tensors), so a resumed run loads on any device."""
 
-    def __init__(self, directory, binding: bytes):
+    def __init__(self, directory, binding: bytes, write: bool = True):
         self.dir = directory
-        os.makedirs(directory, exist_ok=True)
         self.binding = binding
+        if not write:   # a mesh's other ranks: they read what its first wrote
+            return
+        os.makedirs(directory, exist_ok=True)
         tag_path = self._p("binding")
         if os.path.exists(tag_path):
             with open(tag_path, "rb") as f:
@@ -168,12 +215,12 @@ def _pedersen_msms(ctx: DeviceCtx, pk: ProvingKey, i: int, values: list) -> tupl
     Σ vᵢ·(σ·basisᵢ) (the host's ``pedersen.commit`` and
     ``prove_knowledge``, pedersen.py:37-44) as one ``msm_batch`` of two
     problems on ctx.device: the same scalars over the key's two tables,
-    staged once per key (``device_arrays`` "pedersen"). Host affine points;
+    staged once per key (``pedersen_arrays``). Host affine points;
     (None, None) where nothing is committed."""
     if not values:
         return None, None
     t0 = time.perf_counter()
-    table, inf = pk.device_arrays(ctx)["pedersen"][i]
+    table, inf = pk.pedersen_arrays(ctx)[i]
     n = len(values)
     scal = ctx.fr_plain(values)
     res = ctx.msm_g1.msm_batch(table, inf.view(2, n), torch.stack([scal, scal]),
@@ -240,58 +287,19 @@ def _binding(cs, pk, q, commitment_hash, public_values, secret_values) -> bytes:
     ).digest()
 
 
-def prove(cs, pk: ProvingKey, public_values, secret_values, curve,
-          rng=None, checkpoint_dir: str | None = None,
-          engine: str = "device", mesh=None,
-          commitment_hash="sha256", device=None, batch_msm: bool = False) -> Proof:
-    """Generate a Groth16 proof (≙ groth16.Prove, accelerated path).
-
-    The arguments are the reference's; ``device`` is the torch device of the
-    run (default: the first CUDA card; raises without one). rng supplies the
-    blinding r, s exactly as in the reference, so one rng gives one proof.
-    commitment_hash: the BSB22 commitment hash, "sha256" (gnark's RFC 9380
-    path), ("mimc", outer_modulus) or ("evm", "sha256" | "keccak256").
-    checkpoint_dir: persist the stages solve, h and msms there, so that a
-    preempted run resumes from the last one done.
-    batch_msm: run the G1 MSMs of one padded size as one ``msm_batch``
-    (A, B1 and K on the Chain; the JAX package's ``GNARK_TPU_BATCH_MSM=1``);
-    the proof is the same.
-    engine: "device" (the kernels on ``device``) or "host" (host big-int
-    computeH and MSMs, ≙ the reference's non-accelerated prover: no device,
-    right for small systems; ``device`` and ``batch_msm`` are not read).
-    """
-    if mesh is not None:
-        raise NotImplementedError("a device mesh is not ported yet")
-    if engine not in ("device", "host"):
-        raise ValueError(f"engine must be 'device' or 'host', not {engine!r}")
+def _solve_stage(ctx, cs, pk: ProvingKey, curve, public_values, secret_values,
+                 commitment_hash, ck) -> tuple:
+    """The solve, its BSB22 commitments and their folded proof of knowledge
+    (the reference's prove.py:199-330): (the solve's result, the
+    commitments, the folded proof of knowledge or None). ctx None is the
+    host engine; ck a ``_Checkpoint`` (stage "solve") or None."""
     log = logger()
-    t_start = time.perf_counter()
     q = curve.fr.modulus
-    ctx = DeviceCtx(curve, device) if engine == "device" else None
-    rand = rng.randrange if rng is not None else (
-        lambda m: secrets.randbelow(m - 1) + 1
-    )
-
     commitment_pts = [None] * len(cs.commitments)
     committed_values = [None] * len(cs.commitments)
     poks = [None] * len(cs.commitments)
     overrides = (_bsb22_override(ctx, cs, pk, curve, commitment_hash, commitment_pts,
                                  committed_values, poks) if cs.commitments else None)
-    ck = None
-    if checkpoint_dir is not None:
-        ck = _Checkpoint(checkpoint_dir, _binding(cs, pk, q, commitment_hash, public_values,
-                                                  secret_values))
-
-    def stage():
-        t0 = time.perf_counter()
-        dev = pk.device_arrays(ctx)
-        log.info("groth16 prove: pk staging took=%.3fs", time.perf_counter() - t0)
-        return dev
-
-    # the solve's commitment override reads the Pedersen tables: the key is
-    # staged before it
-    dev = (stage() if ctx is not None and cs.commitments and not (ck is not None and ck.has("msms"))
-           else None)
     t_solve = time.perf_counter()
     res = None
     if ck is not None:
@@ -319,6 +327,67 @@ def prove(cs, pk: ProvingKey, public_values, secret_values, curve,
         challenge = hash_to_fr(msg, G16_FOLD_DST, q)[0]
         commitment_pok = pedersen.fold_proofs(curve, poks, challenge)
         log.info("groth16 prove: commitments took=%.3fs", time.perf_counter() - t_solved)
+    return res, commitment_pts, commitment_pok
+
+
+def prove(cs, pk: ProvingKey, public_values, secret_values, curve,
+          rng=None, checkpoint_dir: str | None = None,
+          engine: str = "device", mesh=None,
+          commitment_hash="sha256", device=None, batch_msm: bool = False) -> Proof:
+    """Generate a Groth16 proof (≙ groth16.Prove, accelerated path).
+
+    The arguments are the reference's; ``device`` is the torch device of the
+    run (default: the first CUDA card; raises without one). rng supplies the
+    blinding r, s exactly as in the reference, so one rng gives one proof.
+    commitment_hash: the BSB22 commitment hash, "sha256" (gnark's RFC 9380
+    path), ("mimc", outer_modulus) or ("evm", "sha256" | "keccak256").
+    checkpoint_dir: persist the stages solve, h and msms there, so that a
+    preempted run resumes from the last one done.
+    batch_msm: run the G1 MSMs of one padded size as one ``msm_batch``
+    (A, B1 and K on the Chain; the JAX package's ``GNARK_TPU_BATCH_MSM=1``);
+    the proof is the same.
+    engine: "device" (the kernels on ``device``) or "host" (host big-int
+    computeH and MSMs, ≙ the reference's non-accelerated prover: no device,
+    right for small systems; ``device`` and ``batch_msm`` are not read).
+    mesh: a ``parallel.Mesh`` of ranks that prove together, each rank of it
+    calling prove with the same arguments (``_prove_mesh``); ``device`` is
+    then None or the mesh's, the engine "device", and ``batch_msm`` is not
+    read (as in the reference, whose mesh branch comes first). Every rank
+    returns the same proof, the single device's under one rng.
+    """
+    if engine not in ("device", "host"):
+        raise ValueError(f"engine must be 'device' or 'host', not {engine!r}")
+    if mesh is not None:
+        if engine != "device":
+            raise ValueError("a mesh proves on its devices: engine must be 'device'")
+        if device is not None and torch.device(device) != mesh.device:
+            raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+        return _prove_mesh(cs, pk, public_values, secret_values, curve, rng, checkpoint_dir,
+                           mesh, commitment_hash)
+    log = logger()
+    t_start = time.perf_counter()
+    q = curve.fr.modulus
+    ctx = DeviceCtx(curve, device) if engine == "device" else None
+    rand = rng.randrange if rng is not None else (
+        lambda m: secrets.randbelow(m - 1) + 1
+    )
+    ck = None
+    if checkpoint_dir is not None:
+        ck = _Checkpoint(checkpoint_dir, _binding(cs, pk, q, commitment_hash, public_values,
+                                                  secret_values))
+
+    def stage():
+        t0 = time.perf_counter()
+        dev = pk.device_arrays(ctx)
+        log.info("groth16 prove: pk staging took=%.3fs", time.perf_counter() - t0)
+        return dev
+
+    # the solve's commitment override reads the Pedersen tables: the key is
+    # staged before it
+    dev = (stage() if ctx is not None and cs.commitments and not (ck is not None and ck.has("msms"))
+           else None)
+    res, commitment_pts, commitment_pok = _solve_stage(ctx, cs, pk, curve, public_values,
+                                                       secret_values, commitment_hash, ck)
     t_com = time.perf_counter()
 
     log_n = pk.domain_log_n
@@ -362,6 +431,78 @@ def prove(cs, pk: ProvingKey, public_values, secret_values, curve,
         cs, pk, curve, q, rand, ar_msm, bs1_msm, bs2_msm, krs_msm,
         commitment_pts, commitment_pok, logger, t_start, str(ctx.device),
     )
+
+
+def _prove_mesh(cs, pk: ProvingKey, public_values, secret_values, curve, rng,
+                checkpoint_dir, mesh, commitment_hash) -> Proof:
+    """prove on a mesh, one call on each of its ranks (the reference's
+    prove.py:371-468 with ``mesh=``). One witness: the mesh's first rank
+    solves (its BSB22 overrides draw the hiding masks and make the Pedersen
+    MSMs on its device) and draws r and s, and every rank receives the
+    solve, the commitments and r, s from it. Then computeH sharded
+    (``_compute_h_sharded``) and the MSMs (``pipelined_groth16_msms``): at
+    four ranks or more on the sub-meshes {a, b1, b2, hk}, below four
+    data-parallel on the whole mesh, each rank staging only its rows of the
+    tables it reads. Checkpoints: the
+    first rank writes, after a barrier every rank reads. Each phase's wall
+    time on this rank is logged."""
+    from ...parallel.pipeline import groth16_meshes, pipelined_groth16_msms, table_shards
+
+    log = logger()
+    t_start = time.perf_counter()
+    q = curve.fr.modulus
+    ctx = DeviceCtx(curve, mesh.device)
+    lead = mesh.index == 0
+    ck = None
+    if checkpoint_dir is not None:
+        binding = _binding(cs, pk, q, commitment_hash, public_values, secret_values)
+        if lead:
+            ck = _Checkpoint(checkpoint_dir, binding)
+        mesh.barrier()
+        if not lead:
+            ck = _Checkpoint(checkpoint_dir, binding, write=False)
+    sent = None
+    if lead:
+        rand = rng.randrange if rng is not None else (lambda m: secrets.randbelow(m - 1) + 1)
+        sent = (*_solve_stage(ctx, cs, pk, curve, public_values, secret_values,
+                              commitment_hash, ck), (rand(q), rand(q)))
+    res, commitment_pts, commitment_pok, rs = mesh.broadcast_object(sent)
+    t_com = time.perf_counter()
+    log.info("groth16 prove: witness took=%.3fs", t_com - t_start)
+
+    W = ctx.fr.n32
+    msms = ck.load("msms") if ck is not None else None
+    if msms is None:
+        h = ck.load("h") if ck is not None else None
+        if h is None:
+            h = _compute_h_sharded(ctx, solved_u32(res, "a", W), solved_u32(res, "b", W),
+                                   solved_u32(res, "c", W), pk.domain_log_n, mesh)
+            if ck is not None and lead:
+                ck.save("h", h.cpu())
+        h = h.to(ctx.device)
+        ctx.sync()
+        t_h = time.perf_counter()
+        log.info("groth16 prove: computeH took=%.3fs", t_h - t_com)
+        meshes = groth16_meshes(mesh)
+        dev = pk.device_arrays(ctx, table_shards(meshes))
+        t_pk = time.perf_counter()
+        log.info("groth16 prove: pk staging took=%.3fs", t_pk - t_h)
+        wires = ctx.fr_scalars(solved_u32(res, "wires", W))
+        if cs.commitments:
+            priv = wires.index_select(1, _k_index(cs, dev, wires.shape[1], ctx.device))
+        else:
+            priv = wires[:, cs.nb_public:].contiguous()
+        out = pipelined_groth16_msms(ctx, mesh, meshes, dev, wires, priv, h)
+        msms = (out["ar"], out["bs1"], out["bs2"],
+                [out[k] for k in ("krs_k", "krs_z") if k in out])
+        if ck is not None and lead:
+            ck.save("msms", msms)
+        log.info("groth16 prove: msms took=%.3fs", time.perf_counter() - t_pk)
+    if ck is not None:
+        mesh.barrier()    # nothing reads the directory after the first rank's writes
+    drawn = iter(rs)
+    return _assemble_proof(cs, pk, curve, q, lambda m: next(drawn), *msms, commitment_pts,
+                           commitment_pok, logger, t_start, f"mesh of {mesh.size}")
 
 
 def _commitment_wires(cs, res, q: int) -> list:

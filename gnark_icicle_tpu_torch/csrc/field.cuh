@@ -426,12 +426,15 @@ __device__ __forceinline__ void fstore(uint32_t* base, long long ld, long long l
 struct NttPass {
   const uint32_t* x;      // input (N, n)
   uint32_t* out;          // output (N, n); may be x (every tile is read before it is written)
-  const uint32_t* tws;    // stage-major twiddles (N, n): stage s (half-width 2^s) at columns 2^s + j
+  const uint32_t* tws;    // stage-major twiddles (N, tw_ld): stage s (half-width 2^s) at
+                          // columns 2^s + j, so tw_ld >= 2^(s_lo + c) and columns from
+                          // there on are never read: a batch of transforms of m | n
+                          // (blocks of m consecutive elements) reads a table of m
   const uint32_t* mul;    // load x * mul[i] (N, n), or null
   const uint32_t* sub;    // then - sub[i] (N, n), or null
   const uint32_t* scale;  // then * scale (N, scale_ld): column i, or 0 where scale_ld == 1; or null
   const uint32_t* post;   // store v * post (N, post_ld), as scale; or null
-  long long n, scale_ld, post_ld;
+  long long n, tw_ld, scale_ld, post_ld;
   int s_lo, c, log_t, log_g, dif;
 };
 
@@ -496,7 +499,7 @@ __device__ __forceinline__ void ntt_butterfly(const NttPass& a, uint32_t* sm, co
   const int E = 1 << ntt_log_tile(a), p = a.log_t + L;
   const int e0 = ((b >> p) << (p + 1)) | (b & ((1 << p) - 1)), e1 = e0 | (1 << p);
   const int t = e0 & ((1 << a.log_t) - 1), r0 = (e0 >> a.log_t) & ((1 << L) - 1);
-  const Elt<P> w = fload<P>(tw, a.n, ((long long)r0 << a.s_lo) + t);
+  const Elt<P> w = fload<P>(tw, a.tw_ld, ((long long)r0 << a.s_lo) + t);
   const Elt<P> x0 = tload<P>(sm, E, e0), x1 = tload<P>(sm, E, e1);
   if (a.dif) {
     tstore<P>(sm, E, e0, fadd(x0, x1));

@@ -190,30 +190,33 @@ extern "C" int ENTRY(fr_batch_inv)(const void* x, void* out, long long n, void* 
   return (int)cudaGetLastError();
 }
 
-// x, out, tws, mul, sub, scale, post: (N, n) limb-major planes (scale and
-// post (N, 1) where their ld is 1); mul, sub, scale and post may be null.
-// The tile of 2^(log_g + c + log_t) elements must divide n, and log_t may
-// not exceed s_lo. Above 48 KB a block's shared memory takes the function
-// attribute, set once; a refused launch is returned, never skipped.
-extern "C" int ENTRY(ntt_pass)(const void* x, void* out, const void* tws, const void* mul,
-                               const void* sub, const void* scale, long long scale_ld,
+// x, out, mul, sub, scale, post: (N, n) limb-major planes (scale and post
+// (N, 1) where their ld is 1); mul, sub, scale and post may be null. tws:
+// (N, tw_ld) with tw_ld >= 2^(s_lo + c); a pass of a batch of transforms of m
+// (n / m blocks of m consecutive elements, stages below log m) reads the
+// m-wide table of one transform. The tile of 2^(log_g + c + log_t) elements
+// must divide n, and log_t may not exceed s_lo. Above 48 KB a block's shared
+// memory takes the function attribute, which belongs to the current device:
+// it is set at every such launch, as field.cuh's other kernels set theirs, so
+// that every card takes it. A refused launch is returned, never skipped.
+extern "C" int ENTRY(ntt_pass)(const void* x, void* out, const void* tws, long long tw_ld,
+                               const void* mul, const void* sub, const void* scale,
+                               long long scale_ld,
                                const void* post, long long post_ld, long long n, int s_lo, int c,
                                int log_t, int log_g, int dif, void* stream) {
-  static bool attr_set = false;
   const int log_e = log_g + c + log_t;
   if (log_e > NTT_LOG_TILE_MAX || log_t > s_lo || c < 0 || log_g < 0 || n < (1LL << log_e) ||
-      (n & ((1LL << log_e) - 1)) != 0)
+      (n & ((1LL << log_e) - 1)) != 0 || tw_ld < (1LL << (s_lo + c)))
     return (int)cudaErrorInvalidValue;
-  if (!attr_set) {
+  if ((4 << log_e) * FrM::N > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(k_ntt_pass,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                (4 << NTT_LOG_TILE_MAX) * FrM::N);
     if (e != cudaSuccess) return (int)e;
-    attr_set = true;
   }
   NttPass a{(const uint32_t*)x, (uint32_t*)out, (const uint32_t*)tws, (const uint32_t*)mul,
             (const uint32_t*)sub, (const uint32_t*)scale, (const uint32_t*)post,
-            n, scale_ld, post_ld, s_lo, c, log_t, log_g, dif};
+            n, tw_ld, scale_ld, post_ld, s_lo, c, log_t, log_g, dif};
   const long long E = 1LL << log_e;
   const int threads = E / 2 < 32 ? 32 : (E / 2 > NTT_THREADS ? NTT_THREADS : (int)(E / 2));
   k_ntt_pass<<<(unsigned int)(n >> log_e), threads, (size_t)(4 * E * FrM::N),

@@ -57,8 +57,8 @@ SIGNATURES = {
         "fr_add": [_P, _P, _P, _I64, _P],
         "plonk_quotient": [_P, _P, _P, _P, _I64, _P],
         "fr_batch_inv": [_P, _P, _I64, _P],
-        "ntt_pass": [_P, _P, _P, _P, _P, _P, _I64, _P, _I64, _I64, _I32, _I32, _I32,
-                     _I32, _I32, _P],
+        "ntt_pass": [_P, _P, _P, _I64, _P, _P, _P, _I64, _P, _I64, _I64, _I32, _I32,
+                     _I32, _I32, _I32, _P],
     },
     "g1": {
         "g1_add_mixed_masked": [_P, _I64, _I64, _P, _P, _P, _P, _P, _I32, _P],
@@ -244,7 +244,11 @@ class Kernel:
         KERNELS[self.name] = self
 
     def launch(self, *args) -> None:
-        check(fn(self.lib, self.name)(*args), self.name)
+        """Call the entry with ``args``, whose last is the launch's
+        :func:`stream`: the launch runs with that stream's device current,
+        whatever device the calling thread has current."""
+        with torch.cuda.device(args[-1].device):
+            check(fn(self.lib, self.name)(*args), self.name)
         self.launches += 1
 
 
@@ -263,8 +267,20 @@ def resolve_device(device) -> torch.device:
     return default_device() if device is None else torch.device(device)
 
 
-def stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+class LaunchStream:
+    """The current stream of a tensor's device, as a kernel entry's last
+    argument: ctypes passes its handle (``_as_parameter_``), and
+    :meth:`Kernel.launch` makes its ``device`` current around the call, so
+    that a launch on ``cuda:1`` from a thread whose current device is
+    ``cuda:0`` runs on ``cuda:1``."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self._as_parameter_ = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def stream(t: torch.Tensor) -> LaunchStream:
+    return LaunchStream(t.device)
 
 
 def is_cuda(*tensors) -> bool:

@@ -7,6 +7,13 @@ transforms computeH uses — ``intt_nat_to_rev`` (:317), ``coset_ntt_rev_in``
 ``coset_ntt_nat`` (:360) and ``coset_intt_nat`` (:366), plus ``ntt`` and
 ``intt``. Data is one ``(W, n)`` Montgomery tensor (``ops/field.py``); the
 reference's ``(n, 2W)`` arrays act along axis -2, these along the last axis.
+The reference's leading batch axes (:150-152, :216-246) are a ``(W, G·n)``
+tensor of G transforms, each n consecutive elements, through ``ntt``,
+``intt``, their ``*_nat_to_rev`` forms and ``bit_reverse`` (the sharded
+NTT's sub-transforms, ``parallel/ntt.py``): stage s < log n reads columns
+2^s .. 2^(s+1) − 1 of the stage-major table, which hold ω_{2^(s+1)}^j
+whatever the data's width, so a batch is the same passes over G times the
+tiles, reading the n-wide table of one transform (``ntt_pass``'s ``tw_ld``).
 
 A transform of 2^k is the reference's radix-2 stages (its per-stage K1
 products, ops/ntt.py:204 ``_butterflies_t``) cut into the passes of
@@ -156,15 +163,19 @@ def ntt_pass(F: Field, x: torch.Tensor, tws: torch.Tensor, p: NttPass, dif: bool
     highest down, DIT from the lowest up), stored times post, into out (a
     new tensor where out is None; out may be x). mul and sub are (W, n),
     scale and post (W, n) or one (W, 1) column; each may be None. tws is the
-    (W, n) stage-major twiddle table (:func:`stage_major_indices`)."""
+    (W, m) stage-major twiddle table (:func:`stage_major_indices`) of a
+    transform of m: m = n, or a power of two m | n with 2^(p.s_lo + p.c) ≤ m
+    for a pass over a batch of n / m transforms of m consecutive elements."""
     ops = (mul, sub, scale, post, out)
     if not is_cuda(x, tws, *ops):
         return ntt_pass_plain(F, x, tws, p, dif, mul, sub, scale, post, out)
-    n = x.shape[1]
+    n, m = x.shape[1], tws.shape[1]
     check_lanes(F.n32, x, tws, *[t for t in ops if t is not None])
-    require(tws.shape[1] == n and all(t is None or t.shape[1] == n for t in (mul, sub, out))
+    require(all(t is None or t.shape[1] == n for t in (mul, sub, out))
             and all(t is None or t.shape[1] in (1, n) for t in (scale, post)),
             "ntt_pass takes (W, n) operands, and scale and post may be (W, 1)")
+    require(m & (m - 1) == 0 and n % m == 0 and m >= 1 << (p.s_lo + p.c),
+            "the twiddle table is not one of a transform of the pass's stages dividing n")
     require(p.log_t <= p.s_lo and (n >> (p.log_g + p.c + p.log_t)) << (p.log_g + p.c + p.log_t) == n,
             "the pass's tile does not divide the data")
     if out is None:
@@ -177,7 +188,7 @@ def ntt_pass(F: Field, x: torch.Tensor, tws: torch.Tensor, p: NttPass, dif: bool
         return 0 if t is None else t.shape[1]
 
     fr_kernels(F.modulus)["ntt_pass"].launch(
-        x.data_ptr(), out.data_ptr(), tws.data_ptr(), ptr(mul), ptr(sub), ptr(scale), ld(scale),
+        x.data_ptr(), out.data_ptr(), tws.data_ptr(), m, ptr(mul), ptr(sub), ptr(scale), ld(scale),
         ptr(post), ld(post), n, p.s_lo, p.c, p.log_t, p.log_g, int(dif), stream(x))
     return out
 
@@ -214,6 +225,7 @@ class Domain:
         self._tw: dict = {}
         self.n_inv = F.const(pow(self.n, -1, q), self.device)
         self._rev = torch.from_numpy(bitrev_indices(self.n)).to(self.device)
+        self._revs = {self.n: self._rev}    # data width -> per-block bit reversal
         self.coset_gen = coset_gen
         if coset_gen is not None:
             g = F.const(coset_gen, self.device)
@@ -250,7 +262,12 @@ class Domain:
                    scale=None, post=None) -> torch.Tensor:
         """The passes of pass_split in order (DIF from the highest stages
         down: natural in, bit-reversed out; DIT from the lowest up), the
-        load's scalings on the first and post on the last."""
+        load's scalings on the first and post on the last. x is (W, G·n):
+        G transforms of n consecutive elements; mul, sub, scale and post
+        are (W, 1) columns or as wide as x."""
+        if x.shape[1] % self.n:
+            raise ValueError(f"a batch of transforms of 2^{self.log_n} takes a multiple of "
+                             f"{self.n} columns, not {x.shape[1]}")
         passes = pass_split(self.log_n)
         if dif:
             passes = passes[::-1]
@@ -275,7 +292,14 @@ class Domain:
         return self._transform(evals, "i", True, post=self.n_inv)
 
     def bit_reverse(self, x):
-        return x.index_select(1, self._rev)
+        """Each block of n columns in bit-reversed order (one index_select)."""
+        width = x.shape[1]
+        if width not in self._revs:
+            if width % self.n:
+                raise ValueError(f"{width} columns are no batch of 2^{self.log_n}")
+            base = torch.arange(0, width, self.n, device=self.device)
+            self._revs[width] = (base[:, None] + self._rev[None, :]).reshape(-1)
+        return x.index_select(1, self._revs[width])
 
     def ntt(self, coeffs):
         """natural -> natural forward transform."""

@@ -29,7 +29,7 @@ from gnark_icicle_tpu_torch.ops.field_t import (
 )
 from gnark_icicle_tpu_torch.ops.msm import msm_host
 from gnark_icicle_tpu_torch.ops.ntt import (
-    domain_for, ntt_pass, ntt_pass_plain, pass_split, split_stages,
+    Domain, domain_for, ntt_pass, ntt_pass_plain, pass_split, split_stages,
 )
 
 from test_torch_common import (  # noqa: F401
@@ -156,6 +156,53 @@ def test_ntt_pass_kernel_matches_plain(cuda_device, name):
                 y = x.clone()
                 assert ntt_pass(F, y, tws, p, dif, **ops, out=y) is y
                 assert torch.equal(y, want)
+
+
+@pytest.mark.parametrize("name", ["bn254", "bw6_761"])
+@pytest.mark.parametrize("log_m,blocks", [(9, 128), (12, 16)])
+def test_ntt_pass_batched_matches_plain(cuda_device, name, log_m, blocks):
+    """ntt_pass over a batch of transforms (the sharded NTT's sub-transforms:
+    128 of 2^9, the 2^18 computeH's at four ranks, one pass; 16 of 2^12, two
+    passes) against ntt_pass_plain, reading the m-wide table of one
+    transform at its own stride, DIF with a table as wide as the batch on
+    the store and DIT; then the batched Domain transforms against each
+    block transformed alone on the card."""
+    fr = CURVES[name].fr
+    F = field_for(fr.modulus)
+    m = 1 << log_m
+    dom = Domain(F, log_m, fr.root_of_unity(log_m), None, cuda_device)
+    tws = dom._twiddles("f")
+    x = F.encode(rand_ints(95, fr.modulus, m * blocks), cuda_device)
+    post = F.encode(rand_ints(96, fr.modulus, m * blocks), cuda_device)
+    for p in pass_split(log_m):
+        for dif, ops in ((True, {"post": post}), (False, {})):
+            want = ntt_pass_plain(F, x, tws, p, dif, **ops)
+            assert torch.equal(ntt_pass(F, x, tws, p, dif, **ops), want)
+    for method in ("ntt", "intt"):
+        got = getattr(dom, method)(x)
+        for b in (0, blocks // 2, blocks - 1):
+            cut = slice(b * m, (b + 1) * m)
+            assert torch.equal(got[:, cut], getattr(dom, method)(x[:, cut].contiguous()))
+
+
+@pytest.mark.parametrize("checks", ["ntt,msm", "prove"])
+def test_sharded_two_ranks_on_card(cuda_device, checks):
+    """Two ranks sharing the card over gloo (parallel/dryrun.py): the
+    sharded NTT and the sharded G1 and G2 MSMs equal the single card's, and
+    the sharded Chain's proof the single card's bytes, verified."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-m", "gnark_icicle_tpu_torch.parallel.dryrun", "2",
+                          "--device", "cuda", "--backend", "gloo", "--checks", checks],
+                         cwd=repo, capture_output=True, text=True, timeout=600,
+                         env=dict(os.environ, PYTHONPATH=repo))
+    assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-6000:]
+    lines = [ln for ln in out.stdout.splitlines() if ln.startswith("{")]
+    assert len(lines) == len(checks.split(","))
+    assert all('"device": "cuda:0"' in ln for ln in lines)
 
 
 @pytest.mark.parametrize("name", NAMES)

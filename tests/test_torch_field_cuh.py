@@ -178,29 +178,29 @@ template <class E, class B3, class RD, class WR> void reduce_ops(RD rd, WR wr) {
   }
 }
 
-// "ntt n s_lo c log_t log_g dif has_mul has_sub scale_ld post_ld <x> <tws>
-// [<mul>] [<sub>] [<scale>] [<post>]": one NTT pass as k_ntt_pass runs it,
+// "ntt n tw_ld s_lo c log_t log_g dif has_mul has_sub scale_ld post_ld <x>
+// <tws> [<mul>] [<sub>] [<scale>] [<post>]": one NTT pass as k_ntt_pass runs it,
 // block after block, each step thread after thread; prints the output
 template <class P> void ntt_ops() {
   std::string op;
   while (std::cin >> op && op != "end") {
-    long long n, scale_ld, post_ld;
+    long long n, tw_ld, scale_ld, post_ld;
     int s_lo, c, log_t, log_g, dif, has_mul, has_sub;
-    std::cin >> std::dec >> n >> s_lo >> c >> log_t >> log_g >> dif >> has_mul >> has_sub >>
-        scale_ld >> post_ld;
+    std::cin >> std::dec >> n >> tw_ld >> s_lo >> c >> log_t >> log_g >> dif >> has_mul >>
+        has_sub >> scale_ld >> post_ld;
     auto plane = [&](long long m) {
       std::vector<uint32_t> v(P::N * m);
       for (long long i = 0; i < m; ++i) fstore<P>(v.data(), m, i, rd<P>());
       return v;
     };
-    const auto x = plane(n), tws = plane(n);
+    const auto x = plane(n), tws = plane(tw_ld);
     const auto mul = plane(has_mul ? n : 0), sub = plane(has_sub ? n : 0);
     const auto scale = plane(scale_ld), post = plane(post_ld);
     std::vector<uint32_t> out(P::N * n);
     const NttPass a{x.data(), out.data(), tws.data(), has_mul ? mul.data() : nullptr,
                     has_sub ? sub.data() : nullptr, scale_ld ? scale.data() : nullptr,
-                    post_ld ? post.data() : nullptr, n, scale_ld, post_ld, s_lo, c, log_t,
-                    log_g, dif};
+                    post_ld ? post.data() : nullptr, n, tw_ld, scale_ld, post_ld, s_lo, c,
+                    log_t, log_g, dif};
     const int E = 1 << ntt_log_tile(a);
     std::vector<uint32_t> sm(P::N * E);
     for (long long blk = 0; blk < n / E; ++blk) {
@@ -639,7 +639,9 @@ def test_ntt_pass_matches_plain(host_build, name):
     (DIF with 1/n on the store, DIT with the coset powers on the load), and
     at 2^8 a pass of each position on tiles of several groups and columns,
     with computeH's pointwise (a·b − c)·den on the load and a table on the
-    store; random Montgomery values led by 0, 1, p − 1."""
+    store, and the two passes of a batch of eight transforms of 2^5 that
+    read a table of 2^5 (the twiddles' own row stride); random Montgomery
+    values led by 0, 1, p − 1."""
     import torch
 
     from gnark_icicle_tpu_torch.ops.field import field_for
@@ -666,11 +668,14 @@ def test_ntt_pass_matches_plain(host_build, name):
               (n, NttPass(3, 3, 3, 0), False, {"post": arr(n)}),
               (n, NttPass(0, 3, 0, 2), True, {}),
               (n, NttPass(0, 3, 0, 2), False, {"scale": arr(n)})]
+    cases = [(n_, n_, p, dif, ops) for n_, p, dif, ops in cases] + [
+        (n, 32, NttPass(0, 3, 0, 0), True, {}), (n, 32, NttPass(3, 2, 1, 0), False, {})]
     lines, want = ["ntt"], []
-    for n, p, dif, ops in cases:
-        x, tws = arr(n), arr(n)
+    for n, m, p, dif, ops in cases:
+        x, tws = arr(n), arr(m)
         scale, post = ops.get("scale"), ops.get("post")
-        head = (f"pass {n} {p.s_lo} {p.c} {p.log_t} {p.log_g} {int(dif)} {int('mul' in ops)} "
+        head = (f"pass {n} {m} {p.s_lo} {p.c} {p.log_t} {p.log_g} {int(dif)} "
+                f"{int('mul' in ops)} "
                 f"{int('sub' in ops)} {0 if scale is None else scale.shape[1]} "
                 f"{0 if post is None else post.shape[1]}")
         lines.append(" ".join([head, words(x), words(tws)] + [

@@ -177,11 +177,11 @@ def test_key_carry_roundtrip(run):
     assert isinstance(pk.g2_beta[0], int) == (run["name"] == "bw6_761")
 
 
-@pytest.mark.parametrize("kw", [{"mesh": object()}, {"engine": "tpu"}])
+@pytest.mark.parametrize("kw", [{"engine": "tpu"}])
 def test_unported_options_raise(slice_run, kw):
-    """A mesh is not ported; an engine other than "device" and "host" (the
-    host engine is ported) does not exist."""
-    with pytest.raises(NotImplementedError if "mesh" in kw else ValueError):
+    """An engine other than "device" and "host" (the host engine is ported)
+    does not exist."""
+    with pytest.raises(ValueError):
         groth16.prove(slice_run["cs"], slice_run["pk"], slice_run["pub"],
                       slice_run["sec"], CURVE, device="cpu", **kw)
 

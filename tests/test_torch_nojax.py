@@ -20,7 +20,8 @@ others among the imports): chip_smoke.py's TransferCircuit at depth 2 compiled
 and solved, an overdraft refused; then the host engine (the recursion verifiers,
 the emulated pairings, BLS24-315, testing.py and stats.py among the imports):
 the slice's circuit proved again with ``engine="host"``, to the device
-engine's bytes. chip_smoke.py refuses to run without a GPU, and the entry
+engine's bytes (the multi-device layer, ``parallel/`` with its dry run, among
+the imports). chip_smoke.py refuses to run without a GPU, and the entry
 points raise where there is no card and no ``device="cpu"`` under their
 default engines.
 """
@@ -76,7 +77,8 @@ for name in ("curves.bls12_377", "curves.bw6_761", "std.algebra_native",
              "std.pairing_bls12_381", "std.pairing_bw6_761", "std.kzg_gadget",
              "std.recursion.groth16", "std.recursion.plonk", "std.recursion.native_plonk",
              "backend.groth16.host_compute", "backend.plonk.host_engine", "curves.bls24_315",
-             "testing", "stats"):
+             "testing", "stats", "parallel", "parallel.mesh", "parallel.msm", "parallel.ntt",
+             "parallel.pipeline", "parallel.dryrun"):
     assert "gnark_icicle_tpu_torch." + name in sys.modules, name
 
 from gnark_icicle_tpu_torch.curves import bn254
@@ -275,7 +277,7 @@ def test_chip_smoke_refuses_without_gpu(tmp_path):
 
 @pytest.mark.parametrize("entry", ["setup", "prove", "DeviceCtx", "msm_host", "plonk.setup",
                                    "plonk.prove", "KZG.commit", "unsafe_srs", "Groth16Prover",
-                                   "PlonkProver", "device_trace"])
+                                   "PlonkProver", "device_trace", "dryrun", "rank_device"])
 def test_entry_points_raise_without_cuda(entry):
     """No device given and no card: every entry point raises instead of
     running the plain versions on the CPU."""
@@ -293,6 +295,8 @@ def test_entry_points_raise_without_cuda(entry):
     from gnark_icicle_tpu_torch.ops.ec_t import TCurve
     from gnark_icicle_tpu_torch.ops.field import field_for
     from gnark_icicle_tpu_torch.ops.msm import msm_host
+    from gnark_icicle_tpu_torch.parallel.dryrun import dryrun
+    from gnark_icicle_tpu_torch.parallel.mesh import rank_device
 
     class Square(Circuit):
         x = Secret()
@@ -320,6 +324,8 @@ def test_entry_points_raise_without_cuda(entry):
         "PlonkProver": lambda: PlonkProver(compile_circuit(bn254.R, Square, builder="scs"),
                                            None, curve),
         "device_trace": lambda: profile.device_trace("unused").__enter__(),
+        "dryrun": lambda: dryrun(2),
+        "rank_device": lambda: rank_device(None, local_rank=0),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
